@@ -1,0 +1,41 @@
+"""horovod_tpu_torch: the data-parallel path of horovod_tpu on PyTorch
+and CUDA (NVIDIA Hopper).
+
+Counterpart of ``horovod_tpu/__init__.py`` for the ported slice:
+``init``/``shutdown`` and the rank queries on ``torch.distributed``,
+``DistributedOptimizer`` over the bucketed scheduler with the bf16 wire,
+``broadcast_parameters``/``broadcast_optimizer_state``, the ResNet model
+and the benchmark step.  Importing it imports neither JAX nor
+``horovod_tpu``.
+"""
+
+from .compression import Compression
+from .functions import broadcast_optimizer_state, broadcast_parameters
+from .ops.collectives import (
+    Average,
+    ReduceOp,
+    Sum,
+    allreduce,
+    allreduce_,
+    broadcast,
+    broadcast_,
+)
+from .optim.distributed_optimizer import DistributedOptimizer, TrainStep
+from .runtime import (
+    device,
+    init,
+    is_initialized,
+    local_rank,
+    rank,
+    shutdown,
+    size,
+)
+from .version import __version__
+
+__all__ = [
+    "Average", "Compression", "DistributedOptimizer", "ReduceOp", "Sum",
+    "TrainStep", "__version__", "allreduce", "allreduce_", "broadcast",
+    "broadcast_", "broadcast_optimizer_state", "broadcast_parameters",
+    "device", "init", "is_initialized", "local_rank", "rank", "shutdown",
+    "size",
+]

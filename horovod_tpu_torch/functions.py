@@ -1,0 +1,59 @@
+"""Broadcast model and optimizer state from one rank.
+
+Counterpart of ``horovod_tpu/functions.py`` ``broadcast_parameters``
+(``:88``) and ``broadcast_optimizer_state`` (``:157``), in the shape of
+the reference's ``horovod/torch/functions.py``: parameters go as
+tensors, fused into one buffer per dtype; optimizer state as a pickled
+object.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Tuple, Union
+
+import torch
+
+from . import runtime
+from .ops import collectives, fusion
+
+
+def broadcast_parameters(
+    params: Union[Dict[str, torch.Tensor], Iterable[Tuple[str, torch.Tensor]]],
+    root_rank: int = 0,
+) -> None:
+    """Overwrite ``params`` (a ``state_dict`` or ``named_parameters()``)
+    with ``root_rank``'s values, in place.  A no-op in a world of one."""
+    if runtime.size() == 1:
+        return
+    items = params.items() if isinstance(params, dict) else params
+    tensors = [t for _, t in sorted(items, key=lambda kv: kv[0])]
+    if not tensors:
+        return
+    with torch.no_grad():
+        flats, meta = fusion.flatten_group(tensors)
+        for f in flats:
+            collectives.broadcast_(f, root_rank)
+        for t, r in zip(tensors, fusion.unflatten_group(flats, meta)):
+            t.copy_(r)
+
+
+def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
+                              root_rank: int = 0) -> None:
+    """Load ``root_rank``'s optimizer state into ``optimizer`` on every
+    rank.  A no-op in a world of one."""
+    if runtime.size() == 1:
+        return
+    state = optimizer.state_dict()
+
+    def to_cpu(v):
+        if torch.is_tensor(v):
+            return v.detach().cpu()
+        if isinstance(v, dict):
+            return {k: to_cpu(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(to_cpu(x) for x in v)
+        return v
+
+    synced = runtime.broadcast_object(to_cpu(state), root_rank)
+    # load_state_dict moves state tensors onto each parameter's device.
+    optimizer.load_state_dict(synced)

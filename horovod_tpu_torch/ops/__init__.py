@@ -1,0 +1,1 @@
+"""Collectives, fusion and the hand-written kernels of the port."""

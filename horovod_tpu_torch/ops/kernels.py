@@ -1,0 +1,132 @@
+"""Kernel B1, the fused scale/cast, and its plain PyTorch version.
+
+Counterpart of ``horovod_tpu/ops/pallas_kernels.py`` (``scale_buffer``,
+``cast_buffer``, ``_scale_buffer_impl`` and its custom VJP).  The Pallas
+kernel becomes ``csrc/scale_cast.cu``, built with ``nvcc`` for
+``sm_90a`` at first use and called through ctypes on PyTorch's current
+stream.
+
+``out = (x.float() * scale).to(dtype)`` for x and out in float32,
+bfloat16 or float16; the scale is rounded to float32 first, as the JAX
+kernel keeps it.  On a CPU tensor the wrapper computes the plain version
+(:func:`scale_cast_reference`); on a CUDA tensor it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import build
+
+# dtype codes of csrc/scale_cast.cu
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def scale_cast_reference(
+    x: torch.Tensor, scale: float, dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """Plain version of B1: ``(x.float() * float32(scale)).to(dtype)``."""
+    dtype = x.dtype if dtype is None else dtype
+    return (x.float() * float(np.float32(scale))).to(dtype)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("scale_cast")
+    fn = lib.hvd_scale_cast
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def scale_cast(
+    x: torch.Tensor, scale: float, dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """B1 without autograd: one pass ``out = cvt_rn(float(x) * scale)``.
+
+    CPU tensors take :func:`scale_cast_reference`.  CUDA tensors must be
+    contiguous and of a supported dtype; the output comes from
+    ``torch.empty`` and the kernel runs on the current stream.
+    ``scale_cast.launches`` counts kernel launches."""
+    dtype = x.dtype if dtype is None else dtype
+    if x.dtype not in _KIND or dtype not in _KIND:
+        raise TypeError(
+            f"scale_cast supports float32/bfloat16/float16, got "
+            f"{x.dtype} -> {dtype}"
+        )
+    if x.device.type == "cpu":
+        return scale_cast_reference(x, scale, dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"scale_cast: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("scale_cast: input must be contiguous")
+    out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    n = x.numel()
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.hvd_scale_cast(
+            x.data_ptr(), _KIND[x.dtype], out.data_ptr(), _KIND[dtype],
+            n, float(np.float32(scale)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"scale_cast kernel launch failed: cudaError {rc}")
+    scale_cast.launches += 1
+    return out
+
+
+scale_cast.launches = 0
+
+
+class _ScaleBuffer(torch.autograd.Function):
+    """``dx = g * scale`` through the same kernel; ``dscale = Σ g·x`` in
+    float32 (``pallas_kernels.py`` ``_scale_buffer_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, dtype):
+        ctx.save_for_backward(x, scale)
+        return scale_cast(x, float(scale), dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx = dscale = None
+        if ctx.needs_input_grad[0]:
+            dx = scale_cast(g.contiguous(), float(scale), x.dtype)
+        if ctx.needs_input_grad[1]:
+            dscale = (g.float() * x.float()).sum().to(scale.dtype)
+        return dx, dscale, None
+
+
+def scale_buffer(
+    x: torch.Tensor, scale, dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """``out = (x * scale).to(dtype)`` through B1, differentiable in ``x``
+    and, when ``scale`` is a tensor, in ``scale``."""
+    dtype = x.dtype if dtype is None else dtype
+    scale_t = torch.is_tensor(scale)
+    if torch.is_grad_enabled() and (
+        x.requires_grad or (scale_t and scale.requires_grad)
+    ):
+        if not scale_t:
+            scale = torch.tensor(scale, dtype=torch.float32)
+        return _ScaleBuffer.apply(x, scale, dtype)
+    return scale_cast(x, float(scale), dtype)
+
+
+def cast_buffer(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.to(dtype)`` through B1 at scale 1 (the bf16 wire's casts);
+    identity when the dtype already matches."""
+    if x.dtype == dtype:
+        return x
+    return scale_buffer(x, 1.0, dtype)

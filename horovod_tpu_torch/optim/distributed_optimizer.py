@@ -1,0 +1,287 @@
+"""DistributedOptimizer and the data-parallel train step.
+
+Counterpart of ``horovod_tpu/optim/distributed_optimizer.py``:
+``DistributedOptimizer`` (``:615``, with the predivide split of
+``:648-657``), the scheduler path of ``_reduce_gradients`` and
+``TrainStep`` (``:815``, the semantics of ``:907-934``).  The API has the
+shape of ``horovod_tpu/interop/torch.py`` and the reference's
+``horovod.torch``: the wrapper IS-A ``type(optimizer)``, takes
+``named_parameters``, and reduces the gradients in ``step()`` (or an
+explicit ``synchronize()``) before the wrapped optimizer applies them.
+
+The reduction is the bucketed scheduler: gradients are compressed,
+planned into buckets in reverse-backward order (the readiness order the
+post-accumulate-grad hooks saw in the first backward, rank 0's copy),
+and each bucket is allreduced as one flat buffer per dtype, with a bf16
+wire around it when ``HVD_TPU_SCHED_WIRE=bf16``.  The collectives run
+after the backward, not overlapped with it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .. import runtime
+from ..compression import Compression, Compressor
+from ..ops import collectives, fusion
+from ..ops.collectives import Average, Sum
+from ..sched import execute
+from ..sched.hooks import GradOrder
+from ..sched.plan import (
+    BucketSchedule,
+    SchedConfig,
+    build_schedule,
+    dtype_name,
+)
+
+
+class _DistributedOptimizer:
+    """Gradient-averaging wrapper around a ``torch.optim.Optimizer``."""
+
+    def __init__(
+        self,
+        optimizer: torch.optim.Optimizer,
+        named_parameters: Optional[Iterable[Tuple[str, torch.Tensor]]] = None,
+        *,
+        op: int = Average,
+        compression: type[Compressor] = Compression.none,
+        backward_passes_per_step: int = 1,
+        average_aggregated_gradients: bool = True,
+        gradient_predivide_factor: float = 1.0,
+        prescale_factor: float = 1.0,
+        postscale_factor: float = 1.0,
+        fusion_threshold_bytes: Optional[int] = None,
+    ):
+        if op not in (Average, Sum):
+            raise ValueError("DistributedOptimizer supports op=Average or Sum")
+        if gradient_predivide_factor != 1.0:
+            if op != Average:
+                raise ValueError(
+                    "gradient_predivide_factor requires op=Average "
+                    "(reference torch/optimizer.py:194)"
+                )
+            # Reference split: prescale by 1/f before the sum, postscale
+            # by f/size after.
+            prescale_factor = prescale_factor / gradient_predivide_factor
+            postscale_factor = postscale_factor * gradient_predivide_factor
+        self._k = int(backward_passes_per_step)
+        if self._k < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
+        self._opt = optimizer
+        self._op = op
+        self._compression = compression
+        self._avg_agg = average_aggregated_gradients
+        self._prescale = prescale_factor
+        self._postscale = postscale_factor
+        self._fusion_threshold = fusion_threshold_bytes
+        self._params: List[torch.Tensor] = [
+            p for group in optimizer.param_groups for p in group["params"]
+            if p.requires_grad
+        ]
+        if named_parameters is not None:
+            self._check_names(named_parameters)
+        cfg = SchedConfig.from_env()
+        self._order = (
+            GradOrder(self._params)
+            if cfg.enabled and cfg.capture_order else None
+        )
+        self._schedule_key = None
+        self._schedule: Optional[BucketSchedule] = None
+        self._calls = 0
+        self._synchronized = False
+
+    def _check_names(self, named_parameters) -> None:
+        """The reference's check: unique names covering every parameter
+        the optimizer updates."""
+        names, named = set(), set()
+        for name, p in named_parameters:
+            if name in names:
+                raise ValueError(f"named_parameters repeats the name {name!r}")
+            names.add(name)
+            named.add(id(p))
+        missing = sum(id(p) not in named for p in self._params)
+        if missing:
+            raise ValueError(
+                f"named_parameters does not name {missing} of the "
+                "optimizer's parameters"
+            )
+
+    # Everything not overridden forwards to the wrapped optimizer
+    # (param_groups, state, defaults, ...).
+    def __getattr__(self, name):
+        if name == "_opt":
+            raise AttributeError(name)
+        return getattr(self._opt, name)
+
+    def state_dict(self):
+        return self._opt.state_dict()
+
+    def load_state_dict(self, state_dict):
+        return self._opt.load_state_dict(state_dict)
+
+    def add_param_group(self, group):
+        raise NotImplementedError(
+            "add_param_group after wrapping is not supported: the exchange "
+            "plan covers the parameters given at construction"
+        )
+
+    def zero_grad(self, set_to_none: bool = True):
+        return self._opt.zero_grad(set_to_none=set_to_none)
+
+    @property
+    def accumulating(self) -> bool:
+        """True when the last ``step()`` only accumulated gradients
+        locally (``backward_passes_per_step``) and applied nothing."""
+        return self._calls % self._k != 0
+
+    @property
+    def schedule(self) -> Optional[BucketSchedule]:
+        """The exchange plan of the last reduction (None before it)."""
+        return self._schedule
+
+    def _plan(self, sizes, dtypes, cfg: SchedConfig) -> BucketSchedule:
+        observed = self._order.consume() if self._order is not None else None
+        key = (tuple(sizes), tuple(dtypes), cfg)
+        if self._schedule is not None and key == self._schedule_key:
+            return self._schedule
+        if cfg.enabled:
+            # Every rank plans from rank 0's observation, so all ranks
+            # issue the same collectives in the same order.
+            order = runtime.broadcast_object(observed, root_rank=0)
+            schedule = build_schedule(sizes, dtypes, cfg, order=order)
+        else:
+            # HVD_TPU_SCHED=off: in-order buckets on the dense wire.
+            schedule = build_schedule(
+                sizes, dtypes,
+                dataclasses.replace(cfg, bucket_bytes=self._fusion_threshold),
+                order=range(len(sizes)), wire="off",
+            )
+        self._schedule_key, self._schedule = key, schedule
+        return schedule
+
+    def synchronize(self) -> None:
+        """Reduce every gradient across ranks, in place."""
+        grads = [
+            p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in self._params
+        ]
+        compressed = [self._compression.compress(g) for g in grads]
+        wire = [c[0] for c in compressed]
+        cfg = SchedConfig.from_env()
+        if cfg.bucket_bytes is None and self._fusion_threshold is not None:
+            cfg = dataclasses.replace(
+                cfg, bucket_bytes=self._fusion_threshold
+            )
+        schedule = self._plan(
+            [w.numel() * w.element_size() for w in wire],
+            [dtype_name(w.dtype) for w in wire],
+            cfg,
+        )
+
+        def dense(f):
+            return collectives.allreduce_(
+                f, self._op, self._prescale, self._postscale
+            )
+
+        bf16 = execute.bf16_wire(dense)
+
+        def reduce_bucket(f, bucket):
+            return bf16(f) if bucket.wire == "bf16" else dense(f)
+
+        reduced = execute.exchange(wire, schedule, reduce_bucket)
+        with torch.no_grad():
+            for p, t, (_, ctx) in zip(self._params, reduced, compressed):
+                out = self._compression.decompress(t, ctx)
+                if p.grad is None:
+                    p.grad = out.to(p.dtype).clone()
+                else:
+                    p.grad.copy_(out)
+        self._synchronized = True
+
+    def step(self, closure=None):
+        self._calls += 1
+        if self.accumulating:
+            return None  # no reduce, no apply
+        if self._k > 1 and self._avg_agg:
+            with torch.no_grad():
+                for p in self._params:
+                    if p.grad is not None:
+                        p.grad.mul_(1.0 / self._k)
+        if not self._synchronized:
+            self.synchronize()
+        self._synchronized = False
+        return self._opt.step(closure)
+
+
+def DistributedOptimizer(
+    optimizer: torch.optim.Optimizer,
+    named_parameters: Optional[Iterable[Tuple[str, torch.Tensor]]] = None,
+    **kwargs,
+):
+    """Wrap ``optimizer`` so ``step()`` first averages the gradients
+    across ranks (keyword arguments as :class:`_DistributedOptimizer`).
+
+    The returned object IS-A ``type(optimizer)``, so
+    ``isinstance(opt, torch.optim.Optimizer)`` holds; its own
+    ``Optimizer.__init__`` never runs and all state lives in the wrapped
+    instance."""
+    cls = type(
+        "Distributed" + type(optimizer).__name__,
+        (_DistributedOptimizer, type(optimizer)),
+        {},
+    )
+    obj = cls.__new__(cls)
+    _DistributedOptimizer.__init__(obj, optimizer, named_parameters, **kwargs)
+    return obj
+
+
+def _pmean_(tensors: List[torch.Tensor]) -> None:
+    """Replace each tensor by its mean across ranks (sum, then divide by
+    the world size, as ``lax.pmean``), through one fused buffer per
+    dtype.  Identity in a world of one."""
+    size = runtime.size()
+    if size == 1 or not tensors:
+        return
+    flats, meta = fusion.flatten_group(tensors)
+    for f in flats:
+        dist.all_reduce(f, op=dist.ReduceOp.SUM)
+        f.div_(size)
+    for t, r in zip(tensors, fusion.unflatten_group(flats, meta)):
+        t.copy_(r)
+
+
+class TrainStep:
+    """One data-parallel training step on this rank's batch:
+    forward + backward, gradient exchange and optimizer update
+    (``optimizer.step()``), then the loss and the model's floating
+    buffers (BatchNorm running statistics) averaged across ranks, so
+    every rank keeps identical running statistics.  Normalisation inside
+    the step still uses each rank's local batch moments.
+
+    ``loss_fn(model, batch) -> loss``.  ``step(batch)`` returns the
+    averaged loss as a detached tensor.  Gradients are cleared after
+    each step that applied an update, so with
+    ``backward_passes_per_step=k`` they accumulate over k calls."""
+
+    def __init__(self, model: torch.nn.Module, optimizer,
+                 loss_fn: Callable[[torch.nn.Module, object], torch.Tensor]):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+
+    def __call__(self, batch) -> torch.Tensor:
+        self.model.train()
+        loss = self.loss_fn(self.model, batch)
+        loss.backward()
+        self.optimizer.step()
+        if not getattr(self.optimizer, "accumulating", False):
+            self.optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            loss = loss.detach().clone()
+            stats = [b for b in self.model.buffers() if b.is_floating_point()]
+            _pmean_([loss] + stats)
+        return loss

@@ -1,0 +1,164 @@
+"""Process runtime on ``torch.distributed``.
+
+Counterpart of ``horovod_tpu/runtime.py`` (``init`` ``:258``,
+``shutdown``, the rank/size queries).  Where the JAX runtime builds a
+device mesh, this one joins a ``torch.distributed`` process group: NCCL
+for ``device="cuda"`` (the default), gloo for ``device="cpu"``.
+
+Rank and world size come from ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
+as a launcher such as ``torchrun`` sets them (with ``MASTER_ADDR`` /
+``MASTER_PORT`` for the ``env://`` rendezvous), or from an explicit
+``init_method``.  With none of them set, the world is this one process,
+joined through an in-process store: no port is opened.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import threading
+from typing import Any, Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from .exceptions import NotInitializedError
+
+
+class Runtime:
+    """One process's place in the world and the device it computes on."""
+
+    def __init__(self, device: torch.device, rank: int, size: int,
+                 local_rank: int, owns_group: bool):
+        self.device = device
+        self.rank = rank
+        self.size = size
+        self.local_rank = local_rank
+        self.backend = "nccl" if device.type == "cuda" else "gloo"
+        self._owns_group = owns_group
+
+    def shutdown(self) -> None:
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+_runtime: Optional[Runtime] = None
+_runtime_lock = threading.Lock()
+
+
+def _env_int(name: str) -> Optional[int]:
+    val = os.environ.get(name)
+    return None if val in (None, "") else int(val)
+
+
+def init(
+    device: Union[str, torch.device] = "cuda",
+    *,
+    init_method: Optional[str] = None,
+    rank: Optional[int] = None,
+    size: Optional[int] = None,
+    timeout_s: float = 300.0,
+) -> None:
+    """Join the process group (idempotent).
+
+    ``device="cuda"`` needs a card: it raises when
+    ``torch.cuda.is_available()`` is false, and pins this process to
+    ``cuda:LOCAL_RANK``.  ``device="cpu"`` runs gloo, as the tests do.
+    ``rank``/``size`` override ``RANK``/``WORLD_SIZE``.  An already
+    initialized default process group is adopted and left to its owner.
+    """
+    global _runtime
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device!r}")
+    with _runtime_lock:
+        if _runtime is not None:
+            if _runtime.device.type != dev.type:
+                raise RuntimeError(
+                    f"already initialized on {_runtime.device}; call "
+                    "shutdown() before init() on another device"
+                )
+            return
+        rank = _env_int("RANK") if rank is None else rank
+        size = _env_int("WORLD_SIZE") if size is None else size
+        local_rank = _env_int("LOCAL_RANK")
+        if (rank is None) != (size is None):
+            raise ValueError("set both RANK and WORLD_SIZE, or neither")
+        rank = 0 if rank is None else rank
+        size = 1 if size is None else size
+        if local_rank is None:
+            local_rank = rank  # one host
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "horovod_tpu_torch.init(device='cuda') needs a CUDA "
+                    "device; pass device='cpu' to run on the CPU"
+                )
+            torch.cuda.set_device(local_rank)
+            dev = torch.device("cuda", local_rank)
+        owns = not dist.is_initialized()
+        if owns:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            timeout = datetime.timedelta(seconds=timeout_s)
+            if init_method is not None or size > 1:
+                dist.init_process_group(
+                    backend, init_method=init_method or "env://",
+                    rank=rank, world_size=size, timeout=timeout,
+                )
+            else:
+                dist.init_process_group(
+                    backend, store=dist.HashStore(), rank=0, world_size=1,
+                    timeout=timeout,
+                )
+        else:
+            rank, size = dist.get_rank(), dist.get_world_size()
+        _runtime = Runtime(dev, rank, size, local_rank, owns)
+
+
+def shutdown() -> None:
+    """Leave the process group this runtime created (idempotent)."""
+    global _runtime
+    with _runtime_lock:
+        if _runtime is not None:
+            _runtime.shutdown()
+            _runtime = None
+
+
+def is_initialized() -> bool:
+    return _runtime is not None
+
+
+def get_runtime() -> Runtime:
+    rt = _runtime
+    if rt is None:
+        raise NotInitializedError()
+    return rt
+
+
+def rank() -> int:
+    return get_runtime().rank
+
+
+def size() -> int:
+    return get_runtime().size
+
+
+def local_rank() -> int:
+    return get_runtime().local_rank
+
+
+def device() -> torch.device:
+    return get_runtime().device
+
+
+def broadcast_object(obj: Any, root_rank: int = 0) -> Any:
+    """Pickle ``obj`` on ``root_rank`` and return it on every rank."""
+    rt = get_runtime()
+    if rt.size == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(
+        box, src=root_rank,
+        device=rt.device if rt.backend == "nccl" else None,
+    )
+    return box[0]

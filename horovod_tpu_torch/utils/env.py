@@ -1,0 +1,52 @@
+"""Environment-variable knobs the port reads.
+
+Counterpart of ``horovod_tpu/utils/env.py``, trimmed to the knobs of the
+data-parallel step.  Names and defaults are the JAX package's, so one
+environment drives both sides of a parity test: ``HVD_TPU_<name>``, with
+``HOROVOD_<name>`` accepted as a fallback.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+FUSION_THRESHOLD = "FUSION_THRESHOLD"  # bytes; reference default 64MB
+SCHED = "SCHED"  # on (default) | off
+SCHED_BUCKET_BYTES = "SCHED_BUCKET_BYTES"  # default: fusion threshold
+SCHED_LOOK_AHEAD = "SCHED_LOOK_AHEAD"  # bucket-close look-ahead, default 3
+SCHED_BARRIERS = "SCHED_BARRIERS"  # bucket issue-order sequencing, default on
+SCHED_CAPTURE_ORDER = "SCHED_CAPTURE_ORDER"  # backward-order hooks, default on
+SCHED_WIRE = "SCHED_WIRE"  # off (default) | bf16
+
+DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+
+
+def _names(name: str) -> tuple[str, str]:
+    return "HVD_TPU_" + name, "HOROVOD_" + name
+
+
+def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
+    """Read a knob, preferring HVD_TPU_<name>, falling back to HOROVOD_<name>."""
+    new, legacy = _names(name)
+    val = os.environ.get(new)
+    if val is None:
+        val = os.environ.get(legacy)
+    return default if val is None else val
+
+
+def get_int(name: str, default: int) -> int:
+    val = get_env(name)
+    if val is None or val == "":
+        return default
+    try:
+        return int(val)
+    except ValueError:
+        return default
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    val = get_env(name)
+    if val is None or val == "":
+        return default
+    return val.strip().lower() in ("1", "true", "yes", "on")

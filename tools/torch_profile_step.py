@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Where the device time of horovod_tpu_torch's ResNet-50 step goes.
+
+Run on a machine with one NVIDIA GPU, from the root of a checkout:
+
+    python3 tools/torch_profile_step.py [--steps 5] [--out PATH]
+
+It builds the step ``chip_smoke.py`` drives (ResNet-50, 224x224, batch 32
+per GPU, bf16 compute, world of one, ``build_dp_step``), then:
+
+1. times the step with ``HVD_TPU_SCHED_WIRE`` set to ``bf16``, ``off``,
+   ``off``, ``bf16`` in turn (host clock, each window ending in a
+   synchronise), so the wire's cost at world one is read in one process;
+2. profiles ``--steps`` bf16-wire steps with ``torch.profiler`` and
+   prints the device-busy time per step, the idle share of the window,
+   device time by group (B1, NCCL, convolution and GEMM, elementwise and
+   reductions, other) and the kernels that take the most time.
+
+Every line names the card and its power limit (``nvidia-smi``).
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+GROUPS = (
+    ("B1 scale_cast", re.compile(r"scale_cast")),
+    ("NCCL", re.compile(r"nccl", re.I)),
+    ("conv/GEMM", re.compile(
+        r"conv|xmma|cudnn|gemm|implicit|wgrad|dgrad|fprop|sm90_|cutlass", re.I)),
+    ("elementwise/reduce", re.compile(
+        r"elementwise|vectorized|reduce|batch_norm|pool|copy|fill|cat|pad", re.I)),
+)
+
+
+def group_of(name: str) -> str:
+    for label, pat in GROUPS:
+        if pat.search(name):
+            return label
+    return "other"
+
+
+def union_us(intervals):
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--window", type=int, default=10,
+                    help="steps per timing window")
+    ap.add_argument("--out", help="also write the results here as JSON")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("tools/torch_profile_step.py needs a CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    hvd.init("cuda")
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device="cuda")
+    step, opt = build_dp_step(hvd, model)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = (torch.rand(32, 224, 224, 3, generator=g, device="cuda"),
+             torch.randint(0, 1000, (32,), generator=g, device="cuda"))
+
+    def window(wire: str) -> float:
+        os.environ["HVD_TPU_SCHED_WIRE"] = wire
+        float(step(batch))  # a host read fences the previous work
+        t0 = time.perf_counter()
+        loss = None
+        for _ in range(args.window):
+            loss = step(batch)
+        float(loss)
+        return (time.perf_counter() - t0) / args.window * 1e3
+
+    for wire in ("bf16", "off"):  # warm both paths
+        window(wire)
+    timing = {"bf16": [], "off": []}
+    for wire in ("bf16", "off", "off", "bf16"):
+        timing[wire].append(window(wire))
+    for wire, ms in timing.items():
+        print(f"step ms, wire={wire}: {[round(v, 3) for v in ms]} "
+              f"(mean {sum(ms) / len(ms):.3f}; batch 32) on {card}", flush=True)
+
+    os.environ["HVD_TPU_SCHED_WIRE"] = "bf16"
+    from torch.profiler import ProfilerActivity, profile
+
+    float(step(batch))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            loss = step(batch)
+        float(loss)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [
+        e for e in prof.events()
+        if getattr(e, "device_type", None) is not None
+        and str(e.device_type).endswith("CUDA")
+        and e.time_range.end > e.time_range.start
+    ]
+    result = {"card": card, "timing_ms": timing, "steps": args.steps}
+    if not kernels:
+        print(f"profiler: no device events; device time not measured on {card}")
+    else:
+        busy = union_us([(e.time_range.start, e.time_range.end) for e in kernels])
+        by_group, by_name = {}, {}
+        for e in kernels:
+            dt = e.time_range.end - e.time_range.start
+            by_group[group_of(e.name)] = by_group.get(group_of(e.name), 0.0) + dt
+            by_name[e.name] = by_name.get(e.name, 0.0) + dt
+        total = sum(by_group.values())
+        print(f"profiled {args.steps} steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "
+              f"device busy {busy / args.steps / 1e3:.3f} ms/step, idle share "
+              f"{1 - busy / wall_us:.1%}, {len(kernels) / args.steps:.0f} kernels/step "
+              f"on {card}", flush=True)
+        for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+            print(f"  {label:20s} {us / args.steps / 1e3:8.3f} ms/step "
+                  f"{us / total:6.1%}", flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+        for name, us in top:
+            print(f"  {us / args.steps / 1e3:8.3f} ms/step  {name[:110]}", flush=True)
+        result.update(
+            wall_ms_per_step=wall_us / args.steps / 1e3,
+            busy_ms_per_step=busy / args.steps / 1e3,
+            idle_share=1 - busy / wall_us,
+            kernels_per_step=len(kernels) / args.steps,
+            groups_ms_per_step={k: v / args.steps / 1e3 for k, v in by_group.items()},
+            top=[(n, v / args.steps / 1e3) for n, v in top],
+        )
+    hvd.shutdown()
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
