@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Run horovod_tpu_torch's data-parallel step in a world of N processes.
+
+    python3 tools/torch_dp_multi.py --nproc 4                 # N GPUs, NCCL
+    python3 tools/torch_dp_multi.py --nproc 4 --device cpu --tiny   # gloo
+
+It starts ``--nproc`` worker processes of itself, joined through a
+``FileStore`` in a temporary directory (no port is opened).  Every rank
+builds the model from its own seed, so the step's broadcast of rank 0's
+weights is what makes them equal; every rank trains on its own random
+batch (batch 32 per rank, ResNet-50 at 224x224 in bf16, or with
+``--tiny`` a small float32 ResNet at 32x32).  Each rank times windows of
+``--steps`` steps with ``HVD_TPU_SCHED_WIRE`` set to ``bf16``, ``off``,
+``off``, ``bf16`` in turn, then checks that:
+
+* every rank holds bitwise the same weights and statistics afterwards;
+* on the GPU, kernel B1 ran twice per bucket per bf16-wire step (the
+  down-cast and the up-cast), three times above a world of one (the
+  1/size postscale of the bf16 sum runs through B1 as well).
+
+Rank 0 prints one JSON line with the world size, the card, the step
+times per wire and the images per second of the whole world.  The exit
+code is non-zero if any rank failed.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def worker(args) -> None:
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet, ResNet50
+    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(args.device, init_method=f"file://{args.store}",
+             rank=args.rank, size=args.nproc)
+    try:
+        dev = hvd.device()
+        if args.tiny:
+            model = ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
+                           dtype=torch.float32, seed=args.rank, device=dev)
+            shape, classes = (32, 32, 32, 3), 10
+        else:
+            model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                             seed=args.rank, device=dev)
+            shape, classes = (32, 224, 224, 3), 1000
+        step, opt = build_dp_step(hvd, model)
+        g = torch.Generator(device=dev).manual_seed(100 + args.rank)
+        batch = (torch.rand(*shape, generator=g, device=dev),
+                 torch.randint(0, classes, (shape[0],), generator=g, device=dev))
+
+        def window(wire: str):
+            os.environ["HVD_TPU_SCHED_WIRE"] = wire
+            float(step(batch))  # warm-up step; the host read fences it
+            launches = kernels.scale_cast.launches
+            t0 = time.perf_counter()
+            losses = [step(batch) for _ in range(args.steps)]
+            last = float(losses[-1])
+            ms = (time.perf_counter() - t0) / args.steps * 1e3
+            return ms, kernels.scale_cast.launches - launches, last
+
+        timing = {"bf16": [], "off": []}
+        losses = []
+        for wire in ("bf16", "off", "off", "bf16"):
+            ms, launches, loss = window(wire)
+            timing[wire].append(ms)
+            losses.append(loss)
+            # Per bf16 bucket: the down-cast, the up-cast and, above a
+            # world of one, Average's 1/size postscale of the bf16 sum.
+            per_bucket = 2 + (args.nproc > 1)
+            expected = per_bucket * len(opt.schedule) * args.steps if (
+                wire == "bf16" and dev.type == "cuda") else 0
+            if launches != expected:
+                raise SystemExit(f"rank {args.rank}: B1 launched {launches} "
+                                 f"times in a {wire} window, expected {expected}")
+        state = torch.cat([t.detach().float().reshape(-1).cpu()
+                           for t in model.state_dict().values()])
+        digest = [float(state.double().sum()), float(state.double().abs().sum()),
+                  state.numel()]
+        digests = [None] * args.nproc
+        dist.all_gather_object(digests, digest)
+        if any(d != digests[0] for d in digests):
+            raise SystemExit(f"ranks hold different weights: {digests}")
+        if args.rank == 0:
+            card = "cpu"
+            if dev.type == "cuda":
+                card = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=name,power.limit",
+                     "--format=csv,noheader"],
+                    capture_output=True, text=True, timeout=60,
+                ).stdout.strip().splitlines()[0]
+            imgs = shape[0] * args.nproc
+            print(json.dumps({
+                "world": args.nproc, "device": dev.type, "card": card,
+                "model": "tiny" if args.tiny else "resnet50",
+                "batch_per_rank": shape[0],
+                "buckets": [b.nbytes for b in opt.schedule.buckets],
+                "step_ms": timing,
+                "img_s": {w: [imgs / ms * 1e3 for ms in v] for w, v in timing.items()},
+                "losses": losses, "weights_equal_on_all_ranks": True,
+            }), flush=True)
+    finally:
+        hvd.shutdown()
+
+
+def launch(args) -> int:
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        cmd = [sys.executable, os.path.abspath(__file__), "--nproc",
+               str(args.nproc), "--device", args.device, "--steps",
+               str(args.steps), "--store", store]
+        if args.tiny:
+            cmd.append("--tiny")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
+                 for r in range(args.nproc)]
+        try:
+            rcs = [p.wait(timeout=args.timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return max(abs(rc) for rc in rcs)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nproc", type=int, default=4)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--tiny", action="store_true",
+                    help="small float32 ResNet at 32x32 (a rehearsal on the CPU)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--store", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.rank is None:
+        sys.exit(launch(args))
+    worker(args)
+
+
+if __name__ == "__main__":
+    main()
