@@ -8,7 +8,8 @@
   gradient, through BatchNorm's backward), so the bf16 wire can round
   an element the other way: one bf16 ulp, at most 2^-7 of its update.
   After the first step each weight must agree to 2^-7 of its own
-  update plus 2e-4 of its tensor's largest update (+1e-7).  Later steps feed those
+  update plus 4e-4 of its tensor's largest update (+1e-7: three times
+  the gradient difference measured).  Later steps feed those
   differences through the network; BatchNorm biases, whose gradients
   are sums that normalisation drives toward zero, see them amplified.
   After three steps each weight agrees to 15% of its tensor's largest
@@ -139,7 +140,7 @@ def test_world1_bf16_wire_step_matches_jax(monkeypatch):
         move1 = after_j[0][name].numpy() - p0
         np.testing.assert_array_less(
             np.abs(after_t[0][name].numpy() - after_j[0][name].numpy()),
-            2.0 ** -7 * np.abs(move1) + 2e-4 * np.abs(move1).max() + 1e-7,
+            2.0 ** -7 * np.abs(move1) + 4e-4 * np.abs(move1).max() + 1e-7,
             err_msg=f"{name} after step 1",
         )
         moved = np.abs(ref - p0).max()
