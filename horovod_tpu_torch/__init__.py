@@ -3,7 +3,8 @@ and CUDA (NVIDIA Hopper).
 
 Counterpart of ``horovod_tpu/__init__.py`` for the ported slice:
 ``init``/``shutdown`` and the rank queries on ``torch.distributed``,
-``DistributedOptimizer`` over the bucketed scheduler with the bf16 wire,
+``DistributedOptimizer`` over the bucketed scheduler with the bf16 and
+the int8/fp8 quantized wires (``Compression.int8``/``fp8``),
 ``broadcast_parameters``/``broadcast_optimizer_state``, the ResNet model
 and the benchmark step.  Importing it imports neither JAX nor
 ``horovod_tpu``.

@@ -2,12 +2,15 @@
 
 Counterpart of ``horovod_tpu/compression.py`` (``:29-71``): cast
 floating gradients to fp16 or bf16 before the allreduce and back after.
-The quantized ``int8``/``fp8`` compressors are not ported yet.
+``Compression.int8`` / ``fp8`` are markers that select the quantized
+wire (``ops/quantized.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .ops.quantized import Fp8Compressor, Int8Compressor
 
 
 class Compressor:
@@ -69,3 +72,5 @@ class Compression:
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
+    int8 = Int8Compressor
+    fp8 = Fp8Compressor

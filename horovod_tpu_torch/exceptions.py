@@ -1,7 +1,7 @@
 """Framework exceptions.
 
 Counterpart of ``horovod_tpu/exceptions.py``, trimmed to what the
-data-parallel step raises.
+data-parallel step and the quantized wire raise.
 """
 
 
@@ -18,3 +18,24 @@ class NotInitializedError(HorovodTpuError):
             "horovod_tpu_torch.init() first."
         )
 
+
+
+class QuantizedWireError(HorovodTpuError, ValueError):
+    """The quantized wire cannot serve this reduction (an op other than
+    Sum/Average, or a process set).  Subclasses ``ValueError``, as in
+    the JAX package."""
+
+
+class ProcessSetTilingError(QuantizedWireError):
+    """A rank subset cannot tile the world into equal-size groups.
+    Structured fields: ``ranks``, ``world_size``, ``context``."""
+
+    def __init__(self, ranks, world_size: int, context: str = ""):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.world_size = int(world_size)
+        self.context = context
+        where = f" ({context})" if context else ""
+        super().__init__(
+            f"ranks {list(self.ranks)} do not tile the world of size "
+            f"{self.world_size} into equal groups{where}"
+        )

@@ -5,7 +5,9 @@ and last-write-wins (optionally labelled) gauges under the JAX package's
 names, so parity tests can compare them.  The data-parallel step emits
 ``sched.buckets``, ``sched.buckets_per_step``, ``sched.bytes_per_step``,
 ``sched.wire_bytes{wire=}``, ``sched.wire_bytes.<wire>`` and
-``sched.compression_ratio`` (``sched/execute.py``).
+``sched.compression_ratio`` (``sched/execute.py``); the quantized wire
+counts ``quant.fused_collectives`` and ``quant.fused_bytes``
+(``ops/quantized.py``) above a world of one.
 """
 
 from __future__ import annotations

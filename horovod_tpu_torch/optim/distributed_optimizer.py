@@ -3,8 +3,10 @@
 Counterpart of ``horovod_tpu/optim/distributed_optimizer.py``:
 ``DistributedOptimizer`` (``:615``, with the predivide split of
 ``:648-657``), the scheduler path of ``_reduce_gradients`` and
-``TrainStep`` (``:815``, the semantics of ``:907-934``).  The API has the
-shape of ``horovod_tpu/interop/torch.py`` and the reference's
+``TrainStep`` (``:815``, the semantics of ``:907-934``), with the
+quantized wire's per-bucket dispatch (``:368-398``, ``:504-524``) and
+its error-feedback residuals (``_ef_active`` ``:679-701``).  The API has
+the shape of ``horovod_tpu/interop/torch.py`` and the reference's
 ``horovod.torch``: the wrapper IS-A ``type(optimizer)``, takes
 ``named_parameters``, and reduces the gradients in ``step()`` (or an
 explicit ``synchronize()``) before the wrapped optimizer applies them.
@@ -13,8 +15,18 @@ The reduction is the bucketed scheduler: gradients are compressed,
 planned into buckets in reverse-backward order (the readiness order the
 post-accumulate-grad hooks saw in the first backward, rank 0's copy),
 and each bucket is allreduced as one flat buffer per dtype, with a bf16
-wire around it when ``HVD_TPU_SCHED_WIRE=bf16``.  The collectives run
-after the backward, not overlapped with it.
+wire around it when ``HVD_TPU_SCHED_WIRE=bf16``, or exchanged as a
+quantized reduce-scatter + all-gather under ``HVD_TPU_SCHED_WIRE=int8``
+/ ``fp8`` or ``Compression.int8`` / ``fp8`` (the compressor wins over
+the knob).  The collectives run after the backward, not overlapped with
+it.
+
+Error feedback (``HVD_TPU_SCHED_WIRE_EF``, default on): when a quantized
+wire is requested at construction with the scheduler on, every
+parameter gets a float32 residual, zero at first; a quantized bucket
+sends ``g + r`` and keeps ``r ← (g + r) − dequant(quantize(g + r))``.
+The residuals are rank-local: they are not part of ``state_dict()`` and
+``broadcast_optimizer_state`` leaves them alone.
 """
 
 from __future__ import annotations
@@ -27,11 +39,14 @@ import torch.distributed as dist
 
 from .. import runtime
 from ..compression import Compression, Compressor
+from ..exceptions import QuantizedWireError
 from ..ops import collectives, fusion
 from ..ops.collectives import Average, Sum
+from ..ops.quantized import quantized_allreduce
 from ..sched import execute
 from ..sched.hooks import GradOrder
 from ..sched.plan import (
+    QUANTIZED_WIRES,
     BucketSchedule,
     SchedConfig,
     build_schedule,
@@ -56,7 +71,17 @@ class _DistributedOptimizer:
         postscale_factor: float = 1.0,
         fusion_threshold_bytes: Optional[int] = None,
     ):
+        cfg = SchedConfig.from_env()
+        self._quantized = getattr(compression, "quantized_wire", False)
+        quantized_req = self._quantized or (
+            cfg.enabled and cfg.wire in QUANTIZED_WIRES
+        )
         if op not in (Average, Sum):
+            if quantized_req:
+                raise QuantizedWireError(
+                    "the quantized wire requires op=Average or Sum; unset "
+                    "HVD_TPU_SCHED_WIRE or use a cast compressor"
+                )
             raise ValueError("DistributedOptimizer supports op=Average or Sum")
         if gradient_predivide_factor != 1.0:
             if op != Average:
@@ -84,7 +109,13 @@ class _DistributedOptimizer:
         ]
         if named_parameters is not None:
             self._check_names(named_parameters)
-        cfg = SchedConfig.from_env()
+        # Error-feedback residuals, one float32 tensor per parameter.
+        self._residuals: Optional[List[torch.Tensor]] = None
+        if cfg.enabled and cfg.wire_ef and quantized_req:
+            self._residuals = [
+                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in self._params
+            ]
         self._order = (
             GradOrder(self._params)
             if cfg.enabled and cfg.capture_order else None
@@ -139,6 +170,12 @@ class _DistributedOptimizer:
         return self._calls % self._k != 0
 
     @property
+    def residuals(self) -> Optional[List[torch.Tensor]]:
+        """The error-feedback residuals, one per parameter in optimizer
+        order (None when error feedback is off)."""
+        return self._residuals
+
+    @property
     def schedule(self) -> Optional[BucketSchedule]:
         """The exchange plan of the last reduction (None before it)."""
         return self._schedule
@@ -150,9 +187,12 @@ class _DistributedOptimizer:
             return self._schedule
         if cfg.enabled:
             # Every rank plans from rank 0's observation, so all ranks
-            # issue the same collectives in the same order.
+            # issue the same collectives in the same order.  An explicit
+            # quantized compressor wins over HVD_TPU_SCHED_WIRE.
             order = runtime.broadcast_object(observed, root_rank=0)
-            schedule = build_schedule(sizes, dtypes, cfg, order=order)
+            wire = self._compression.wire_format if self._quantized else None
+            schedule = build_schedule(sizes, dtypes, cfg, order=order,
+                                      wire=wire)
         else:
             # HVD_TPU_SCHED=off: in-order buckets on the dense wire.
             schedule = build_schedule(
@@ -176,13 +216,24 @@ class _DistributedOptimizer:
             cfg = dataclasses.replace(
                 cfg, bucket_bytes=self._fusion_threshold
             )
+        # One wire byte per element under a quantized compressor, so
+        # buckets fill to the intended wire-size threshold.
         schedule = self._plan(
-            [w.numel() * w.element_size() for w in wire],
+            [w.numel() * (1 if self._quantized else w.element_size())
+             for w in wire],
             [dtype_name(w.dtype) for w in wire],
             cfg,
         )
 
         def dense(f):
+            if self._quantized and f.is_floating_point():
+                # Compression.int8/fp8 on a bucket the plan left "off"
+                # (or HVD_TPU_SCHED=off): quantized, without residuals.
+                g = f if self._prescale == 1.0 else f * self._prescale
+                g = quantized_allreduce(
+                    g, self._op, wire=self._compression.wire_format
+                )
+                return g if self._postscale == 1.0 else g * self._postscale
             return collectives.allreduce_(
                 f, self._op, self._prescale, self._postscale
             )
@@ -190,6 +241,8 @@ class _DistributedOptimizer:
         bf16 = execute.bf16_wire(dense)
 
         def reduce_bucket(f, bucket):
+            if bucket.wire in QUANTIZED_WIRES:
+                return self._quantized_bucket(f, bucket)
             return bf16(f) if bucket.wire == "bf16" else dense(f)
 
         reduced = execute.exchange(wire, schedule, reduce_bucket)
@@ -201,6 +254,26 @@ class _DistributedOptimizer:
                 else:
                     p.grad.copy_(out)
         self._synchronized = True
+
+    def _quantized_bucket(self, f: torch.Tensor, bucket) -> torch.Tensor:
+        """The quantized exchange of one bucket's flat buffer, threading
+        the bucket's residuals through it when error feedback is on."""
+        res_flat = None
+        if self._residuals is not None:
+            flats, rmeta = fusion.flatten_group(
+                [self._residuals[i] for i in bucket.indices]
+            )
+            res_flat = flats[0]
+        out, r_new = execute.quantized_exchange_flat(
+            f, average=self._op == Average, wire=bucket.wire,
+            prescale_factor=self._prescale,
+            postscale_factor=self._postscale, residual=res_flat,
+        )
+        if r_new is not None:
+            for i, r in zip(bucket.indices,
+                            fusion.unflatten_group([r_new], rmeta)):
+                self._residuals[i].copy_(r)
+        return out
 
     def step(self, closure=None):
         self._calls += 1

@@ -1,22 +1,25 @@
 """Execute stage: run the planned per-bucket collectives.
 
 Counterpart of the flat path of ``horovod_tpu/sched/execute.py``:
-``exchange`` (``:392``), ``bf16_wire`` (``:665``) and
-``record_wire_metrics`` (``:197``).  Buckets run one after another in
-schedule order: the JAX package ties each bucket to the previous one
-with an optimization barrier so XLA keeps that order; eager PyTorch
-issues the collectives in program order on one stream.
+``exchange`` (``:392``), ``quantized_exchange_flat`` (``:607``),
+``bf16_wire`` (``:665``) and ``record_wire_metrics`` (``:197``).
+Buckets run one after another in schedule order: the JAX package ties
+each bucket to the previous one with an optimization barrier so XLA
+keeps that order; eager PyTorch issues the collectives in program order
+on one stream.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from .. import metrics
+from .. import metrics, runtime
 from ..ops import fusion
-from ..ops.kernels import cast_buffer
+from ..ops.collectives import Sum
+from ..ops.kernels import cast_buffer, scale_cast
+from ..ops.quantized import quantized_all_gather, quantized_reduce_scatter
 from .plan import Bucket, BucketSchedule, wire_bytes
 
 
@@ -72,3 +75,41 @@ def bf16_wire(reduce_dense: Callable[[torch.Tensor], torch.Tensor]):
         return cast_buffer(reduce_dense(cast_buffer(f, torch.bfloat16)), f.dtype)
 
     return reduce
+
+
+def _scale_f32(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """``x * float32(factor)`` on a float32 buffer through kernel B1
+    (``horovod_tpu/ops/traced.py`` ``_scale``); identity at 1.0."""
+    return x if factor == 1.0 else scale_cast(x, factor)
+
+
+def quantized_exchange_flat(
+    f: torch.Tensor,
+    *,
+    average: bool,
+    wire: str,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    residual: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One bucket's quantized reduce-scatter + all-gather exchange:
+    ``g = f·prescale (+ residual)`` in float32, quantized
+    reduce-scatter, the shard scaled by ``postscale`` (and ``1/world``
+    for an average), quantized all-gather, the first ``f.numel()``
+    elements cast back to ``f.dtype``.
+
+    ``residual`` engages error feedback: the wire carries
+    ``quantize(g)`` and the new residual ``g − dequant(quantize(g))`` is
+    returned alongside; without it the second result is None."""
+    g = _scale_f32(f.float(), prescale_factor)
+    r_new = None
+    if residual is not None:
+        g = g + residual.float()
+        shard, r_new = quantized_reduce_scatter(g, Sum, wire=wire, ef=True)
+    else:
+        shard = quantized_reduce_scatter(g, Sum, wire=wire)
+    if average:
+        postscale_factor = postscale_factor / runtime.size()
+    shard = _scale_f32(shard, postscale_factor)
+    out = quantized_all_gather(shard, wire=wire)[:f.numel()]
+    return out.to(f.dtype), r_new

@@ -1,11 +1,12 @@
 """Plan stage: build a :class:`BucketSchedule` from gradient metadata.
 
-Counterpart of ``horovod_tpu/sched/plan.py`` (``:80-370``): the same
+Counterpart of ``horovod_tpu/sched/plan.py`` (``:80-388``): the same
 config, buckets, schedule and wire rules, for the flat lowering and the
-``off``/``bf16`` wires.  Buckets are emitted in reverse-backward order:
-the readiness order ``sched/hooks.py`` observed, else the reversed
-registration order.  The plan is a pure function of its arguments, so
-every rank plans the same collectives in the same order.
+``off``/``bf16``/``int8``/``fp8`` wires.  Buckets are emitted in
+reverse-backward order: the readiness order ``sched/hooks.py``
+observed, else the reversed registration order.  The plan is a pure
+function of its arguments, so every rank plans the same collectives in
+the same order.
 """
 
 from __future__ import annotations
@@ -16,23 +17,23 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..ops import fusion
+from ..ops.quantized import quant_block
 from ..utils import env
 
 # Per-bucket wire formats: "off" keeps the bucket on the dense (or
 # compressor-cast) wire; "bf16" casts the bucket's flat buffer around
-# the collective.  The quantized int8/fp8 wires are not ported yet.
-WIRE_CHOICES = ("off", "bf16")
+# the collective; "int8"/"fp8" route the bucket through the quantized
+# exchange (ops/quantized.py).
+WIRE_CHOICES = ("off", "bf16", "int8", "fp8")
+QUANTIZED_WIRES = ("int8", "fp8")
 
 
 def _canon_wire_choice(wire: str) -> str:
     w = (wire or "off").strip().lower()
     if w in ("none", "0", "false", "no", ""):
         w = "off"
-    if w in ("int8", "fp8", "e4m3"):
-        raise NotImplementedError(
-            f"HVD_TPU_SCHED_WIRE={wire!r}: the quantized wires are not "
-            "ported to horovod_tpu_torch yet; use off or bf16"
-        )
+    if w == "e4m3":
+        w = "fp8"
     if w not in WIRE_CHOICES:
         raise ValueError(
             f"HVD_TPU_SCHED_WIRE must be one of {WIRE_CHOICES}, "
@@ -53,7 +54,8 @@ class SchedConfig:
     look_ahead: int = 3
     barriers: bool = True
     capture_order: bool = True
-    wire: str = "off"  # "off" | "bf16"
+    wire: str = "off"  # "off" | "bf16" | "int8" | "fp8"
+    wire_ef: bool = True  # error-feedback residuals for quantized wires
 
     def __post_init__(self):
         object.__setattr__(self, "wire", _canon_wire_choice(self.wire))
@@ -69,6 +71,7 @@ class SchedConfig:
             barriers=env.get_bool(env.SCHED_BARRIERS, True),
             capture_order=env.get_bool(env.SCHED_CAPTURE_ORDER, True),
             wire=env.get_env(env.SCHED_WIRE, "off") or "off",
+            wire_ef=env.get_bool(env.SCHED_WIRE_EF, True),
         )
 
 
@@ -173,10 +176,13 @@ def _is_floating(name: str) -> bool:
 
 def eligible_wire(wire: str, wire_dtypes: Sequence[str]) -> str:
     """Downgrade a requested wire to what the bucket supports: bf16 needs
-    floating leaves, else the bucket stays ``off``."""
+    floating leaves, a quantized wire one floating dtype per bucket;
+    an ineligible bucket stays ``off``."""
     if wire == "off":
         return wire
     if not all(_is_floating(d) for d in wire_dtypes):
+        return "off"
+    if wire in QUANTIZED_WIRES and len(set(wire_dtypes)) != 1:
         return "off"
     return wire
 
@@ -200,8 +206,12 @@ def _make_bucket(
 
 def wire_bytes(bucket: Bucket) -> int:
     """One-phase wire payload bytes of a bucket: dense bytes for ``off``,
-    2 bytes per element for ``bf16``."""
+    2 bytes per element for ``bf16``, 1 byte per element plus a float32
+    scale per block for the quantized wires."""
     if bucket.wire == "off":
         return bucket.nbytes
     itemsize = getattr(torch, bucket.wire_dtypes[0]).itemsize
-    return bucket.nbytes // itemsize * 2
+    elems = bucket.nbytes // itemsize
+    if bucket.wire == "bf16":
+        return elems * 2
+    return elems + 4 * (-(-elems // quant_block()))

@@ -17,7 +17,13 @@ SCHED_BUCKET_BYTES = "SCHED_BUCKET_BYTES"  # default: fusion threshold
 SCHED_LOOK_AHEAD = "SCHED_LOOK_AHEAD"  # bucket-close look-ahead, default 3
 SCHED_BARRIERS = "SCHED_BARRIERS"  # bucket issue-order sequencing, default on
 SCHED_CAPTURE_ORDER = "SCHED_CAPTURE_ORDER"  # backward-order hooks, default on
-SCHED_WIRE = "SCHED_WIRE"  # off (default) | bf16
+SCHED_WIRE = "SCHED_WIRE"  # off (default) | bf16 | int8 | fp8
+# Error-feedback residuals for the quantized wires (default on).
+SCHED_WIRE_EF = "SCHED_WIRE_EF"
+QUANT_BLOCK = "QUANT_BLOCK"  # elements per quantization block, default 512
+# Quantized-wire backend: phase | fused (both take the one lowering of
+# ops/quantized.py; see there).
+QUANT_BACKEND = "QUANT_BACKEND"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 

@@ -38,6 +38,8 @@ CASES = [
     (5, 25, ["float32"], 0, 3, "bf16", None),
     (6, 33, ["float32", "int32"], 1 << 20, 3, "bf16", "shuffle"),
     (7, 10, ["float32"], 4096, 1, "bf16", "forward"),
+    (8, 30, ["float32", "bfloat16"], 8192, 3, "int8", None),
+    (9, 25, ["float32", "int32"], 12000, 3, "fp8", "shuffle"),
 ]
 
 
@@ -114,15 +116,22 @@ def test_config_from_env_matches_jax(monkeypatch):
     monkeypatch.setenv("HVD_TPU_SCHED_BUCKET_BYTES", "1234")
     monkeypatch.setenv("HVD_TPU_SCHED_LOOK_AHEAD", "5")
     monkeypatch.setenv("HVD_TPU_SCHED_CAPTURE_ORDER", "0")
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE_EF", "off")
     j, t = jplan.SchedConfig.from_env(), tplan.SchedConfig.from_env()
     for f in ("enabled", "bucket_bytes", "look_ahead", "barriers",
-              "capture_order", "wire"):
+              "capture_order", "wire", "wire_ef"):
         assert getattr(j, f) == getattr(t, f), f
 
 
 def test_quantized_wire_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tplan.SchedConfig(wire="int8")
+    """Kept under its first name; the quantized wires are ported now:
+    they parse as in the JAX package (``e4m3`` is ``fp8``), and an
+    unknown wire is still refused."""
+    for wire in ("int8", "fp8", "e4m3", "off", "bf16"):
+        assert tplan.SchedConfig(wire=wire).wire == \
+            jplan.SchedConfig(wire=wire).wire
+    with pytest.raises(ValueError):
+        tplan.SchedConfig(wire="int4")
 
 
 def test_exchange_records_wire_metrics():

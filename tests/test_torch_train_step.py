@@ -16,10 +16,34 @@
   move (+1e-5), losses to rtol 1e-4 (the first, before any update, to
   1e-6), running statistics to rtol 1e-4 / atol 1e-4 (the forward's
   own tolerance, ``test_torch_resnet.py``).
+* World of one, ``HVD_TPU_SCHED_WIRE=int8`` / ``fp8`` with error
+  feedback: the same three steps.  The two packages quantize blocks of
+  512 elements of one flat bucket, but not the same elements: the JAX
+  package flattens its pytree (sorted names, HWIO convolution kernels),
+  the port its modules (registration order, OIHW).  Each package's
+  update of an element is within one quantization step S of the exact
+  one (half a step in each of its two quantizations), where S is the
+  element's block maximum / 127 for int8 and 2^-3 of the element plus
+  2^-9 of the block maximum / 448 for fp8 (three mantissa bits).  So
+  after the first step each weight agrees to S_jax + S_port + 4e-4 of
+  its tensor's largest update + 1e-7 (the float32 gradient difference
+  allowance of the bf16 case), with S measured on the JAX step's first
+  update in both layouts (measured: half of that).  After three steps,
+  each weight agrees to 6·(S_jax + S_port) (three updates with momentum
+  0.9 weigh a step-one error 1 + 1.9 + 2.71 times) + 60% of its
+  tensor's largest move + 1e-5: the differences pass through BatchNorm
+  in steps two and three, which the fp8 wire's coarser relative grid
+  shows most (measured: 0.89 of the same bound at 50%).  Losses agree
+  to rtol 1e-2 after the first update (measured 3.6e-3, fp8), the
+  first to 1e-6.
 * World of two: two gloo processes of the port and the JAX
   ``distributed_train_step`` on ``jax.devices()[:2]`` train a linear
-  model on dyadic data (every value exact in bf16) with SGD at lr 1
-  over the bf16 wire; the weights must be bitwise equal.
+  model on dyadic data (every value exact in bf16) with SGD at lr 1.
+  Over the bf16 wire the weights must be bitwise equal.  Over the int8
+  wire with error feedback the weights and each rank's residuals
+  agree to 5e-7 (measured 6e-8 and 1.3e-7: float32 ulps): XLA:CPU contracts the dequant-accumulate ``acc + q·s``
+  and the residual ``e − q·s`` into fused multiply-adds, one rounding
+  where the port, like its CUDA kernels, rounds the product first.
 """
 
 import os
@@ -80,16 +104,17 @@ def _run_jax(batches):
             hvd, _JittedInit(model), 32
         )
         start = (_copy_tree(params), _copy_tree(stats))  # the step donates
-        losses, after = [], []
+        losses, after, first = [], [], None
         for x, y in batches:
             params, stats, opt_state, loss = step(
                 params, stats, opt_state, (jnp.asarray(x), jnp.asarray(y))
             )
             losses.append(float(loss))
+            first = _copy_tree(params) if first is None else first
             after.append(tresnet.load_jax_params(
                 _copy_tree(params), _copy_tree(stats)
             ))
-        return start, losses, after
+        return start, losses, after, first
     finally:
         hvd.shutdown()
 
@@ -117,7 +142,7 @@ def _run_port(start, batches):
 def test_world1_bf16_wire_step_matches_jax(monkeypatch):
     monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "bf16")
     batches = _batches()
-    start, losses_j, after_j = _run_jax(batches)
+    start, losses_j, after_j, _ = _run_jax(batches)
     losses_t, after_t, opt = _run_port(start, batches)
 
     # The port really ran the bf16 wire on every bucket.
@@ -148,6 +173,77 @@ def test_world1_bf16_wire_step_matches_jax(monkeypatch):
                                    err_msg=name)
 
 
+def _steps_in_blocks(absflat, wire, block=512):
+    """Per element of a flat bucket, the quantization step S of the
+    module docstring, from the block maxima of ``absflat``."""
+    pad = np.zeros(-(-absflat.size // block) * block, np.float32)
+    pad[:absflat.size] = absflat
+    bmax = np.repeat(pad.reshape(-1, block).max(-1), block)[:absflat.size]
+    if wire == "int8":
+        return bmax / 127
+    return absflat * 2.0 ** -3 + bmax * 2.0 ** -9 / 448
+
+
+def _split(flat, shapes):
+    out, off = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape))
+        out.append(flat[off:off + size].reshape(shape))
+        off += size
+    return out
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+def test_world1_quantized_wire_step_matches_jax(monkeypatch, wire):
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", wire)
+    monkeypatch.delenv("HVD_TPU_SCHED_WIRE_EF", raising=False)
+    monkeypatch.delenv("HVD_TPU_QUANT_BLOCK", raising=False)
+    batches = _batches()
+    start, losses_j, after_j, first_j = _run_jax(batches)
+    losses_t, after_t, opt = _run_port(start, batches)
+
+    assert len(opt.schedule) == 1 and opt.schedule.buckets[0].wire == wire
+    assert tmetrics.get_counter("sched.buckets") == STEPS
+    assert opt.residuals is not None
+    assert sum(float(r.abs().sum()) for r in opt.residuals) > 0
+
+    # S in the JAX layout (pytree leaves in order, flax layouts), mapped
+    # to the port's names and layouts.
+    leaves, treedef = jax.tree.flatten(
+        jax.tree.map(lambda a, b: np.abs(a - b), first_j, start[0])
+    )
+    steps_j = tresnet.load_jax_params(jax.tree.unflatten(treedef, _split(
+        _steps_in_blocks(np.concatenate([v.ravel() for v in leaves]), wire),
+        [v.shape for v in leaves],
+    )))
+    # S in the port's layout: the bucket's parameters in index order.
+    names = [n for n, _ in tresnet.ResNet(
+        [1, 1, 1, 1], num_classes=CLASSES, num_filters=8, device="meta"
+    ).named_parameters()]
+    start_sd = tresnet.load_jax_params(*start)
+    move1 = {n: np.abs(after_j[0][n].numpy() - start_sd[n].numpy())
+             for n in names}
+    order = [names[i] for i in opt.schedule.buckets[0].indices]
+    steps_t = dict(zip(order, _split(
+        _steps_in_blocks(np.concatenate([move1[n].ravel() for n in order]), wire),
+        [move1[n].shape for n in order],
+    )))
+
+    np.testing.assert_allclose(losses_t[0], losses_j[0], rtol=1e-6)
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-2)
+    for n in names:
+        both = steps_j[n].numpy() + steps_t[n]
+        np.testing.assert_array_less(
+            np.abs(after_t[0][n].numpy() - after_j[0][n].numpy()),
+            both + 4e-4 * move1[n].max() + 1e-7, err_msg=f"{n} after step 1",
+        )
+        moved = np.abs(after_j[-1][n].numpy() - start_sd[n].numpy()).max()
+        np.testing.assert_array_less(
+            np.abs(after_t[-1][n].numpy() - after_j[-1][n].numpy()),
+            6 * both + 0.6 * moved + 1e-5, err_msg=n,
+        )
+
+
 _WORKER = textwrap.dedent("""
     import sys
     import numpy as np
@@ -176,8 +272,18 @@ _WORKER = textwrap.dedent("""
         rows = slice(4 * rank, 4 * rank + 4)
         for x, y in zip(data["x"], data["y"]):
             step((torch.from_numpy(x[rows]), torch.from_numpy(y[rows])))
+        res = {}
+        if opt.residuals is not None:
+            # Rank-local: broadcasting the optimizer state leaves them.
+            before = [r.clone() for r in opt.residuals]
+            hvd.broadcast_optimizer_state(opt, root_rank=0)
+            assert all(torch.equal(a, r) for a, r in zip(before, opt.residuals))
+            res = {"res_w": before[0].numpy(), "res_b": before[1].numpy()}
+        from horovod_tpu_torch import metrics
+        fused = [metrics.get_counter("quant.fused_collectives"),
+                 metrics.get_counter("quant.fused_bytes")]
         np.savez(f"{out}/rank{rank}.npz", w=model.w.detach().numpy(),
-                 b=model.b.detach().numpy())
+                 b=model.b.detach().numpy(), fused=np.array(fused), **res)
     finally:
         hvd.shutdown()
 """)
@@ -209,20 +315,18 @@ def _run_jax_world2(x, y, w, b):
             params, opt_state, _ = step(
                 params, opt_state, (jnp.asarray(bx), jnp.asarray(by))
             )
-        return _copy_tree(params)
+        return _copy_tree(params), _copy_tree(opt_state.residual)
     finally:
         hvd.shutdown()
 
 
-def test_world2_bf16_wire_is_bitwise_with_jax(monkeypatch, tmp_path):
-    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "bf16")
-    x, y, w, b = _dyadic_problem()
-    want = _run_jax_world2(x, y, w, b)
-
+def _run_port_world2(tmp_path, wire, x, y, w, b):
+    """The port's two gloo ranks on the dyadic problem; each rank's
+    saved arrays."""
     np.savez(tmp_path / "data.npz", x=x, y=y, w=w, b=b)
     script = tmp_path / "worker.py"
     script.write_text(_WORKER)
-    env = dict(os.environ, PYTHONPATH=ROOT, HVD_TPU_SCHED_WIRE="bf16")
+    env = dict(os.environ, PYTHONPATH=ROOT, HVD_TPU_SCHED_WIRE=wire)
     env.pop("RANK", None)
     env.pop("WORLD_SIZE", None)
     procs = []
@@ -242,11 +346,40 @@ def test_world2_bf16_wire_is_bitwise_with_jax(monkeypatch, tmp_path):
                 p.wait()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
-    for r in range(2):
-        got = np.load(tmp_path / f"rank{r}.npz")
+    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+
+
+def test_world2_bf16_wire_is_bitwise_with_jax(monkeypatch, tmp_path):
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "bf16")
+    x, y, w, b = _dyadic_problem()
+    want, _ = _run_jax_world2(x, y, w, b)
+    for got in _run_port_world2(tmp_path, "bf16", x, y, w, b):
         for k in ("w", "b"):
             np.testing.assert_array_equal(got[k], want[k])
     assert not np.array_equal(want["w"], w)  # the step moved the weights
+
+
+def test_world2_int8_wire_matches_jax(monkeypatch, tmp_path):
+    """Error feedback on: weights and each rank's residuals against the
+    JAX package's, to 5e-7 (module docstring)."""
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "int8")
+    monkeypatch.delenv("HVD_TPU_SCHED_WIRE_EF", raising=False)
+    x, y, w, b = _dyadic_problem()
+    want, res = _run_jax_world2(x, y, w, b)
+    got = _run_port_world2(tmp_path, "int8", x, y, w, b)
+    for r, g in enumerate(got):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(g[k], want[k], rtol=0, atol=5e-7)
+            np.testing.assert_allclose(g[f"res_{k}"], res[k][r], rtol=0,
+                                       atol=5e-7)
+        np.testing.assert_array_equal(g["w"], got[0]["w"])
+        # One reduce-scatter and one all-gather per step, each moving
+        # n·(c + 4·c/block) bytes: c = 512, one block per chunk.
+        np.testing.assert_array_equal(g["fused"], [4, 4 * 2 * (512 + 4)])
+    # Rank-local residuals: the ranks' gradients differ, so do they.
+    assert not np.array_equal(got[0]["res_w"], got[1]["res_w"])
+    assert np.abs(got[0]["res_w"]).max() > 0
+    assert not np.array_equal(want["w"], w)
 
 
 def _linear_step(**kwargs):
@@ -309,5 +442,65 @@ def test_predivide_and_local_accumulation_world1():
         for p, p0, g in zip(model.parameters(), before, grads):
             torch.testing.assert_close(p, p0 - 0.5 * g, rtol=0, atol=1e-6)
         assert all(p.grad is None for p in model.parameters())
+    finally:
+        thvd.shutdown()
+
+
+@pytest.mark.parametrize("case", ["ef_off", "compressor", "legacy"])
+def test_quantized_wire_options_world1(monkeypatch, case):
+    """``HVD_TPU_SCHED_WIRE_EF=0`` keeps no residual; ``Compression.int8``
+    wins over the knob and keeps residuals; with ``HVD_TPU_SCHED=off``
+    ``Compression.fp8`` reduces each bucket with ``quantized_allreduce``
+    and no residual.  Each step's update is that exchange's output."""
+    from horovod_tpu_torch.ops import quantized as tq
+
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "bf16" if case != "ef_off" else "int8")
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE_EF", "0" if case == "ef_off" else "1")
+    monkeypatch.setenv("HVD_TPU_SCHED", "off" if case == "legacy" else "on")
+    compression = {"ef_off": thvd.Compression.none,
+                   "compressor": thvd.Compression.int8,
+                   "legacy": thvd.Compression.fp8}[case]
+    wire = "fp8" if case == "legacy" else "int8"
+    thvd.init("cpu")
+    try:
+        model, opt = _linear_step(compression=compression)
+        x = torch.arange(8.0).reshape(2, 4) / 8 - 0.3
+        before = [p.detach().clone() for p in model.parameters()]
+        model(x).square().sum().backward()
+        grads = [p.grad.clone() for p in model.parameters()]
+        opt.step()
+        assert (opt.residuals is not None) == (case == "compressor")
+        want_wire = "off" if case == "legacy" else "int8"
+        assert [b.wire for b in opt.schedule.buckets] == [want_wire]
+        flat = torch.cat([grads[i].reshape(-1) for i in opt.schedule.buckets[0].indices])
+        reduced = tq.quantized_allreduce(flat, wire=wire)
+        off = 0
+        for i in opt.schedule.buckets[0].indices:
+            n = grads[i].numel()
+            want = before[i] - 0.5 * reduced[off:off + n].view(grads[i].shape)
+            assert torch.equal(list(model.parameters())[i], want)
+            off += n
+        if case == "compressor":
+            assert sum(float(r.abs().sum()) for r in opt.residuals) > 0
+    finally:
+        thvd.shutdown()
+
+
+@pytest.mark.parametrize("request_wire", ["knob", "compressor", "none"])
+def test_quantized_wire_refuses_other_ops(monkeypatch, request_wire):
+    """An op other than Sum/Average (4 is the JAX package's Max) raises
+    ``QuantizedWireError`` when a quantized wire is requested, and a
+    plain ``ValueError`` otherwise."""
+    from horovod_tpu_torch.exceptions import QuantizedWireError
+
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE",
+                       "int8" if request_wire == "knob" else "off")
+    compression = (thvd.Compression.int8 if request_wire == "compressor"
+                   else thvd.Compression.none)
+    thvd.init("cpu")
+    try:
+        with pytest.raises(ValueError) as err:
+            _linear_step(op=4, compression=compression)
+        assert isinstance(err.value, QuantizedWireError) == (request_wire != "none")
     finally:
         thvd.shutdown()

@@ -3,6 +3,7 @@
 
     python3 tools/torch_dp_multi.py --nproc 4                 # N GPUs, NCCL
     python3 tools/torch_dp_multi.py --nproc 4 --device cpu --tiny   # gloo
+    python3 tools/torch_dp_multi.py --nproc 4 --wire int8     # + int8 wire
 
 It starts ``--nproc`` worker processes of itself, joined through a
 ``FileStore`` in a temporary directory (no port is opened).  Every rank
@@ -11,12 +12,20 @@ weights is what makes them equal; every rank trains on its own random
 batch (batch 32 per rank, ResNet-50 at 224x224 in bf16, or with
 ``--tiny`` a small float32 ResNet at 32x32).  Each rank times windows of
 ``--steps`` steps with ``HVD_TPU_SCHED_WIRE`` set to ``bf16``, ``off``,
-``off``, ``bf16`` in turn, then checks that:
+``off``, ``bf16`` in turn; with ``--wire int8`` (or ``fp8``) the windows
+are ``int8``, ``bf16``, ``off``, ``off``, ``bf16``, ``int8``, and the
+optimizer is built under the quantized wire, so it keeps error-feedback
+residuals.  Then it checks that:
 
-* every rank holds bitwise the same weights and statistics afterwards;
-* on the GPU, kernel B1 ran twice per bucket per bf16-wire step (the
-  down-cast and the up-cast), three times above a world of one (the
-  1/size postscale of the bf16 sum runs through B1 as well).
+* every rank holds bitwise the same weights and statistics afterwards
+  (on the quantized wire every rank applies the same all-gathered
+  dequant);
+* on the GPU, each window launched exactly the kernels its wire implies,
+  per bucket per step: bf16, B1 twice (the down-cast and the up-cast),
+  three times above a world of one (the 1/size postscale of the bf16
+  sum runs through B1 as well); int8/fp8, B3 twice (reduce-scatter and
+  all-gather), B4 and B5 once, and above a world of one B1 once (the
+  1/size postscale of the reduced shard); off, none.
 
 Rank 0 prints one JSON line with the world size, the card, the step
 times per wire and the images per second of the whole world.  The exit
@@ -42,6 +51,7 @@ def worker(args) -> None:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import ResNet, ResNet50
     from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.ops import quant_kernels as qk
     from horovod_tpu_torch.utils.benchmarks import build_dp_step
 
     torch.set_num_threads(2)
@@ -59,35 +69,49 @@ def worker(args) -> None:
             model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
                              seed=args.rank, device=dev)
             shape, classes = (32, 224, 224, 3), 1000
+        wires = ("bf16", "off", "off", "bf16")
+        if args.wire:
+            wires = (args.wire,) + wires + (args.wire,)
+        # The wire at construction decides whether the optimizer keeps
+        # error-feedback residuals.
+        os.environ["HVD_TPU_SCHED_WIRE"] = wires[0]
         step, opt = build_dp_step(hvd, model)
         g = torch.Generator(device=dev).manual_seed(100 + args.rank)
         batch = (torch.rand(*shape, generator=g, device=dev),
                  torch.randint(0, classes, (shape[0],), generator=g, device=dev))
+        counters = {"B1": kernels.scale_cast, "B3": qk.quant_packed,
+                    "B4": qk.dequant_accum, "B5": qk.dequant_rows}
 
         def window(wire: str):
             os.environ["HVD_TPU_SCHED_WIRE"] = wire
             float(step(batch))  # warm-up step; the host read fences it
-            launches = kernels.scale_cast.launches
+            before = {k: c.launches for k, c in counters.items()}
             t0 = time.perf_counter()
             losses = [step(batch) for _ in range(args.steps)]
             last = float(losses[-1])
             ms = (time.perf_counter() - t0) / args.steps * 1e3
-            return ms, kernels.scale_cast.launches - launches, last
+            return ms, {k: c.launches - before[k] for k, c in counters.items()}, last
 
-        timing = {"bf16": [], "off": []}
+        def expected(wire: str) -> dict:
+            per = dict.fromkeys(counters, 0)
+            if dev.type == "cuda":
+                above_one = int(args.nproc > 1)
+                if wire == "bf16":
+                    per["B1"] = 2 + above_one
+                elif wire in ("int8", "fp8"):
+                    per.update(B1=above_one, B3=2, B4=1, B5=1)
+            n = len(opt.schedule) * args.steps
+            return {k: v * n for k, v in per.items()}
+
+        timing = {w: [] for w in wires}
         losses = []
-        for wire in ("bf16", "off", "off", "bf16"):
+        for wire in wires:
             ms, launches, loss = window(wire)
             timing[wire].append(ms)
             losses.append(loss)
-            # Per bf16 bucket: the down-cast, the up-cast and, above a
-            # world of one, Average's 1/size postscale of the bf16 sum.
-            per_bucket = 2 + (args.nproc > 1)
-            expected = per_bucket * len(opt.schedule) * args.steps if (
-                wire == "bf16" and dev.type == "cuda") else 0
-            if launches != expected:
-                raise SystemExit(f"rank {args.rank}: B1 launched {launches} "
-                                 f"times in a {wire} window, expected {expected}")
+            if launches != expected(wire):
+                raise SystemExit(f"rank {args.rank}: launches {launches} in a "
+                                 f"{wire} window, expected {expected(wire)}")
         state = torch.cat([t.detach().float().reshape(-1).cpu()
                            for t in model.state_dict().values()])
         digest = [float(state.double().sum()), float(state.double().abs().sum()),
@@ -110,6 +134,7 @@ def worker(args) -> None:
                 "model": "tiny" if args.tiny else "resnet50",
                 "batch_per_rank": shape[0],
                 "buckets": [b.nbytes for b in opt.schedule.buckets],
+                "residuals": opt.residuals is not None,
                 "step_ms": timing,
                 "img_s": {w: [imgs / ms * 1e3 for ms in v] for w, v in timing.items()},
                 "losses": losses, "weights_equal_on_all_ranks": True,
@@ -126,6 +151,8 @@ def launch(args) -> int:
                str(args.steps), "--store", store]
         if args.tiny:
             cmd.append("--tiny")
+        if args.wire:
+            cmd += ["--wire", args.wire]
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
@@ -146,6 +173,8 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tiny", action="store_true",
                     help="small float32 ResNet at 32x32 (a rehearsal on the CPU)")
+    ap.add_argument("--wire", choices=["int8", "fp8"],
+                    help="also time windows on this quantized wire")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)

@@ -3,7 +3,7 @@
 
 Run on a machine with one NVIDIA GPU, from the root of a checkout:
 
-    python3 tools/torch_profile_step.py [--steps 5] [--out PATH]
+    python3 tools/torch_profile_step.py [--steps 5] [--wire int8] [--out PATH]
 
 It builds the step ``chip_smoke.py`` drives (ResNet-50, 224x224, batch 32
 per GPU, bf16 compute, world of one, ``build_dp_step``), then:
@@ -11,10 +11,17 @@ per GPU, bf16 compute, world of one, ``build_dp_step``), then:
 1. times the step with ``HVD_TPU_SCHED_WIRE`` set to ``bf16``, ``off``,
    ``off``, ``bf16`` in turn (host clock, each window ending in a
    synchronise), so the wire's cost at world one is read in one process;
-2. profiles ``--steps`` bf16-wire steps with ``torch.profiler`` and
-   prints the device-busy time per step, the idle share of the window,
-   device time by group (B1, NCCL, convolution and GEMM, elementwise and
-   reductions, other) and the kernels that take the most time.
+   with ``--wire int8`` (or ``fp8``) the windows are ``int8``, ``bf16``,
+   ``off``, ``off``, ``bf16``, ``int8`` and the optimizer is built under
+   the quantized wire, so it keeps error-feedback residuals;
+2. profiles ``--steps`` steps on ``--wire`` (default bf16) with
+   ``torch.profiler`` and prints the device-busy time per step, the idle
+   share of the window, device time by group (B1, B3-B5, NCCL,
+   convolution and GEMM, elementwise and reductions, other) and the
+   kernels that take the most time.
+
+Each timing window also reports the host time of the gradient exchange
+(``DistributedOptimizer.synchronize``, which enqueues and returns).
 
 Every line names the card and its power limit (``nvidia-smi``).
 """
@@ -29,6 +36,7 @@ import time
 
 GROUPS = (
     ("B1 scale_cast", re.compile(r"scale_cast")),
+    ("B3-B5 quant", re.compile(r"quant_pack|dequant_accum|dequant_rows")),
     ("NCCL", re.compile(r"nccl", re.I)),
     ("conv/GEMM", re.compile(
         r"conv|xmma|cudnn|gemm|implicit|wgrad|dgrad|fprop|sm90_|cutlass", re.I)),
@@ -61,6 +69,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--window", type=int, default=10,
                     help="steps per timing window")
+    ap.add_argument("--wire", choices=["int8", "fp8"],
+                    help="also time, and profile, this quantized wire")
     ap.add_argument("--out", help="also write the results here as JSON")
     args = ap.parse_args()
 
@@ -80,33 +90,57 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    wires = ("bf16", "off", "off", "bf16")
+    if args.wire:
+        wires = (args.wire,) + wires + (args.wire,)
+    profiled = args.wire or "bf16"
     hvd.init("cuda")
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device="cuda")
+    # The wire at construction decides whether the optimizer keeps
+    # error-feedback residuals.
+    os.environ["HVD_TPU_SCHED_WIRE"] = wires[0]
     step, opt = build_dp_step(hvd, model)
+    sync_s = []
+    synchronize = opt.synchronize
+
+    def timed_synchronize():
+        t0 = time.perf_counter()
+        synchronize()
+        sync_s.append(time.perf_counter() - t0)
+
+    opt.synchronize = timed_synchronize
     g = torch.Generator(device="cuda").manual_seed(0)
     batch = (torch.rand(32, 224, 224, 3, generator=g, device="cuda"),
              torch.randint(0, 1000, (32,), generator=g, device="cuda"))
 
-    def window(wire: str) -> float:
+    def window(wire: str):
+        """Step ms and the exchange's host ms per step over one window."""
         os.environ["HVD_TPU_SCHED_WIRE"] = wire
         float(step(batch))  # a host read fences the previous work
+        sync_s.clear()
         t0 = time.perf_counter()
         loss = None
         for _ in range(args.window):
             loss = step(batch)
         float(loss)
-        return (time.perf_counter() - t0) / args.window * 1e3
+        ms = (time.perf_counter() - t0) / args.window * 1e3
+        return ms, sum(sync_s) / len(sync_s) * 1e3
 
-    for wire in ("bf16", "off"):  # warm both paths
+    for wire in sorted(set(wires)):  # warm every path
         window(wire)
-    timing = {"bf16": [], "off": []}
-    for wire in ("bf16", "off", "off", "bf16"):
-        timing[wire].append(window(wire))
+    timing = {w: [] for w in wires}
+    exchange = {w: [] for w in wires}
+    for wire in wires:
+        ms, host_ms = window(wire)
+        timing[wire].append(ms)
+        exchange[wire].append(host_ms)
     for wire, ms in timing.items():
         print(f"step ms, wire={wire}: {[round(v, 3) for v in ms]} "
-              f"(mean {sum(ms) / len(ms):.3f}; batch 32) on {card}", flush=True)
+              f"(mean {sum(ms) / len(ms):.3f}; batch 32); host ms of the "
+              f"exchange (synchronize, enqueue only): "
+              f"{[round(v, 3) for v in exchange[wire]]} on {card}", flush=True)
 
-    os.environ["HVD_TPU_SCHED_WIRE"] = "bf16"
+    os.environ["HVD_TPU_SCHED_WIRE"] = profiled
     from torch.profiler import ProfilerActivity, profile
 
     float(step(batch))
@@ -124,7 +158,8 @@ def main() -> None:
         and str(e.device_type).endswith("CUDA")
         and e.time_range.end > e.time_range.start
     ]
-    result = {"card": card, "timing_ms": timing, "steps": args.steps}
+    result = {"card": card, "timing_ms": timing, "steps": args.steps,
+              "wire": profiled, "exchange_host_ms": exchange}
     if not kernels:
         print(f"profiler: no device events; device time not measured on {card}")
     else:
@@ -135,7 +170,7 @@ def main() -> None:
             by_group[group_of(e.name)] = by_group.get(group_of(e.name), 0.0) + dt
             by_name[e.name] = by_name.get(e.name, 0.0) + dt
         total = sum(by_group.values())
-        print(f"profiled {args.steps} steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "
+        print(f"profiled {args.steps} {profiled}-wire steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "
               f"device busy {busy / args.steps / 1e3:.3f} ms/step, idle share "
               f"{1 - busy / wall_us:.1%}, {len(kernels) / args.steps:.0f} kernels/step "
               f"on {card}", flush=True)
