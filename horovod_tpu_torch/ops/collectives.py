@@ -14,6 +14,7 @@ one and it would round differently from ``_scale``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -28,6 +29,14 @@ class ReduceOp:
 
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
+
+
+def f32_reciprocal(n: float) -> float:
+    """``float32(1 / n)``.  Under ``jit`` XLA turns ``x / n`` by a
+    constant (``lax.pmean``, the quantized wire's averages and scales)
+    into ``x * float32(1 / n)``; multiplying by this keeps the port
+    bitwise with the JAX package at any world size."""
+    return float(np.float32(1.0) / np.float32(n))
 
 
 def _scale(x: torch.Tensor, factor: float) -> torch.Tensor:

@@ -34,10 +34,10 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from . import build
+from .collectives import f32_reciprocal
 
 # wire name -> (storage dtype, qmax); codes shared with csrc/quant.cu.
 WIRE_FORMATS = {
@@ -47,18 +47,13 @@ WIRE_FORMATS = {
 _WIRE_CODE = {"int8": 0, "fp8": 1}
 
 
-def inv_qmax(qmax: float) -> float:
-    """``float32(1 / qmax)``: the constant XLA multiplies by."""
-    return float(np.float32(1.0) / np.float32(qmax))
-
-
 def _block_scale(amax: torch.Tensor, qmax: float):
     """Per-block ``(wire_scale, safe_divisor)`` with the zero and
     non-finite guard (``horovod_tpu/ops/quantized.py:178``): a zero
     block divides by 1.0; a non-finite block (``amax`` inf or NaN) gets
     a NaN wire scale."""
     finite = torch.isfinite(amax)
-    cand = amax * inv_qmax(qmax)
+    cand = amax * f32_reciprocal(qmax)
     safe = torch.where(finite & (cand > 0), cand, 1.0)
     return torch.where(finite, safe, float("nan")), safe
 
@@ -179,7 +174,7 @@ def quant_packed(x3: torch.Tensor, wire: str, want_deq: bool = False
         rc = _library().hvd_quant_pack(
             x3.data_ptr(), packed.data_ptr(),
             deq.data_ptr() if want_deq else None, m * nb, block,
-            _WIRE_CODE[wire], inv_qmax(WIRE_FORMATS[wire][1]), _stream(x3),
+            _WIRE_CODE[wire], f32_reciprocal(WIRE_FORMATS[wire][1]), _stream(x3),
         )
     _launched(quant_packed, rc)
     return packed, deq

@@ -40,7 +40,7 @@ from .. import metrics, runtime
 from ..exceptions import QuantizedWireError
 from ..utils import env
 from . import quant_kernels
-from .collectives import Average, Sum
+from .collectives import Average, Sum, f32_reciprocal
 from .quant_kernels import WIRE_FORMATS, _block_scale  # noqa: F401
 
 BLOCK = 512  # elements per quantization block (HVD_TPU_QUANT_BLOCK)
@@ -152,7 +152,7 @@ def quantized_reduce_scatter(
         recv = packed
     mine = quant_kernels.dequant_accum(recv, wire).view(c)
     if op == Average:
-        mine = mine / n
+        mine = mine * f32_reciprocal(n)
     if ef:
         residual = (flat[:V] - deq.view(-1)[:V]).view(shape).to(dtype)
         return mine, residual
@@ -216,7 +216,7 @@ def quantized_allreduce(
         shard, process_set, wire=wire, block=block, backend=backend
     )[:x.numel()]
     if op == Average:
-        out = out / runtime.size()
+        out = out * f32_reciprocal(runtime.size())
     return out.view(x.shape).to(x.dtype)
 
 
@@ -241,7 +241,7 @@ def quantized_allreduce_ef(
         shard, process_set, wire=wire, block=block, backend=backend
     )[:x.numel()]
     if op == Average:
-        out = out / runtime.size()
+        out = out * f32_reciprocal(runtime.size())
     return out.view(x.shape).to(x.dtype), r_new.view(x.shape).to(residual.dtype)
 
 

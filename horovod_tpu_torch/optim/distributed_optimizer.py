@@ -313,16 +313,16 @@ def DistributedOptimizer(
 
 
 def _pmean_(tensors: List[torch.Tensor]) -> None:
-    """Replace each tensor by its mean across ranks (sum, then divide by
-    the world size, as ``lax.pmean``), through one fused buffer per
-    dtype.  Identity in a world of one."""
+    """Replace each tensor by its mean across ranks (sum, then times
+    float32(1/size), as ``lax.pmean`` compiles), through one fused
+    buffer per dtype.  Identity in a world of one."""
     size = runtime.size()
     if size == 1 or not tensors:
         return
     flats, meta = fusion.flatten_group(tensors)
     for f in flats:
         dist.all_reduce(f, op=dist.ReduceOp.SUM)
-        f.div_(size)
+        f.mul_(collectives.f32_reciprocal(size))
     for t, r in zip(tensors, fusion.unflatten_group(flats, meta)):
         t.copy_(r)
 

@@ -320,18 +320,17 @@ def _run_jax_world2(x, y, w, b):
         hvd.shutdown()
 
 
-def _run_port_world2(tmp_path, wire, x, y, w, b):
-    """The port's two gloo ranks on the dyadic problem; each rank's
-    saved arrays."""
-    np.savez(tmp_path / "data.npz", x=x, y=y, w=w, b=b)
+def _spawn(tmp_path, source, n, **env_extra):
+    """Run ``source`` as ranks 0..n-1 of a gloo world joined through a
+    FileStore under ``tmp_path``; each rank's saved arrays."""
     script = tmp_path / "worker.py"
-    script.write_text(_WORKER)
-    env = dict(os.environ, PYTHONPATH=ROOT, HVD_TPU_SCHED_WIRE=wire)
+    script.write_text(source)
+    env = dict(os.environ, PYTHONPATH=ROOT, **env_extra)
     env.pop("RANK", None)
     env.pop("WORLD_SIZE", None)
     procs = []
     try:
-        for r in range(2):
+        for r in range(n):
             procs.append(subprocess.Popen(
                 [sys.executable, str(script), str(r),
                  str(tmp_path / "store"), str(tmp_path)],
@@ -346,7 +345,13 @@ def _run_port_world2(tmp_path, wire, x, y, w, b):
                 p.wait()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(n)]
+
+
+def _run_port_world2(tmp_path, wire, x, y, w, b):
+    """The port's two gloo ranks on the dyadic problem."""
+    np.savez(tmp_path / "data.npz", x=x, y=y, w=w, b=b)
+    return _spawn(tmp_path, _WORKER, 2, HVD_TPU_SCHED_WIRE=wire)
 
 
 def test_world2_bf16_wire_is_bitwise_with_jax(monkeypatch, tmp_path):
@@ -380,6 +385,79 @@ def test_world2_int8_wire_matches_jax(monkeypatch, tmp_path):
     assert not np.array_equal(got[0]["res_w"], got[1]["res_w"])
     assert np.abs(got[0]["res_w"]).max() > 0
     assert not np.array_equal(want["w"], w)
+
+
+_WORKER3 = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import quantized as tq
+    from horovod_tpu_torch.optim.distributed_optimizer import _pmean_
+
+    rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    torch.set_num_threads(1)
+    hvd.init("cpu", init_method="file://" + store, rank=rank, size=3,
+             timeout_s=100)
+    try:
+        x = torch.from_numpy(np.load(out + "/data.npz")["x"][rank])
+        mean = x.clone()
+        _pmean_([mean])
+        np.savez(f"{out}/rank{rank}.npz", pmean=mean.numpy(),
+                 allreduce=tq.quantized_allreduce(x, block=128).numpy(),
+                 shard=tq.quantized_reduce_scatter(x, block=128).numpy())
+    finally:
+        hvd.shutdown()
+""")
+
+
+def _grid_problem():
+    """Three ranks' float32 rows on the int8 grid: multiples of 1/4 in
+    [-10, 10] with 31.75 (= 127/4) once in every 128-block, so every
+    block's scale is exactly 1/4, every q·s is exact and so is every sum
+    of three; 1024 elements pad to 3 chunks of 384 with one zero block."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(-40, 41, (3, 1024)).astype(np.float32) / 4
+    x.reshape(3, 8, 128)[:, :, 7] = 31.75
+    return x
+
+
+def test_world3_averages_match_jax(tmp_path):
+    """At a world of three the averages are bitwise with the JAX
+    package's: ``lax.pmean`` and the quantized wire's ``/ n`` compile to
+    a multiply by float32(1/3) under ``jit``, and the sums here are
+    exact, so any other rounding of the average shows."""
+    from horovod_tpu.ops.quantized import (
+        quantized_allreduce,
+        quantized_reduce_scatter,
+    )
+    from horovod_tpu.runtime import WORLD_AXIS, get_runtime
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    x = _grid_problem()
+    hvd.shutdown()
+    hvd.init(devices=jax.devices()[:3])
+    try:
+        def body(v):
+            v = v[0]
+            return (jax.lax.pmean(v, WORLD_AXIS)[None],
+                    quantized_allreduce(v, block=128)[None],
+                    quantized_reduce_scatter(v, block=128)[None])
+
+        fn = jax.jit(shard_map(
+            body, mesh=get_runtime().mesh, in_specs=(P(WORLD_AXIS),),
+            out_specs=(P(WORLD_AXIS),) * 3, check_vma=False,
+        ))
+        pmean, allreduce, shard = [np.array(a) for a in fn(jnp.asarray(x))]
+    finally:
+        hvd.shutdown()
+    np.savez(tmp_path / "data.npz", x=x)
+    for r, got in enumerate(_spawn(tmp_path, _WORKER3, 3)):
+        np.testing.assert_array_equal(got["pmean"], pmean[r])
+        np.testing.assert_array_equal(got["allreduce"], allreduce[r])
+        np.testing.assert_array_equal(got["shard"], shard[r])
+    assert not np.array_equal(pmean[0], (x.sum(0) / np.float32(3)))
 
 
 def _linear_step(**kwargs):
