@@ -8,9 +8,10 @@ exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off
    for float32 matmuls and convolutions (stated).
-2. build: ``horovod_tpu_torch/csrc/scale_cast.cu`` (kernel B1) and
-   ``quant.cu`` (B3, B4, B5) compiled with ``nvcc`` for sm_90a, one
-   ``nvcc`` per source, started together; the ptxas register lines.
+2. build: ``horovod_tpu_torch/csrc/scale_cast.cu`` (kernel B1),
+   ``quant.cu`` (B3, B4, B5) and ``flash_attn.cu`` (B2) compiled with
+   ``nvcc`` for sm_90a, one ``nvcc`` per source, started together; the
+   ptxas register lines.
 3. kernel: B1 against its plain PyTorch version, bitwise, at the
    ResNet-50 bf16 wire's bucket sizes and at 1 / 127 / 65 537 elements,
    for f32->bf16, bf16->f32, bf16->bf16 at scale 1/3 and f32->f16 with
@@ -20,7 +21,13 @@ exits non-zero):
    for blocks 64 / 128 / 512 / 96, with an all-zero, an inf, a NaN and a
    subnormal block.  Each with the kernel's, the plain version's and
    (where one call computes the same function) the library call's time,
-   and the memory bound.
+   and the memory bound.  Then B2, flash attention, against its plain
+   version (``FLASH_TOL``) at the GPT slice's shape (B 16, T 1024, H 12,
+   D 64, bf16): causal dense, causal packed, non-causal, ragged T 1000,
+   and float32 at ``gpt_tiny``'s heads (4 x 16, T 256); the kernel's,
+   the plain version's and, for causal dense, ``scaled_dot_product_
+   attention``'s time, and the bound from the bytes and the operations
+   this run's masks need.
 4. slice bf16: ``init`` on NCCL (world of one), full-width ResNet-50 at
    224x224, batch 32, bf16 compute, ``HVD_TPU_SCHED_WIRE=bf16``,
    ``build_dp_step``; 2 warm-up + 5 timed steps with finite losses, B1
@@ -35,7 +42,18 @@ exits non-zero):
 6. reference: a small float32 ResNet on the card against the CPU path
    (plain versions), three steps on the bf16 wire and three on int8, to
    stated tolerances.
-7. result: the card line, the kernels JSON line, then
+7. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
+   published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
+   ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
+   AdamW and ``Compression.bf16`` (``HVD_TPU_SCHED_WIRE=off``, as
+   ``bench_gpt``); dense rows for 2 warm-up + 5 timed steps, packed rows
+   (``packed_lm_batch``) for 1 + 2; finite losses, the first dense one
+   within 1 of ln(50304), B2 launched exactly 12 times per step and no
+   other kernel; step ms, tokens/s and peak memory.
+8. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
+   seq 256) for three steps on the card against the CPU path, to stated
+   tolerances.
+9. result: the card line, the kernels JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out PATH`` also writes every measurement as JSON.
@@ -56,16 +74,31 @@ def fail(msg: str) -> None:
 
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor core; FFMA
 WARMUP, TIMED = 2, 5
 FP8_WARMUP, FP8_TIMED = 1, 2
+PACKED_WARMUP, PACKED_TIMED = 1, 2
 BLOCK = 512  # HVD_TPU_QUANT_BLOCK default
-SOURCES = ["scale_cast", "quant"]
+GPT_BATCH, GPT_SEQ, GPT_LAYERS, GPT_VOCAB = 16, 1024, 12, 50304
+SOURCES = ["scale_cast", "quant", "flash_attn"]
 REPLACES = {
     "scale_cast": "horovod_tpu/ops/pallas_kernels.py:56",
     "quant_pack": "horovod_tpu/ops/pallas_quant.py:139",
     "dequant_accum": "horovod_tpu/ops/pallas_quant.py:174",
     "dequant_rows": "horovod_tpu/ops/pallas_quant.py:197",
+    "flash_fwd": "horovod_tpu/ops/pallas_kernels.py:144",
 }
+# B2 against its plain version at the kernel's key tile: (out rtol, out
+# atol, lse atol).  The kernel sums its dot products and row sums in
+# another order than the plain version's matmuls; in bf16 a score that
+# moves by a float32 ulp can round p, and the output, to the other bf16
+# neighbour, so out agrees to 2^-7 of itself + 2^-9; lse (about 7 at
+# T 1024) to 1e-4, some 100 float32 ulps.  float32: 1e-5 (FFMA sums).
+FLASH_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -9, 1e-4),
+             "float32": (1e-5, 1e-5, 1e-5)}
+# Two runs of three AdamW steps (lr 3e-4, weight decay 1e-4 on weights
+# below 1) can differ by at most this much (``reference_gpt_phase``).
+ADAM_APART = 2 * 3 * 3e-4 * (1.004 + 1e-4) + 1e-6
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -451,6 +484,194 @@ def reference_phase(hvd, tresnet, build_dp_step, wire):
             "worst_of_limit": worst}
 
 
+def _attention_pairs(t, causal, segs):
+    """(query, key) pairs the mask keeps, per (batch row, head): what
+    this run's data needs of the two products."""
+    import torch
+
+    if segs is None:
+        return float(t * (t + 1) // 2 if causal else t * t)
+    keep = segs[:, :, None] == segs[:, None, :]
+    if causal:
+        keep &= torch.ones(t, t, dtype=torch.bool, device=segs.device).tril()[None]
+    return float(keep.sum()) / segs.shape[0]
+
+
+def flash_phase(flash, segs, log):
+    """B2 against its plain version at the GPT slice's shape; returns the
+    causal dense case's record for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = [
+        ("causal dense", GPT_SEQ, 12, 64, torch.bfloat16, True, None),
+        ("causal packed", GPT_SEQ, 12, 64, torch.bfloat16, True, segs),
+        ("non-causal", GPT_SEQ, 12, 64, torch.bfloat16, False, None),
+        ("ragged T=1000", 1000, 12, 64, torch.bfloat16, True, None),
+        ("float32 gpt_tiny heads", 256, 4, 16, torch.float32, True, None),
+    ]
+    before = flash.flash_forward.launches
+    record = None
+    for name, t, h, d, dtype, causal, seg in cases:
+        b = GPT_BATCH
+        # q, k, v as the model passes them: strided views of one qkv.
+        qkv = torch.randn(b, t, 3, h, d, generator=g, device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+        scale = d ** -0.5
+        out, lse = flash.flash_forward(q, k, v, causal, scale, seg)
+        want_o, want_l = flash.flash_forward_reference(
+            q, k, v, causal, scale, seg, block_k=flash.KERNEL_BLOCK)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        rtol, atol, lse_tol = FLASH_TOL[dname]
+        err_o = (out.float() - want_o.float()).abs()
+        err_l = float((lse - want_l).abs().max())
+        if not bool(torch.isfinite(out).all()) or bool(
+                (err_o > atol + rtol * want_o.float().abs()).any()) or err_l > lse_tol:
+            fail(f"B2 {name}: out error {float(err_o.max())} (rtol {rtol}, atol "
+                 f"{atol}), lse error {err_l} (atol {lse_tol})")
+        ms = time_ms(lambda: flash.flash_forward(q, k, v, causal, scale, seg))
+        plain_ms = time_ms(lambda: flash.flash_forward_reference(
+            q, k, v, causal, scale, seg), iters=5)
+        lib_ms = None
+        if name == "causal dense":
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+        esize = q.element_size()
+        nbytes = 4 * b * t * h * d * esize + 4 * b * h * t
+        if seg is not None:
+            nbytes += 4 * b * t
+        flops = 4.0 * d * h * b * _attention_pairs(t, causal, seg)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FLOPS[dname] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        rec = {"kernel": "flash_fwd", "case": name, "shape": [b, t, h, d],
+               "dtype": dname, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes": nbytes, "flops": flops, "max_abs_err": float(err_o.max()),
+               "lse_err": err_l}
+        log["kernel_cases"].append(rec)
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(f"phase kernel: B2 {name} [{b},{t},{h},{d}] {dname}: out error "
+              f"{float(err_o.max()):.3g}, lse error {err_l:.3g} (within FLASH_TOL); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_txt}, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.1f} GFLOP; {bound_ms / ms:.1%} of bound)", flush=True)
+        if name == "causal dense":
+            record = rec
+        del qkv, q, k, v, out, lse, want_o, want_l, err_o
+    print(f"phase kernel: {flash.flash_forward.launches - before} B2 launches for "
+          "comparison and timing (not counted for the main path)", flush=True)
+    return record
+
+
+def gpt_phase(hvd, tt, build_lm_step, timed_throughput, counters, batch,
+              packed, warmup, timed, card):
+    """One run of the GPT slice on GPT-2 small: losses, timings and the
+    launch count of every kernel."""
+    import torch
+
+    os.environ["HVD_TPU_SCHED_WIRE"] = "off"  # bench_gpt: Compression.bf16 only
+    hvd.init("cuda")
+    try:
+        model = tt.gpt_small(seed=0, device="cuda")
+        step, _ = build_lm_step(hvd, model, packed=packed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        seconds, losses = timed_throughput(step, batch, iters=timed, warmup=warmup)
+        launches = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, step
+    finally:
+        hvd.shutdown()
+    what = "packed" if packed else "dense"
+    steps = warmup + timed
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"gpt {what}: non-finite losses {losses}")
+    if not packed and abs(losses[0] - math.log(GPT_VOCAB)) > 1.0:
+        fail(f"gpt dense: first loss {losses[0]} is not near ln({GPT_VOCAB})")
+    expected = {k: (GPT_LAYERS * steps if k == "flash_fwd" else 0) for k in counters}
+    if launches != expected:
+        fail(f"gpt {what}: launches {launches}, expected {expected}")
+    step_ms = seconds / timed * 1e3
+    tok_s = GPT_BATCH * GPT_SEQ * timed / seconds
+    print(f"phase slice gpt {what}: GPT-2 small, batch {GPT_BATCH} x {GPT_SEQ}, bf16, "
+          f"AdamW, Compression.bf16; losses {[round(v, 5) for v in losses]}; "
+          f"launches {launches} (= expected); step {step_ms:.2f} ms, "
+          f"{tok_s:.0f} tokens/s, peak {peak_gib:.2f} GiB on {card}", flush=True)
+    return {"packed": packed, "losses": losses, "step_ms": step_ms,
+            "tokens_s": tok_s, "peak_gib": peak_gib, "launches": launches}
+
+
+def reference_gpt_phase(hvd, tt, build_lm_step):
+    """Three steps of a small bf16 GPT on the card against the CPU path
+    (B2 and the chunked backward against their plain versions, cuBLAS
+    against the CPU's bf16 matmuls).  bf16 activations round at
+    different places on the two devices, so the first loss agrees to
+    rtol 2e-3 and the later ones to 1e-2.  Each of Adam's first three
+    updates is at most 1.004·lr (3e-4) in size whatever the gradients
+    (Cauchy-Schwarz over the moments' weights at betas 0.9 / 0.999), so
+    two runs whose gradients differ in sign can be ``ADAM_APART`` apart
+    after three steps, weight decay included; the check that the two
+    runs computed the same gradients is that, per tensor, the mean
+    difference is at most 25% of the mean move (elements whose gradient
+    is larger than the devices' rounding take the same Adam steps).  The
+    key columns of the qkv bias are left out of that mean: their exact
+    gradient is 0 (a constant added to every key of a query's row leaves
+    its softmax unchanged), so each device steps them by its own
+    rounding noise."""
+    import torch
+
+    os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+    cfg = tt.TransformerConfig(vocab_size=512, num_layers=2, model_dim=128,
+                               num_heads=2, head_dim=64, ff_dim=512, max_len=256)
+    rng = torch.Generator().manual_seed(4)
+    batches = [torch.randint(0, 512, (4, 256), generator=rng) for _ in range(3)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        hvd.init(dev)
+        try:
+            model = tt.Transformer(cfg, seed=5, device=dev)
+            start = {n: p.detach().float().cpu().clone()
+                     for n, p in model.named_parameters()}
+            step, _ = build_lm_step(hvd, model, packed=False)
+            losses = [float(step(x.to(dev))) for x in batches]
+            after = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+        finally:
+            hvd.shutdown()
+        runs[dev] = (losses, after)
+    (lc, wc), (lp, wp) = runs["cuda"], runs["cpu"]
+    if not all(math.isfinite(v) for v in lc):
+        fail(f"reference gpt: non-finite losses on the card {lc}")
+    if abs(lc[0] - lp[0]) > 2e-3 * abs(lp[0]) or any(
+            abs(a - b) > 1e-2 * abs(b) for a, b in zip(lc, lp)):
+        fail(f"reference gpt: losses {lc} on the card vs {lp} on the CPU")
+    worst_abs, worst_ratio = 0.0, 0.0
+    for n in wp:
+        diff = (wc[n] - wp[n]).abs()
+        move = (wp[n] - start[n]).abs()
+        worst_abs = max(worst_abs, float(diff.max()))
+        if n.endswith("qkv.Dense_0.bias"):  # [3, H, D]: drop the key third
+            diff, move = diff.view(3, -1)[[0, 2]], move.view(3, -1)[[0, 2]]
+        ratio = float(diff.mean() / move.mean())
+        worst_ratio = max(worst_ratio, ratio)
+        if worst_abs > ADAM_APART or ratio > 0.25:
+            fail(f"reference gpt: {n} differs by up to {worst_abs} (mean "
+                 f"{ratio:.3f} of its mean move)")
+    print(f"phase reference gpt: small bf16 GPT, 3 steps on the card vs the CPU "
+          f"path: losses {lc} vs {lp}; worst weight difference {worst_abs:.3g} "
+          f"(bound {ADAM_APART:.2e}), worst mean difference {worst_ratio:.3f} of "
+          f"the mean move (bound 0.25)", flush=True)
+    return {"losses_cuda": lc, "losses_cpu": lp, "worst_abs": worst_abs,
+            "worst_mean_ratio": worst_ratio}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
@@ -466,10 +687,16 @@ def main() -> None:
     sys.path.insert(0, root)
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import resnet as tresnet
-    from horovod_tpu_torch.ops import build, kernels
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import build, flash, kernels
     from horovod_tpu_torch.ops import quant_kernels as qk
     from horovod_tpu_torch.sched.plan import SchedConfig, build_schedule, dtype_name
-    from horovod_tpu_torch.utils.benchmarks import build_dp_step, timed_throughput
+    from horovod_tpu_torch.utils.benchmarks import (
+        build_dp_step,
+        build_lm_step,
+        packed_lm_batch,
+        timed_throughput,
+    )
 
     # Phase 1: device.
     smi = subprocess.run(
@@ -515,6 +742,9 @@ def main() -> None:
           f"int8 block: {padded}", flush=True)
     record = kernel_phase(kernels, sizes, log)
     qrecords = quant_kernel_phase(qk, padded, log)
+    tok_np, seg_np = packed_lm_batch(GPT_BATCH, GPT_SEQ, GPT_VOCAB)
+    packed_batch = (torch.from_numpy(tok_np).cuda(), torch.from_numpy(seg_np).cuda())
+    frecord = flash_phase(flash, packed_batch[1], log)
 
     # Phases 4 and 5: the slice on each wire, through the entry points a
     # user calls; the counts are set to 0 before each run.
@@ -537,9 +767,29 @@ def main() -> None:
     log["reference"] = [reference_phase(hvd, tresnet, build_dp_step, w)
                         for w in ("bf16", "int8")]
 
+    # Phase 7: the GPT slice, dense then packed rows; every count is set
+    # to 0 just before each run.
+    counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                "flash_fwd": flash.flash_forward}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dense_batch = torch.randint(0, GPT_VOCAB, (GPT_BATCH, GPT_SEQ), generator=g,
+                                device="cuda")
+    gpt_runs = {}
+    for packed, batch, warmup, timed in ((False, dense_batch, WARMUP, TIMED),
+                                         (True, packed_batch, PACKED_WARMUP,
+                                          PACKED_TIMED)):
+        torch.cuda.empty_cache()
+        gpt_runs["packed" if packed else "dense"] = gpt_phase(
+            hvd, tt, build_lm_step, timed_throughput, counters, batch, packed,
+            warmup, timed, card)
+    log["gpt"] = gpt_runs
+    log["reference_gpt"] = reference_gpt_phase(hvd, tt, build_lm_step)
+
     entries = [("scale_cast", "scale_cast.cu", record, runs["bf16"])]
     entries += [(k, "quant.cu", qrecords[k], runs["int8"])
                 for k in ("quant_pack", "dequant_accum", "dequant_rows")]
+    entries.append(("flash_fwd", "flash_attn.cu", frecord, gpt_runs["dense"]))
     kernels_line = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -550,7 +800,7 @@ def main() -> None:
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": rec.get("bound_by", "bytes"),
         "library_ms": rec["library_ms"],
     } for name, src, rec, run in entries]}
     log["kernels"] = kernels_line["kernels"]

@@ -6,8 +6,10 @@ Counterpart of ``horovod_tpu/__init__.py`` for the ported slice:
 ``DistributedOptimizer`` over the bucketed scheduler with the bf16 and
 the int8/fp8 quantized wires (``Compression.int8``/``fp8``),
 ``broadcast_parameters``/``broadcast_optimizer_state``, the ResNet model
-and the benchmark step.  Importing it imports neither JAX nor
-``horovod_tpu``.
+and its benchmark step, and the GPT transformer with flash attention and
+its language-model step (``models.transformer``, ``ops.flash``,
+``utils.benchmarks.build_lm_step``).  Importing it imports neither JAX
+nor ``horovod_tpu``.
 """
 
 from .compression import Compression

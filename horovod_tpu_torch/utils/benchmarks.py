@@ -1,10 +1,12 @@
-"""The canonical data-parallel training step for an image model.
+"""The canonical data-parallel training steps: an image model's and a
+language model's.
 
 Counterpart of ``horovod_tpu/utils/benchmarks.py`` (``build_dp_step``
-``:15``, ``timed_throughput`` ``:70``).  A torch module carries its
-weights, so the step is built around an existing model (the JAX
-function initialises the flax model itself and takes the image size for
-that) and returns the model and optimizer instead of parameter pytrees.
+``:15``, ``timed_throughput`` ``:70``) and of the step of ``bench.py``
+``bench_gpt`` (:func:`build_lm_step`, :func:`packed_lm_batch`).  A
+torch module carries its weights, so the steps are built around an
+existing model (the JAX functions initialise the flax model themselves)
+and return the model and optimizer instead of parameter pytrees.
 """
 
 from __future__ import annotations
@@ -12,8 +14,11 @@ from __future__ import annotations
 import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..compression import Compression
 
 
 def _loss_fn(model, batch):
@@ -54,3 +59,63 @@ def timed_throughput(step, batch, iters: int,
         float(timed[-1])
     seconds = time.perf_counter() - t0
     return seconds, losses + [float(t) for t in timed]
+
+
+def build_lm_step(hvd, model: torch.nn.Module, *, packed: bool,
+                  compression=Compression.bf16, lr: float = 3e-4) -> Tuple:
+    """Build the language-model step of ``bench.py`` ``bench_gpt``
+    (``:149-257``): rank 0's weights are broadcast, AdamW with
+    ``optax.adamw``'s defaults (betas 0.9 / 0.999, eps 1e-8, weight
+    decay 1e-4 on every parameter) is wrapped in
+    ``hvd.DistributedOptimizer`` with ``compression``, and the step
+    minimises the next-token cross-entropy plus ``0.01 * aux``.
+
+    Dense rows: ``step(tokens)`` with ``tokens [B, T]``; the target of
+    position t is token t+1, and the last position's is the row's first
+    token (``jnp.roll``).  Packed rows (``packed=True``):
+    ``step((tokens, segment_ids))`` with the packed loss.  Returns
+    ``(step, optimizer)``."""
+    from ..models.transformer import (
+        packed_token_cross_entropy,
+        token_cross_entropy,
+    )
+
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=compression,
+    )
+
+    if packed:
+        def loss_fn(m, batch):
+            tokens, segs = batch
+            logits, aux = m(tokens, segs)
+            return packed_token_cross_entropy(logits, tokens, segs) + 0.01 * aux
+    else:
+        def loss_fn(m, tokens):
+            logits, aux = m(tokens)
+            target = torch.roll(tokens, -1, dims=-1)
+            return token_cross_entropy(logits, target) + 0.01 * aux
+
+    return hvd.TrainStep(model, opt, loss_fn), opt
+
+
+def packed_lm_batch(rows: int, seq_len: int = 1024, vocab_size: int = 50304,
+                    seed: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """``bench_gpt``'s packed batch (``bench.py:174-186``): documents of
+    ``clip(lognormal(5.8, 0.7), 32, seq_len)`` random tokens from
+    ``RandomState(seed)``, drawn until they fill ``rows + 2`` rows, packed
+    first-fit into ``seq_len`` and cut to ``rows``.  Returns int32
+    ``(tokens, segment_ids)``."""
+    from ..data.packing import pack_documents
+
+    rng = np.random.RandomState(seed)
+    docs, filled = [], 0
+    while filled < rows + 2:
+        n = int(np.clip(rng.lognormal(5.8, 0.7), 32, seq_len))
+        docs.append(rng.randint(0, vocab_size, n).astype(np.int32))
+        filled = sum(len(d) for d in docs) // seq_len
+    tokens, segs = pack_documents(docs, seq_len)
+    return tokens[:rows], segs[:rows]

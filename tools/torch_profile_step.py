@@ -36,10 +36,12 @@ import time
 
 GROUPS = (
     ("B1 scale_cast", re.compile(r"scale_cast")),
+    ("B2 flash_fwd", re.compile(r"flash_fwd")),
     ("B3-B5 quant", re.compile(r"quant_pack|dequant_accum|dequant_rows")),
     ("NCCL", re.compile(r"nccl", re.I)),
     ("conv/GEMM", re.compile(
-        r"conv|xmma|cudnn|gemm|implicit|wgrad|dgrad|fprop|sm90_|cutlass", re.I)),
+        r"conv|xmma|cudnn|gemm|nvjet|implicit|wgrad|dgrad|fprop|sm90_|cutlass",
+        re.I)),
     ("elementwise/reduce", re.compile(
         r"elementwise|vectorized|reduce|batch_norm|pool|copy|fill|cat|pad", re.I)),
 )
