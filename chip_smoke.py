@@ -9,9 +9,9 @@ exits non-zero):
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off
    for float32 matmuls and convolutions (stated).
 2. build: ``horovod_tpu_torch/csrc/scale_cast.cu`` (kernel B1),
-   ``quant.cu`` (B3, B4, B5) and ``flash_attn.cu`` (B2) compiled with
-   ``nvcc`` for sm_90a, one ``nvcc`` per source, started together; the
-   ptxas register lines.
+   ``quant.cu`` (B3, B4, B5), ``flash_attn.cu`` (B2) and
+   ``quant_ring.cu`` (B6, B7) compiled with ``nvcc`` for sm_90a, one
+   ``nvcc`` per source, started together; the ptxas register lines.
 3. kernel: B1 against its plain PyTorch version, bitwise, at the
    ResNet-50 bf16 wire's bucket sizes and at 1 / 127 / 65 537 elements,
    for f32->bf16, bf16->f32, bf16->bf16 at scale 1/3 and f32->f16 with
@@ -21,7 +21,16 @@ exits non-zero):
    for blocks 64 / 128 / 512 / 96, with an all-zero, an inf, a NaN and a
    subnormal block.  Each with the kernel's, the plain version's and
    (where one call computes the same function) the library call's time,
-   and the memory bound.  Then B2, flash attention, against its plain
+   and the memory bound.  Then B6 (with and without the dequant) and B7,
+   the quantized rings, bitwise against their plain versions on 2 and 4
+   virtual ranks of the one card (every rank's blocks in one grid, the
+   windows all on this card), at the 32 MiB plan's bucket sizes padded
+   to n·512 and at a ragged size for blocks 64 / 512 / 96, int8 and fp8,
+   with the special blocks; the times at world 4 on the largest bucket
+   beside the bound (this run's inputs and outputs over 3.35 TB/s: on
+   one card the "peer" stores stay in its memory) and, as the yardstick,
+   the B3 + B4 (B3 + B5) kernels of the NCCL lowering for the same ranks.
+   Then B2, flash attention, against its plain
    version (``FLASH_TOL``) at the GPT slice's shape (B 16, T 1024, H 12,
    D 64, bf16): causal dense, causal packed, non-causal, ragged T 1000,
    and float32 at ``gpt_tiny``'s heads (4 x 16, T 256); the kernel's,
@@ -37,12 +46,25 @@ exits non-zero):
    ``HVD_TPU_SCHED_WIRE=int8`` and error feedback: 2 warm-up + 5 timed
    steps, finite losses, the first equal to the bf16 run's (rtol 1e-5:
    the same forward before any update), every bucket on int8, non-zero
-   residuals, and per bucket per step B3 twice, B4 and B5 once, B1
-   never.  Then fp8 for 1 warm-up + 2 steps, with its counts.
+   residuals, and per bucket per step B3 twice, B4 and B5 once, B1, B6
+   and B7 never (a world of one falls back from the ring).  Then fp8
+   for 1 warm-up + 2 steps, with its counts.
 6. reference: a small float32 ResNet on the card against the CPU path
    (plain versions), three steps on the bf16 wire and three on int8, to
    stated tolerances.
-7. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
+7. slice ring: the same model in a world of processes on the int8 wire
+   with error feedback, ``HVD_TPU_QUANT_BACKEND=fused`` and
+   ``HVD_TPU_FUSION_THRESHOLD=33554432`` (32 MiB: four buckets, each
+   packed payload under the ring's 8 MiB cap), batch 32 per rank, 2
+   warm-up + 5 timed steps: per bucket per step B6 and B7 once, B1 once
+   (the 1/size postscale), B3, B4 and B5 never, no fallback; the first
+   loss equal to a ``phase`` run's from the same weights; bitwise-equal
+   weights on every rank; img/s.  With two or more cards, min(count, 4)
+   ranks, one per card, on NCCL, the stores crossing NVLink, and each
+   bucket's exchange timed on the ring and on the NCCL lowering; with
+   one card, two ranks sharing it on gloo (NCCL refuses two ranks on
+   one card), the stores staying on the card.
+8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
    AdamW and ``Compression.bf16`` (``HVD_TPU_SCHED_WIRE=off``, as
@@ -50,13 +72,15 @@ exits non-zero):
    (``packed_lm_batch``) for 1 + 2; finite losses, the first dense one
    within 1 of ln(50304), B2 launched exactly 12 times per step and no
    other kernel; step ms, tokens/s and peak memory.
-8. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
+9. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
    seq 256) for three steps on the card against the CPU path, to stated
    tolerances.
-9. result: the card line, the kernels JSON line, then
+10. result: the card line, the kernels JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
-``--out PATH`` also writes every measurement as JSON.
+``--out PATH`` also writes every measurement as JSON.  ``--only ring``
+runs phases 1, 2 and 7 alone (the phase that needs more than one card,
+for a run on several) and prints no kernels line.
 """
 
 import argparse
@@ -80,13 +104,17 @@ FP8_WARMUP, FP8_TIMED = 1, 2
 PACKED_WARMUP, PACKED_TIMED = 1, 2
 BLOCK = 512  # HVD_TPU_QUANT_BLOCK default
 GPT_BATCH, GPT_SEQ, GPT_LAYERS, GPT_VOCAB = 16, 1024, 12, 50304
-SOURCES = ["scale_cast", "quant", "flash_attn"]
+SOURCES = ["scale_cast", "quant", "flash_attn", "quant_ring"]
+RING_THRESHOLD = 32 * 1024 * 1024  # HVD_TPU_FUSION_THRESHOLD of the ring slice
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 REPLACES = {
     "scale_cast": "horovod_tpu/ops/pallas_kernels.py:56",
     "quant_pack": "horovod_tpu/ops/pallas_quant.py:139",
     "dequant_accum": "horovod_tpu/ops/pallas_quant.py:174",
     "dequant_rows": "horovod_tpu/ops/pallas_quant.py:197",
     "flash_fwd": "horovod_tpu/ops/pallas_kernels.py:144",
+    "rs_ring": "horovod_tpu/ops/pallas_quant.py:371",
+    "ag_ring": "horovod_tpu/ops/pallas_quant.py:515",
 }
 # B2 against its plain version at the kernel's key tile: (out rtol, out
 # atol, lse atol).  The kernel sums its dot products and row sums in
@@ -320,7 +348,125 @@ def quant_kernel_phase(qk, sizes, log):
     return records
 
 
-def slice_phase(hvd, tresnet, build_dp_step, timed_throughput, kernels, qk,
+def ring_input(n, cols, block, g):
+    """(n, cols) float32 as ``quant_input`` makes it, the special blocks
+    copied into one chunk of every rank, so every rank's sum meets them."""
+    x = quant_input(n, cols // block, block, g).view(n, cols)
+    chunks = x.view(n, n, -1, block)
+    for r in range(1, n):
+        chunks[r, (r + 1) % n, :5] = chunks[0, 0, :5]
+    return x
+
+
+def ring_kernel_phase(rk, peer, qk, sizes, log):
+    """B6 and B7 against their plain versions, bitwise, on 2 and 4
+    virtual ranks at the 32 MiB plan's bucket sizes (``sizes``, elements)
+    and at a ragged size; times at world 4 on the largest bucket.
+    Returns the records for the kernels line."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    max_err = {"rs_ring": 0.0, "ag_ring": 0.0}
+
+    def check(name, what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(bits(got), bits(want)):
+            fail(f"{name} {what}: differs from the plain version")
+        max_err[name] = max(max_err[name], finite_err(got, want))
+
+    before = (rk.rs_ring.launches, rk.ag_ring.launches)
+    shapes = []
+    for n in (2, 4):
+        window = peer.PeerWindow.virtual(n)
+        try:
+            cases = [(BLOCK, v) for v in sizes] + [(b, 65537) for b in (64, 512, 96)]
+            for block, v in cases:
+                c = -(-v // (n * block)) * block
+                for wire in ("int8", "fp8"):
+                    x = ring_input(n, n * c, block, g)
+                    x[:, v:] = 0.0  # the padding of a bucket of v elements
+                    for want_deq in (False, True):
+                        acc, deq = rk.rs_ring(x, window, wire, block, want_deq)
+                        racc, rdeq = rk.rs_ring_reference(x, wire, block, want_deq)
+                        what = f"n {n} {wire} block {block} c {c} deq {want_deq}"
+                        check("rs_ring", what, acc, racc)
+                        if want_deq:
+                            check("rs_ring", what + " (dequant)", deq, rdeq)
+                        del acc, deq, racc, rdeq
+                    shards = x[:, :c].contiguous()
+                    check("ag_ring", f"n {n} {wire} block {block} c {c}",
+                          rk.ag_ring(shards, window, wire, block),
+                          rk.ag_ring_reference(shards, wire, block))
+                    del x, shards
+                shapes.append(f"n{n}:{c}x{block}")
+        finally:
+            window.close()
+        torch.cuda.empty_cache()
+    print(f"phase kernel: B6 (with and without the dequant) and B7 bitwise with their "
+          f"plain versions on virtual ranks at {shapes} (per-rank chunk c), int8 and "
+          f"fp8, with zero, inf, NaN and subnormal blocks; max abs error {max_err}",
+          flush=True)
+
+    # Times at world 4 on the largest bucket, every rank's blocks in one
+    # launch; the bound is this launch's inputs and outputs over the
+    # card's memory rate (the slots stay on the card).
+    n, v = 4, max(sizes)
+    c = -(-v // (n * BLOCK)) * BLOCK
+    nb = c // BLOCK
+    packed = nb * (BLOCK + 4)
+    window = peer.PeerWindow.virtual(n)
+    records = {}
+    try:
+        x = torch.randn(n, n * c, generator=g, device="cuda")
+        acc, _ = rk.rs_ring(x, window, "int8", BLOCK)
+        views = [x[r].view(n, nb, BLOCK) for r in range(n)]
+
+        def lowering_rs():  # B3 + B4 per rank, no transfer
+            for r in range(n):
+                qk.dequant_accum(qk.quant_packed(views[r], "int8", True)[0], "int8")
+
+        def lowering_ag():  # B3 + B5 per rank, no transfer
+            for r in range(n):
+                qk.dequant_rows(qk.quant_packed(acc[r].view(1, nb, BLOCK), "int8")[0]
+                                .expand(n, nb, BLOCK + 4).contiguous(), "int8")
+
+        timings = [
+            ("rs_ring", "B6 int8 with dequant", n * (4 * n * c * 2 + 4 * c),
+             lambda: rk.rs_ring(x, window, "int8", BLOCK, True),
+             lambda: rk.rs_ring_reference(x, "int8", BLOCK, True), lowering_rs),
+            ("rs_ring", "B6 int8 without dequant", n * (4 * n * c + 4 * c),
+             lambda: rk.rs_ring(x, window, "int8", BLOCK, False),
+             lambda: rk.rs_ring_reference(x, "int8", BLOCK, False), None),
+            ("ag_ring", "B7 int8", n * (4 * c + 4 * n * c),
+             lambda: rk.ag_ring(acc, window, "int8", BLOCK),
+             lambda: rk.ag_ring_reference(acc, "int8", BLOCK), lowering_ag),
+        ]
+        for name, what, nbytes, kern, plain, lowering in timings:
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, iters=5)
+            low_ms = time_ms(lowering) if lowering is not None else None
+            bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+            rec = {"kernel": name, "case": what, "ranks": n, "elements": v, "chunk": c,
+                   "ms": ms, "plain_ms": plain_ms, "lowering_kernels_ms": low_ms,
+                   "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes",
+                   "bytes": nbytes, "packed_chunk_bytes": packed}
+            log["kernel_cases"].append(rec)
+            low_txt = f"{low_ms:.4f} ms" if low_ms is not None else "not timed"
+            print(f"phase kernel: {what}, {n} virtual ranks x {v} elements (c {c}): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the NCCL lowering's kernels "
+                  f"{low_txt}, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB; "
+                  f"{bound_ms / ms:.1%} of bound)", flush=True)
+            if name not in records:
+                records[name] = dict(rec, max_abs_err=max_err[name])
+    finally:
+        window.close()
+    after = (rk.rs_ring.launches, rk.ag_ring.launches)
+    print(f"phase kernel: {[a - b for a, b in zip(after, before)]} B6/B7 launches for "
+          "comparison and timing (not counted for the main path)", flush=True)
+    return records
+
+
+def slice_phase(hvd, tresnet, build_dp_step, timed_throughput, kernels, qk, rk,
                 wire, warmup, timed, card):
     """One run of the main path on the full-width ResNet-50: returns the
     losses, timings, schedule and the launch count of every kernel."""
@@ -338,12 +484,13 @@ def slice_phase(hvd, tresnet, build_dp_step, timed_throughput, kernels, qk,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         counters = (kernels.scale_cast, qk.quant_packed, qk.dequant_accum,
-                    qk.dequant_rows)
+                    qk.dequant_rows, rk.rs_ring, rk.ag_ring)
         for c in counters:
             c.launches = 0
         seconds, losses = timed_throughput(step, batch, iters=timed, warmup=warmup)
         launches = dict(zip(("scale_cast", "quant_pack", "dequant_accum",
-                             "dequant_rows"), (c.launches for c in counters)))
+                             "dequant_rows", "rs_ring", "ag_ring"),
+                            (c.launches for c in counters)))
         torch.cuda.synchronize()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         schedule = opt.schedule
@@ -359,14 +506,15 @@ def slice_phase(hvd, tresnet, build_dp_step, timed_throughput, kernels, qk,
     buckets = len(schedule)
     if wire == "bf16":
         expected = {"scale_cast": 2 * buckets * steps, "quant_pack": 0,
-                    "dequant_accum": 0, "dequant_rows": 0}
+                    "dequant_accum": 0, "dequant_rows": 0, "rs_ring": 0, "ag_ring": 0}
     else:
         # Per bucket per step: B3 for the reduce-scatter (with the
         # dequant, for the residual) and for the all-gather, B4 and B5
-        # once each; no B1 at a world of one.
+        # once each; no B1 at a world of one, and no ring (a world of
+        # one falls back from it).
         expected = {"scale_cast": 0, "quant_pack": 2 * buckets * steps,
                     "dequant_accum": buckets * steps,
-                    "dequant_rows": buckets * steps}
+                    "dequant_rows": buckets * steps, "rs_ring": 0, "ag_ring": 0}
     if launches != expected:
         fail(f"{wire}: launches {launches}; the schedule implies {expected} "
              f"({buckets} buckets x {steps} steps)")
@@ -381,6 +529,193 @@ def slice_phase(hvd, tresnet, build_dp_step, timed_throughput, kernels, qk,
     return {"wire": wire, "losses": losses, "step_ms": step_ms, "img_s": img_s,
             "peak_gib": peak_gib, "buckets": actual, "launches": launches,
             "residual_l1": residual}
+
+
+def ring_worker(args) -> None:
+    """One rank of the ring slice (phase 7), started by ``ring_slice_phase``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import resnet as tresnet
+    from horovod_tpu_torch.ops import kernels, peer
+    from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.ops import quantized as tq
+    from horovod_tpu_torch.ops import ring_kernels as rk
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step, timed_throughput
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["HVD_TPU_SCHED_WIRE"] = "int8"
+    os.environ["HVD_TPU_FUSION_THRESHOLD"] = str(RING_THRESHOLD)
+    rank, n = args.ring_rank, args.ring_size
+    hvd.init("cuda", init_method=f"file://{args.ring_store}", rank=rank, size=n,
+             backend=args.ring_backend)
+    counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring}
+    try:
+        dev = hvd.device()
+        g = torch.Generator(device=dev).manual_seed(100 + rank)
+        batch = (torch.rand(32, 224, 224, 3, generator=g, device=dev),
+                 torch.randint(0, 1000, (32,), generator=g, device=dev))
+
+        def run(backend, warmup, timed):
+            os.environ["HVD_TPU_QUANT_BACKEND"] = backend
+            model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                                     device=dev)
+            step, opt = build_dp_step(hvd, model)
+            for c in counters.values():
+                c.launches = 0
+            metrics.reset("quant.")
+            seconds, losses = timed_throughput(step, batch, iters=timed, warmup=warmup)
+            launches = {k: c.launches for k, c in counters.items()}
+            return (model, opt, seconds, losses, launches,
+                    metrics.get_counter("quant.fused_fallback"))
+
+        _, _, _, phase_losses, _, _ = run("phase", 1, 0)
+        torch.cuda.empty_cache()
+        model, opt, seconds, losses, launches, fallback = run("fused", WARMUP, TIMED)
+        h = hashlib.sha256()
+        for t in model.state_dict().values():
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        digests = [None] * n
+        dist.all_gather_object(digests, h.hexdigest())
+        buckets = [b.nbytes // 4 for b in opt.schedule.buckets]
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # Each bucket's exchange (reduce-scatter with error feedback, then
+        # all-gather) on the ring and on the NCCL lowering, then B6 and B7
+        # alone on the largest bucket.  Across cards only: on one shared
+        # card the ranks take turns on it.
+        exchange = {}
+        kernel_ms = {}
+        if args.ring_backend == "nccl":
+            def timed_ms(fn, iters=10):
+                fn()
+                torch.cuda.synchronize()
+                dist.barrier()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    fn()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / iters
+
+            gen = torch.Generator(device=dev).manual_seed(7 + rank)
+            for v in buckets:
+                e = torch.randn(v, generator=gen, device=dev)
+                for backend in ("fused", "phase"):
+                    def exchange_once(backend=backend, e=e):
+                        shard, _ = tq.quantized_reduce_scatter(e, tq.Sum, ef=True,
+                                                               backend=backend)
+                        tq.quantized_all_gather(shard, backend=backend)
+                    exchange.setdefault(backend, []).append(timed_ms(exchange_once))
+            v = max(buckets)
+            c = -(-v // (n * BLOCK)) * BLOCK
+            window = peer.world_window(hvd.runtime.get_runtime())
+            x = torch.randn(1, n * c, generator=gen, device=dev)
+            shard = x[:, :c].contiguous()
+            kernel_ms["rs_ring"] = timed_ms(lambda: rk.rs_ring(x, window, "int8", BLOCK, True), 20)
+            kernel_ms["ag_ring"] = timed_ms(lambda: rk.ag_ring(shard, window, "int8", BLOCK), 20)
+            kernel_ms["chunk"] = c
+        if rank == 0:
+            with open(args.ring_out, "w") as f:
+                json.dump({"world": n, "backend": args.ring_backend, "buckets": buckets,
+                           "losses": losses, "phase_first_loss": phase_losses[0],
+                           "seconds": seconds, "launches": launches,
+                           "fallback": fallback, "digests": digests,
+                           "exchange_ms": exchange, "kernel_ms": kernel_ms}, f)
+        if len(set(digests)) != 1:
+            raise SystemExit(f"rank {rank}: ranks hold different weights: {digests}")
+    finally:
+        hvd.shutdown()
+
+
+def ring_slice_phase(card, count, log):
+    """Phase 7: the ResNet-50 int8 step on the fused ring in a world of
+    processes; returns the run's record (rank 0's launch counts)."""
+    import tempfile
+
+    n = min(count, 4) if count >= 2 else 2
+    backend = "nccl" if count >= 2 else "gloo"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ring.json")
+        cmd = [sys.executable, os.path.abspath(__file__), "--ring-size", str(n),
+               "--ring-backend", backend, "--ring-store", os.path.join(tmp, "store"),
+               "--ring-out", out]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--ring-rank", str(r)], env=env)
+                 for r in range(n)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            fail(f"ring slice: ranks exited with {rcs}")
+        with open(out) as f:
+            rec = json.load(f)
+    steps = WARMUP + TIMED
+    nb = len(rec["buckets"])
+    expected = {"scale_cast": nb * steps, "quant_pack": 0, "dequant_accum": 0,
+                "dequant_rows": 0, "rs_ring": nb * steps, "ag_ring": nb * steps}
+    if rec["launches"] != expected:
+        fail(f"ring slice: launches {rec['launches']}; the schedule implies {expected} "
+             f"({nb} buckets x {steps} steps)")
+    if rec["fallback"] != 0:
+        fail(f"ring slice: {rec['fallback']} collectives fell back from the ring")
+    losses, first = rec["losses"], rec["phase_first_loss"]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"ring slice: non-finite losses {losses}")
+    if abs(losses[0] - first) > 1e-5 * abs(first):
+        fail(f"ring slice: first loss {losses[0]} != the phase run's {first}")
+    rec["step_ms"] = rec["seconds"] / TIMED * 1e3
+    rec["img_s"] = 32 * n * TIMED / rec["seconds"]
+    layout = (f"{n} ranks on {n} cards, NCCL" if backend == "nccl"
+              else f"{n} ranks sharing the one card, gloo")
+    print(f"phase slice ring: ResNet-50 224x224 batch 32 per rank bf16, int8 wire with "
+          f"error feedback, fused, 32 MiB buckets {rec['buckets']}; {layout}; losses "
+          f"{[round(v, 5) for v in losses]} (first = phase run's {round(first, 5)}); "
+          f"launches {rec['launches']} (= expected), no fallback; weights bitwise equal "
+          f"on every rank; step {rec['step_ms']:.2f} ms, {rec['img_s']:.1f} img/s "
+          f"(world) on {card}; {wall:.0f} s with start-up", flush=True)
+    if rec["exchange_ms"]:
+        c = rec["kernel_ms"]["chunk"]
+        packed = c // BLOCK * (BLOCK + 4)
+        out_bytes = (n - 1) * packed
+        for name, local in (("rs_ring", 4 * n * c * 2 + 4 * c + out_bytes),
+                            ("ag_ring", 4 * c + 4 * n * c + out_bytes)):
+            bound = max(local / H100_BYTES_PER_S, out_bytes / NVLINK_BYTES_PER_S) * 1e3
+            by = "bytes" if local / H100_BYTES_PER_S >= out_bytes / NVLINK_BYTES_PER_S \
+                else "NVLink bytes"
+            rec["kernel_ms"][name + "_bound_ms"] = bound
+            print(f"phase slice ring: {name} at world {n}, c {c}: {rec['kernel_ms'][name]:.4f} "
+                  f"ms per launch, bound {bound:.4f} ms by {by} ({local / 1e6:.1f} MB on "
+                  f"the card, {out_bytes / 1e6:.1f} MB out over NVLink)", flush=True)
+        for v, ring, low in zip(rec["buckets"], rec["exchange_ms"]["fused"],
+                                rec["exchange_ms"]["phase"]):
+            print(f"phase slice ring: bucket {v} elements: exchange {ring:.4f} ms on the "
+                  f"ring, {low:.4f} ms on the NCCL lowering (B3 + all_to_all + B4, "
+                  f"B3 + all_gather + B5)", flush=True)
+    else:
+        print("phase slice ring: the per-bucket exchange times and the NVLink bound "
+              "need two or more cards; on one card B6 and B7 were held against their "
+              "plain versions on virtual ranks (phase kernel)", flush=True)
+    log["ring_slice"] = rec
+    return rec
 
 
 def _block_steps(absflat, block=BLOCK):
@@ -675,7 +1010,15 @@ def reference_gpt_phase(hvd, tt, build_lm_step):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
+    ap.add_argument("--only", choices=["ring"],
+                    help="run only the phases that need more than one card")
+    for name, kind in (("rank", int), ("size", int), ("backend", str), ("store", str),
+                       ("out", str)):
+        ap.add_argument(f"--ring-{name}", type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ring_rank is not None:
+        ring_worker(args)
+        return
 
     import torch
 
@@ -688,8 +1031,9 @@ def main() -> None:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import resnet as tresnet
     from horovod_tpu_torch.models import transformer as tt
-    from horovod_tpu_torch.ops import build, flash, kernels
+    from horovod_tpu_torch.ops import build, flash, kernels, peer
     from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.ops import ring_kernels as rk
     from horovod_tpu_torch.sched.plan import SchedConfig, build_schedule, dtype_name
     from horovod_tpu_torch.utils.benchmarks import (
         build_dp_step,
@@ -738,10 +1082,21 @@ def main() -> None:
     )
     sizes = [b.nbytes // 4 for b in planned.buckets]
     padded = [-(-v // BLOCK) * BLOCK for v in sizes]
+    ring_plan = build_schedule(
+        [p.numel() * 4 for p in params], [dtype_name(torch.float32)] * len(params),
+        SchedConfig(wire="int8", bucket_bytes=RING_THRESHOLD),
+    )
+    ring_sizes = [b.nbytes // 4 for b in ring_plan.buckets]
     print(f"phase kernel: ResNet-50 buckets (elements): {sizes}; padded to the "
-          f"int8 block: {padded}", flush=True)
+          f"int8 block: {padded}; at the ring's 32 MiB threshold: {ring_sizes}",
+          flush=True)
+    if args.only == "ring":
+        ring_slice_phase(card, count, log)
+        finish(args, log, card, kind, count, [])
+        return
     record = kernel_phase(kernels, sizes, log)
     qrecords = quant_kernel_phase(qk, padded, log)
+    rrecords = ring_kernel_phase(rk, peer, qk, ring_sizes, log)
     tok_np, seg_np = packed_lm_batch(GPT_BATCH, GPT_SEQ, GPT_VOCAB)
     packed_batch = (torch.from_numpy(tok_np).cuda(), torch.from_numpy(seg_np).cuda())
     frecord = flash_phase(flash, packed_batch[1], log)
@@ -752,7 +1107,7 @@ def main() -> None:
     for wire, warmup, timed in (("bf16", WARMUP, TIMED), ("int8", WARMUP, TIMED),
                                 ("fp8", FP8_WARMUP, FP8_TIMED)):
         runs[wire] = slice_phase(hvd, tresnet, build_dp_step, timed_throughput,
-                                 kernels, qk, wire, warmup, timed, card)
+                                 kernels, qk, rk, wire, warmup, timed, card)
         torch.cuda.empty_cache()
     first_bf16, first_int8 = runs["bf16"]["losses"][0], runs["int8"]["losses"][0]
     if abs(first_int8 - first_bf16) > 1e-5 * abs(first_bf16):
@@ -766,11 +1121,14 @@ def main() -> None:
 
     log["reference"] = [reference_phase(hvd, tresnet, build_dp_step, w)
                         for w in ("bf16", "int8")]
+    torch.cuda.empty_cache()
+    ring_run = ring_slice_phase(card, count, log)
 
     # Phase 7: the GPT slice, dense then packed rows; every count is set
     # to 0 just before each run.
     counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
                 "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring,
                 "flash_fwd": flash.flash_forward}
     g = torch.Generator(device="cuda").manual_seed(2)
     dense_batch = torch.randint(0, GPT_VOCAB, (GPT_BATCH, GPT_SEQ), generator=g,
@@ -790,7 +1148,15 @@ def main() -> None:
     entries += [(k, "quant.cu", qrecords[k], runs["int8"])
                 for k in ("quant_pack", "dequant_accum", "dequant_rows")]
     entries.append(("flash_fwd", "flash_attn.cu", frecord, gpt_runs["dense"]))
-    kernels_line = {"kernels": [{
+    entries += [(k, "quant_ring.cu", rrecords[k], ring_run) for k in ("rs_ring", "ag_ring")]
+    finish(args, log, card, kind, count, entries)
+
+
+def finish(args, log, card, kind, count, entries) -> None:
+    """The kernels line (one entry per kernel: its comparison record and
+    the main-path run whose launches it reports; none with ``--only``),
+    ``--out``, and the result line."""
+    log["kernels"] = [{
         "name": name,
         "route": "cuda",
         "source": f"horovod_tpu_torch/csrc/{src}",
@@ -802,14 +1168,17 @@ def main() -> None:
         "bound_ms": rec["bound_ms"],
         "bound_by": rec.get("bound_by", "bytes"),
         "library_ms": rec["library_ms"],
-    } for name, src, rec, run in entries]}
-    log["kernels"] = kernels_line["kernels"]
+    } for name, src, rec, run in entries]
+    for k in log["kernels"]:
+        if k["launches"] < 1:
+            fail(f"{k['name']} was not launched on its main path")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(log, f, indent=1)
     print(f"card: {card}")
-    print(json.dumps(kernels_line))
+    if log["kernels"]:
+        print(json.dumps({"kernels": log["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

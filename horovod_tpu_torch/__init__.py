@@ -2,7 +2,8 @@
 and CUDA (NVIDIA Hopper).
 
 Counterpart of ``horovod_tpu/__init__.py`` for the ported slice:
-``init``/``shutdown`` and the rank queries on ``torch.distributed``,
+``init``/``shutdown`` and the rank, local and cross queries on
+``torch.distributed``,
 ``DistributedOptimizer`` over the bucketed scheduler with the bf16 and
 the int8/fp8 quantized wires (``Compression.int8``/``fp8``),
 ``broadcast_parameters``/``broadcast_optimizer_state``, the ResNet model
@@ -25,10 +26,13 @@ from .ops.collectives import (
 )
 from .optim.distributed_optimizer import DistributedOptimizer, TrainStep
 from .runtime import (
+    cross_rank,
+    cross_size,
     device,
     init,
     is_initialized,
     local_rank,
+    local_size,
     rank,
     shutdown,
     size,
@@ -39,6 +43,6 @@ __all__ = [
     "Average", "Compression", "DistributedOptimizer", "ReduceOp", "Sum",
     "TrainStep", "__version__", "allreduce", "allreduce_", "broadcast",
     "broadcast_", "broadcast_optimizer_state", "broadcast_parameters",
-    "device", "init", "is_initialized", "local_rank", "rank", "shutdown",
-    "size",
+    "cross_rank", "cross_size", "device", "init", "is_initialized",
+    "local_rank", "local_size", "rank", "shutdown", "size",
 ]

@@ -32,92 +32,23 @@
 // keep the same warp-per-block shape so each lane loads one q word and
 // the block's scale once per source.
 //
-// Numerics, bitwise with the plain PyTorch versions in
-// horovod_tpu_torch/ops/quant_kernels.py:
-// - scale: safe = amax * float32(1/qmax) (the host passes the constant;
-//   XLA's jit turns amax / qmax into this product), 1.0 for a zero block
-//   or when the product underflows to 0; a block holding inf or NaN gets
-//   scale NaN (0x7fc00000) and q = 0.  fmaxf drops NaN, so non-finiteness
-//   is tracked on its own.
-// - x / safe is an IEEE division (__fdiv_rn), never a reciprocal.
-// - int8: rintf (round half to even) and clamp to [-127, 127].
-// - fp8: round to nearest even into float8_e4m3fn, saturating at 448,
-//   the algorithm of PyTorch's c10 conversion (values never exceed
-//   448 by more than rounding here).
-// - B4 rounds each product and each sum (__fmul_rn, __fadd_rn): no FMA
-//   contraction, as PyTorch's separate multiply and add.
+// Numerics: csrc/quant_math.cuh, shared with the ring kernels B6 and B7
+// (csrc/quant_ring.cu), bitwise with the plain PyTorch versions in
+// horovod_tpu_torch/ops/quant_kernels.py.
 //
 // Plain C interface, loaded with ctypes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_math.cuh"
+
 namespace {
 
-constexpr int kInt8 = 0;
-constexpr int kFp8 = 1;
+using namespace hvdq;
+
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kNaN = 0x7fc00000u;
-
-// float -> float8_e4m3fn, round to nearest even, saturating to 448.
-__device__ __forceinline__ uint32_t f32_to_e4m3(float f) {
-  uint32_t bits = __float_as_uint(f);
-  const uint32_t sign = bits & 0x80000000u;
-  bits ^= sign;
-  uint32_t r;
-  if (bits >= (1087u << 20)) {  // >= 480 (or inf / NaN)
-    r = bits > 0x7f800000u ? 0x7fu : 0x7eu;
-  } else if (bits < (121u << 23)) {  // below 2^-6: e4m3 subnormal range
-    const uint32_t denorm = 141u << 23;
-    r = __float_as_uint(__fadd_rn(__uint_as_float(bits), __uint_as_float(denorm))) - denorm;
-  } else {
-    const uint32_t odd = (bits >> 20) & 1u;
-    bits += (static_cast<uint32_t>(7 - 127) << 23) + 0x7ffffu + odd;
-    r = bits >> 20;
-    if (r == 0x7fu) r = 0x7eu;
-  }
-  return (r | (sign >> 24)) & 0xffu;
-}
-
-// float8_e4m3fn -> float, exact.
-__device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
-  const uint32_t sign = (b & 0x80u) << 24;
-  const uint32_t e = (b >> 3) & 0xfu;
-  const uint32_t m = b & 0x7u;
-  uint32_t bits;
-  if (e == 0xfu && m == 0x7u) {
-    bits = 0x7fc00000u;
-  } else if (e == 0) {
-    // m * 2^-9, exact in float
-    return __uint_as_float(sign | __float_as_uint(static_cast<float>(m) * 0.001953125f));
-  } else {
-    bits = ((e + 120u) << 23) | (m << 20);
-  }
-  return __uint_as_float(sign | bits);
-}
-
-template <int W>
-__device__ __forceinline__ float q_value(uint32_t byte) {
-  if (W == kInt8) return static_cast<float>(static_cast<int8_t>(byte & 0xffu));
-  return e4m3_to_f32(byte & 0xffu);
-}
-
-template <int W>
-__device__ __forceinline__ uint32_t quantize(float x, float safe) {
-  const float v = __fdiv_rn(x, safe);
-  if (W == kInt8) {
-    const float r = fminf(fmaxf(rintf(v), -127.0f), 127.0f);
-    return static_cast<uint32_t>(static_cast<int>(r)) & 0xffu;
-  }
-  return f32_to_e4m3(v);
-}
-
-__device__ __forceinline__ void observe(float v, float& amax, bool& bad) {
-  amax = fmaxf(amax, fabsf(v));
-  bad |= (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;  // inf or NaN
-}
 
 __device__ __forceinline__ int64_t warp_id() {
   return static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -134,64 +65,11 @@ quant_pack_kernel(const float* __restrict__ x, uint8_t* __restrict__ packed,
                   float* __restrict__ deq, int64_t nblocks, int block,
                   float inv_qmax) {
   const int lane = threadIdx.x & 31;
-  const int words = block / 4;
   for (int64_t b = warp_id(); b < nblocks; b += warp_count()) {
-    const float* xb = x + b * block;
     uint8_t* pb = packed + b * (block + 4);
-    float amax = 0.0f;
-    bool bad = false;
-    if (VEC) {
-      const float4* x4 = reinterpret_cast<const float4*>(xb);
-      for (int g = lane; g < words; g += 32) {
-        const float4 v = x4[g];
-        observe(v.x, amax, bad); observe(v.y, amax, bad);
-        observe(v.z, amax, bad); observe(v.w, amax, bad);
-      }
-    } else {
-      for (int i = lane; i < block; i += 32) observe(xb[i], amax, bad);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
-    bad = __any_sync(kFull, bad);
-    const float cand = __fmul_rn(amax, inv_qmax);
-    const float safe = (!bad && cand > 0.0f) ? cand : 1.0f;
-    const float scale = bad ? __uint_as_float(kNaN) : safe;
-    if (VEC) {
-      const float4* x4 = reinterpret_cast<const float4*>(xb);
-      uint32_t* p4 = reinterpret_cast<uint32_t*>(pb);
-      for (int g = lane; g < words; g += 32) {
-        const float4 v = x4[g];
-        uint32_t q0 = 0, q1 = 0, q2 = 0, q3 = 0;
-        if (!bad) {
-          q0 = quantize<W>(v.x, safe); q1 = quantize<W>(v.y, safe);
-          q2 = quantize<W>(v.z, safe); q3 = quantize<W>(v.w, safe);
-        }
-        p4[g] = q0 | (q1 << 8) | (q2 << 16) | (q3 << 24);
-        if (DEQ) {
-          reinterpret_cast<float4*>(deq + b * block)[g] = make_float4(
-              __fmul_rn(q_value<W>(q0), scale), __fmul_rn(q_value<W>(q1), scale),
-              __fmul_rn(q_value<W>(q2), scale), __fmul_rn(q_value<W>(q3), scale));
-        }
-      }
-      if (lane == 0) p4[words] = __float_as_uint(scale);
-    } else {
-      for (int i = lane; i < block; i += 32) {
-        const uint32_t q = bad ? 0u : quantize<W>(xb[i], safe);
-        pb[i] = static_cast<uint8_t>(q);
-        if (DEQ) deq[b * block + i] = __fmul_rn(q_value<W>(q), scale);
-      }
-      if (lane < 4) pb[block + lane] = static_cast<uint8_t>(__float_as_uint(scale) >> (8 * lane));
-    }
+    warp_quant_block<W, VEC>(x + b * block, block, inv_qmax, lane, 1,
+                             [pb](int) { return pb; }, DEQ ? deq + b * block : nullptr);
   }
-}
-
-__device__ __forceinline__ float load_scale(const uint8_t* row, int block, bool vec) {
-  if (vec) return __uint_as_float(*reinterpret_cast<const uint32_t*>(row + block));
-  const uint32_t s = static_cast<uint32_t>(row[block]) |
-                     (static_cast<uint32_t>(row[block + 1]) << 8) |
-                     (static_cast<uint32_t>(row[block + 2]) << 16) |
-                     (static_cast<uint32_t>(row[block + 3]) << 24);
-  return __uint_as_float(s);
 }
 
 // B4: out[b] = sum over sources i in order of q_i[b] * s_i[b].
@@ -210,18 +88,9 @@ dequant_accum_kernel(const uint8_t* __restrict__ recv, float* __restrict__ out,
         float4 acc;
         for (int i = 0; i < n; ++i) {
           const uint8_t* r = recv + (static_cast<int64_t>(i) * nb + b) * row;
-          const float s = load_scale(r, block, true);
-          const uint32_t w = reinterpret_cast<const uint32_t*>(r)[g];
-          const float p0 = __fmul_rn(q_value<W>(w), s);
-          const float p1 = __fmul_rn(q_value<W>(w >> 8), s);
-          const float p2 = __fmul_rn(q_value<W>(w >> 16), s);
-          const float p3 = __fmul_rn(q_value<W>(w >> 24), s);
-          if (i == 0) {
-            acc = make_float4(p0, p1, p2, p3);
-          } else {
-            acc.x = __fadd_rn(acc.x, p0); acc.y = __fadd_rn(acc.y, p1);
-            acc.z = __fadd_rn(acc.z, p2); acc.w = __fadd_rn(acc.w, p3);
-          }
+          const float4 p = dequant_word<W>(reinterpret_cast<const uint32_t*>(r)[g],
+                                           load_scale(r, block, true));
+          acc = i == 0 ? p : add_rn(acc, p);
         }
         reinterpret_cast<float4*>(ob)[g] = acc;
       }
@@ -230,7 +99,7 @@ dequant_accum_kernel(const uint8_t* __restrict__ recv, float* __restrict__ out,
         float acc = 0.0f;
         for (int i = 0; i < n; ++i) {
           const uint8_t* r = recv + (static_cast<int64_t>(i) * nb + b) * row;
-          const float p = __fmul_rn(q_value<W>(r[j]), load_scale(r, block, false));
+          const float p = dequant<W>(r[j], load_scale(r, block, false));
           acc = i == 0 ? p : __fadd_rn(acc, p);
         }
         ob[j] = acc;
@@ -252,13 +121,11 @@ dequant_rows_kernel(const uint8_t* __restrict__ packed, float* __restrict__ out,
     const float s = load_scale(r, block, VEC);
     if (VEC) {
       for (int g = lane; g < words; g += 32) {
-        const uint32_t w = reinterpret_cast<const uint32_t*>(r)[g];
-        reinterpret_cast<float4*>(ob)[g] = make_float4(
-            __fmul_rn(q_value<W>(w), s), __fmul_rn(q_value<W>(w >> 8), s),
-            __fmul_rn(q_value<W>(w >> 16), s), __fmul_rn(q_value<W>(w >> 24), s));
+        reinterpret_cast<float4*>(ob)[g] =
+            dequant_word<W>(reinterpret_cast<const uint32_t*>(r)[g], s);
       }
     } else {
-      for (int j = lane; j < block; j += 32) ob[j] = __fmul_rn(q_value<W>(r[j]), s);
+      for (int j = lane; j < block; j += 32) ob[j] = dequant<W>(r[j], s);
     }
   }
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) on first use, into ``_build/`` beside
 the sources (listed in ``.gitignore``).  The library's file name carries
-a hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  :func:`build` starts one ``nvcc`` per
+a hash of the source, of every ``csrc`` header it includes and of the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for them together.
 
 No JAX counterpart: the JAX package's kernels are Pallas and compile
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -57,12 +59,26 @@ def nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """``path`` and every file beside it that it includes with quotes,
+    transitively, with their contents."""
+    if path not in seen:
+        text = seen[path] = path.read_bytes()
+        for inc in _INCLUDE.findall(text):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.exists():
+                _sources(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in sorted(_sources((CSRC / f"{name}.cu").resolve(), {}).items()):
+        h.update(path.name.encode() + b"\0" + text)
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:

@@ -1,9 +1,15 @@
 """Process runtime on ``torch.distributed``.
 
 Counterpart of ``horovod_tpu/runtime.py`` (``init`` ``:258``,
-``shutdown``, the rank/size queries).  Where the JAX runtime builds a
-device mesh, this one joins a ``torch.distributed`` process group: NCCL
-for ``device="cuda"`` (the default), gloo for ``device="cpu"``.
+``shutdown``) and of the rank, size, local and cross queries of
+``horovod_tpu/__init__.py`` (``:121-168``).  Where the JAX runtime
+builds a device mesh, this one joins a ``torch.distributed`` process
+group: NCCL for ``device="cuda"`` (the default), gloo for
+``device="cpu"``.  At ``init`` every rank's host name and card are
+gathered once: they give ``local_size``, ``cross_rank`` and
+``cross_size`` (ranks on one host, the host's index in order of first
+rank, the number of hosts), and tell the quantized wire whether its
+NVLink ring can serve the world (``ops/quantized.py``).
 
 Rank and world size come from ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
 as a launcher such as ``torchrun`` sets them (with ``MASTER_ADDR`` /
@@ -16,8 +22,9 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 import threading
-from typing import Any, Optional, Union
+from typing import Any, List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -29,21 +36,46 @@ class Runtime:
     """One process's place in the world and the device it computes on."""
 
     def __init__(self, device: torch.device, rank: int, size: int,
-                 local_rank: int, owns_group: bool):
+                 local_rank: int, owns_group: bool, backend: str,
+                 hosts: Optional[List[str]] = None,
+                 cards: Optional[List[str]] = None):
         self.device = device
         self.rank = rank
         self.size = size
         self.local_rank = local_rank
-        self.backend = "nccl" if device.type == "cuda" else "gloo"
+        self.backend = backend
         self._owns_group = owns_group
+        # Per rank: host name, and the card's UUID ("" on the CPU).
+        self.hosts = hosts or [socket.gethostname()] * size
+        self.cards = cards or [_card_id(device)] * size
+        order = list(dict.fromkeys(self.hosts))
+        self.local_size = self.hosts.count(self.hosts[rank])
+        self.cross_rank = order.index(self.hosts[rank])
+        self.cross_size = len(order)
+        # The quantized wire's ring: whether every pair of the world's
+        # cards reaches each other's memory (asked once, on first use),
+        # and the peer window (``ops/peer.py``), mapped on first use and
+        # released by shutdown().
+        self.peers_reach: Optional[bool] = None
+        self.peer_window = None
 
     def shutdown(self) -> None:
+        if self.peer_window is not None:
+            self.peer_window.close()
+            self.peer_window = None
         if self._owns_group and dist.is_initialized():
             dist.destroy_process_group()
 
 
 _runtime: Optional[Runtime] = None
 _runtime_lock = threading.Lock()
+
+
+def _card_id(device: torch.device) -> str:
+    """A card's UUID, the same in every process; "" for the CPU."""
+    if device.type != "cuda":
+        return ""
+    return str(torch.cuda.get_device_properties(device).uuid)
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -58,14 +90,19 @@ def init(
     rank: Optional[int] = None,
     size: Optional[int] = None,
     timeout_s: float = 300.0,
+    backend: Optional[str] = None,
 ) -> None:
     """Join the process group (idempotent).
 
     ``device="cuda"`` needs a card: it raises when
     ``torch.cuda.is_available()`` is false, and pins this process to
-    ``cuda:LOCAL_RANK``.  ``device="cpu"`` runs gloo, as the tests do.
-    ``rank``/``size`` override ``RANK``/``WORLD_SIZE``.  An already
-    initialized default process group is adopted and left to its owner.
+    card ``LOCAL_RANK`` modulo the number of cards (ranks beyond it share
+    cards).  ``device="cpu"`` runs gloo, as the tests do.
+    ``rank``/``size`` override ``RANK``/``WORLD_SIZE``.  ``backend`` is
+    the process group's: NCCL on ``cuda`` and gloo on ``cpu`` by
+    default; NCCL refuses two ranks on one card, gloo serves them.  An
+    already initialized default process group is adopted and left to
+    its owner.
     """
     global _runtime
     dev = torch.device(device)
@@ -94,11 +131,12 @@ def init(
                     "horovod_tpu_torch.init(device='cuda') needs a CUDA "
                     "device; pass device='cpu' to run on the CPU"
                 )
-            torch.cuda.set_device(local_rank)
-            dev = torch.device("cuda", local_rank)
+            dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        if backend is None:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
         owns = not dist.is_initialized()
         if owns:
-            backend = "nccl" if dev.type == "cuda" else "gloo"
             timeout = datetime.timedelta(seconds=timeout_s)
             if init_method is not None or size > 1:
                 dist.init_process_group(
@@ -112,7 +150,13 @@ def init(
                 )
         else:
             rank, size = dist.get_rank(), dist.get_world_size()
-        _runtime = Runtime(dev, rank, size, local_rank, owns)
+            backend = dist.get_backend()
+        hosts = cards = None
+        if size > 1:
+            places = [None] * size
+            dist.all_gather_object(places, (socket.gethostname(), _card_id(dev)))
+            hosts, cards = [p[0] for p in places], [p[1] for p in places]
+        _runtime = Runtime(dev, rank, size, local_rank, owns, backend, hosts, cards)
 
 
 def shutdown() -> None:
@@ -145,6 +189,21 @@ def size() -> int:
 
 def local_rank() -> int:
     return get_runtime().local_rank
+
+
+def local_size() -> int:
+    """Ranks on this rank's host."""
+    return get_runtime().local_size
+
+
+def cross_rank() -> int:
+    """This rank's host's index, hosts numbered in order of first rank."""
+    return get_runtime().cross_rank
+
+
+def cross_size() -> int:
+    """Number of hosts in the world."""
+    return get_runtime().cross_size
 
 
 def device() -> torch.device:

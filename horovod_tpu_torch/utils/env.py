@@ -21,8 +21,8 @@ SCHED_WIRE = "SCHED_WIRE"  # off (default) | bf16 | int8 | fp8
 # Error-feedback residuals for the quantized wires (default on).
 SCHED_WIRE_EF = "SCHED_WIRE_EF"
 QUANT_BLOCK = "QUANT_BLOCK"  # elements per quantization block, default 512
-# Quantized-wire backend: phase | fused (both take the one lowering of
-# ops/quantized.py; see there).
+# Quantized-wire backend: phase | fused (default; the ring kernels on the
+# card, see ops/quantized.py).
 QUANT_BACKEND = "QUANT_BACKEND"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024

@@ -1,5 +1,5 @@
-"""Kernels B1, B2, B3, B4 and B5 on the card: each CUDA kernel against
-its plain version.
+"""Kernels B1 to B7 on the card: each CUDA kernel against its plain
+version.
 
 These tests need an NVIDIA GPU and skip with a reason elsewhere.  They
 import nothing of JAX or ``horovod_tpu``, so on the GPU machine they run
@@ -18,13 +18,24 @@ round its p, and the output, to the other bf16 neighbour, so out agrees
 to 2^-7 of itself + 2^-9; lse (about 7 at these lengths) to 1e-4, some
 100 float32 ulps, since the row sums of up to 1024 terms and the
 maxima's exp go in another order; float32 to 1e-5 on out and lse.
+B6 and B7, the quantized rings, run the device functions of B3 and B4
+and sum in the plain version's order: bitwise, on n virtual ranks of
+one card, and in worlds of two processes (two cards over NVLink, or two
+ranks sharing one card).
 """
+
+import ctypes
+import os
+import subprocess
+import sys
+import textwrap
 
 import pytest
 import torch
 
-from horovod_tpu_torch.ops import flash, kernels
+from horovod_tpu_torch.ops import flash, kernels, peer
 from horovod_tpu_torch.ops import quant_kernels as qk
+from horovod_tpu_torch.ops import ring_kernels as rk
 
 torch.set_num_threads(2)
 
@@ -304,3 +315,202 @@ def test_flash_gradient_goes_through_the_kernel(packed):
     (full_attention(q, k, v, causal=True, segment_ids=seg) * w).sum().backward()
     for g, x in zip(got, (q, k, v)):
         torch.testing.assert_close(g, x.grad, rtol=1e-4, atol=1e-4)
+
+
+def _ring_input(ranks, cols, block, seed):
+    return _blocks(ranks, cols // block, block, seed).view(ranks, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_deq", [False, True])
+@pytest.mark.parametrize("block", [64, 512, 96])
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_rs_ring_matches_plain_bitwise(n, wire, block, want_deq):
+    _cuda()
+    win = peer.PeerWindow.virtual(n)
+    try:
+        c = 37 * block
+        x = _ring_input(n, n * c, block, n + block)
+        before = rk.rs_ring.launches
+        acc, deq = rk.rs_ring(x, win, wire, block, want_deq)
+        assert rk.rs_ring.launches == before + 1
+        want_acc, want_deq_ = rk.rs_ring_reference(x, wire, block, want_deq)
+        assert acc.shape == (n, c)
+        assert torch.equal(_int_bits(acc), _int_bits(want_acc))
+        if want_deq:
+            assert torch.equal(_int_bits(deq), _int_bits(want_deq_))
+        else:
+            assert deq is None
+    finally:
+        win.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 512, 96])
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_ag_ring_matches_plain_bitwise(n, wire, block):
+    _cuda()
+    win = peer.PeerWindow.virtual(n)
+    try:
+        shards = _ring_input(n, 41 * block, block, 3 * n + block)
+        before = rk.ag_ring.launches
+        got = rk.ag_ring(shards, win, wire, block)
+        assert rk.ag_ring.launches == before + 1
+        assert got.shape == (n, n * 41 * block)
+        assert torch.equal(_int_bits(got), _int_bits(rk.ag_ring_reference(shards, wire, block)))
+    finally:
+        win.close()
+
+
+@pytest.mark.cuda
+def test_rings_at_the_bucket_size_and_over_many_epochs():
+    """World 4 at the 32 MiB plan's largest bucket (8,208,384 elements,
+    c = 2,052,096), then many launches in a row on one window: the
+    epochs and the two parity sets of slots."""
+    _cuda()
+    n = 4
+    c = -(-8208384 // (n * 512)) * 512
+    win = peer.PeerWindow.virtual(n)
+    try:
+        x = _ring_input(n, n * c, 512, 21)
+        acc, deq = rk.rs_ring(x, win, "int8", 512, True)
+        want_acc, want_deq = rk.rs_ring_reference(x, "int8", 512, True)
+        assert torch.equal(_int_bits(acc), _int_bits(want_acc))
+        assert torch.equal(_int_bits(deq), _int_bits(want_deq))
+        out = rk.ag_ring(acc, win, "int8", 512)
+        assert torch.equal(_int_bits(out), _int_bits(rk.ag_ring_reference(acc, "int8", 512)))
+        small = _ring_input(n, n * 512 * 9, 512, 22)
+        want_small = rk.rs_ring_reference(small, "fp8", 512)[0]
+        for _ in range(25):
+            got = rk.rs_ring(small, win, "fp8", 512)[0]
+            rk.ag_ring(got, win, "fp8", 512)
+        assert torch.equal(_int_bits(got), _int_bits(want_small))
+    finally:
+        win.close()
+
+
+@pytest.mark.cuda
+def test_ring_wrappers_reject_what_the_kernels_do_not_take():
+    _cuda()
+    win = peer.PeerWindow.virtual(2)
+    try:
+        x = torch.ones(2, 2 * 512, device="cuda")
+        with pytest.raises(ValueError):
+            rk.rs_ring(x[:1], win, "int8", 512)  # one row for two ranks
+        with pytest.raises(ValueError):
+            rk.rs_ring(x, win, "int8", 300)  # not n chunks of whole blocks
+        with pytest.raises(TypeError):
+            rk.ag_ring(x.double(), win, "int8", 512)
+        big = torch.ones(2, 2 * 512 * 9000, device="cuda")  # past the slots
+        with pytest.raises(ValueError):
+            rk.rs_ring(big, win, "int8", 512)
+        # A launch the C entry refuses (epoch 0) raises and is not counted.
+        lib = peer.library()
+        before = rk.rs_ring.launches
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tab = (ctypes.c_void_p * 2)(x[0].data_ptr(), x[1].data_ptr())
+            rc = lib.hvd_rs_ring(tab, tab, None, (ctypes.c_void_p * 2)(*win.bases),
+                                 2, 0, 2, 1, 512, 0, 1.0 / 127, 0, win.slot_bytes, 1.0,
+                                 torch.cuda.current_stream().cuda_stream)
+            rk._launched(rk.rs_ring, lib, rc)
+        assert rk.rs_ring.launches == before
+    finally:
+        win.close()
+
+
+_TRAP = textwrap.dedent("""
+    import torch
+    from horovod_tpu_torch.ops import peer
+    from horovod_tpu_torch.ops import ring_kernels as rk
+
+    both = peer.PeerWindow.virtual(2)
+    # Rank 0 alone: rank 1 never enters, so rank 0 waits at the barrier.
+    alone = peer.PeerWindow(both.device, 2, [0], both.bases, both.slot_bytes,
+                            [], [], False)
+    rk.SPIN_TIMEOUT_S = 0.5
+    rk.rs_ring(torch.ones(1, 2 * 512 * 4, device="cuda"), alone, "int8", 512)
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print("TRAPPED:", e)
+    else:
+        print("NO TRAP")
+""")
+
+
+@pytest.mark.cuda
+def test_a_spin_past_its_bound_traps():
+    """A peer that never arrives is a CUDA error after the bound, not a
+    hung card (in a subprocess: the trap ends its CUDA context)."""
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TRAP], cwd=root, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=root))
+    assert "TRAPPED" in proc.stdout, proc.stdout + proc.stderr
+
+
+_WORLD = textwrap.dedent("""
+    import sys
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.ops import quantized as tq
+    from horovod_tpu_torch.ops import ring_kernels as rk
+
+    rank, n, store, backend = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    hvd.init("cuda", init_method="file://" + store, rank=rank, size=n,
+             timeout_s=100, backend=backend)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(n, 300000, generator=g, device="cuda")
+        r = torch.randn(n, 300000, generator=g, device="cuda") * 1e-3
+        out, r_new = tq.quantized_allreduce_ef(x[rank], r[rank], backend="fused")
+        assert (rk.rs_ring.launches, rk.ag_ring.launches) == (1, 1)
+        assert metrics.get_counter("quant.fused_fallback") == 0
+        # The plain versions over every rank's input.
+        c = -(-300000 // (n * 512)) * 512
+        e = torch.nn.functional.pad(x + r, (0, n * c - 300000))
+        acc, deq = rk.rs_ring_reference(e, "int8", 512, True)
+        want = rk.ag_ring_reference(acc, "int8", 512)[0, :300000] * (1.0 / n)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+        res = (e[rank] - deq[rank].reshape(-1))[:300000]
+        assert torch.equal(r_new.view(torch.int32), res.view(torch.int32))
+        print("RING OK", rank)
+    finally:
+        hvd.shutdown()
+""")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["two cards", "one card shared"])
+def test_ring_dispatch_in_a_world_of_two(tmp_path, layout):
+    """``quantized_allreduce_ef`` on the fused backend takes B6 and B7 in
+    a world of two processes, bitwise with the plain versions: on two
+    cards over NVLink (NCCL), or with two ranks sharing one card (gloo;
+    NCCL refuses two ranks on one card)."""
+    _cuda()
+    if layout == "two cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, HVD_TPU_QUANT_BACKEND="fused")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(k, None)
+    if layout == "one card shared":
+        env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    backend = "nccl" if layout == "two cards" else "gloo"
+    procs = [subprocess.Popen([sys.executable, "-c", _WORLD, str(r), "2",
+                               str(tmp_path / "store"), backend],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RING OK {r}" in out, out

@@ -4,6 +4,8 @@
     python3 tools/torch_dp_multi.py --nproc 4                 # N GPUs, NCCL
     python3 tools/torch_dp_multi.py --nproc 4 --device cpu --tiny   # gloo
     python3 tools/torch_dp_multi.py --nproc 4 --wire int8     # + int8 wire
+    python3 tools/torch_dp_multi.py --nproc 4 --wire int8 --backend fused \
+        --fusion-threshold 33554432           # int8 on the NVLink ring
 
 It starts ``--nproc`` worker processes of itself, joined through a
 ``FileStore`` in a temporary directory (no port is opened).  Every rank
@@ -15,7 +17,11 @@ batch (batch 32 per rank, ResNet-50 at 224x224 in bf16, or with
 ``off``, ``bf16`` in turn; with ``--wire int8`` (or ``fp8``) the windows
 are ``int8``, ``bf16``, ``off``, ``off``, ``bf16``, ``int8``, and the
 optimizer is built under the quantized wire, so it keeps error-feedback
-residuals.  Then it checks that:
+residuals.  ``--backend`` sets ``HVD_TPU_QUANT_BACKEND`` (``phase``, or
+``fused``, the default) and ``--fusion-threshold`` sets
+``HVD_TPU_FUSION_THRESHOLD`` (bytes per bucket; at 33554432 every
+bucket of ResNet-50 fits the ring's 8 MiB packed payload at a world of
+four).  Then it checks that:
 
 * every rank holds bitwise the same weights and statistics afterwards
   (on the quantized wire every rank applies the same all-gathered
@@ -23,9 +29,13 @@ residuals.  Then it checks that:
 * on the GPU, each window launched exactly the kernels its wire implies,
   per bucket per step: bf16, B1 twice (the down-cast and the up-cast),
   three times above a world of one (the 1/size postscale of the bf16
-  sum runs through B1 as well); int8/fp8, B3 twice (reduce-scatter and
-  all-gather), B4 and B5 once, and above a world of one B1 once (the
-  1/size postscale of the reduced shard); off, none.
+  sum runs through B1 as well); int8/fp8, above a world of one B1 once
+  (the 1/size postscale of the reduced shard), and on the fused backend
+  B6 and B7 once (the ring) for every bucket whose packed payload fits
+  the ring, or else B3 twice (reduce-scatter and all-gather), B4 and B5
+  once (the NCCL lowering, also the phase backend's); off, none;
+* ``quant.fused_fallback`` counts exactly the fused collectives that
+  could not take the ring (none at ``--fusion-threshold 33554432``).
 
 Rank 0 prints one JSON line with the world size, the card, the step
 times per wire and the images per second of the whole world.  The exit
@@ -49,12 +59,18 @@ def worker(args) -> None:
 
     sys.path.insert(0, ROOT)
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
     from horovod_tpu_torch.models import ResNet, ResNet50
-    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.ops import kernels, peer
     from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.ops import ring_kernels as rk
     from horovod_tpu_torch.utils.benchmarks import build_dp_step
 
     torch.set_num_threads(2)
+    if args.backend:
+        os.environ["HVD_TPU_QUANT_BACKEND"] = args.backend
+    if args.fusion_threshold:
+        os.environ["HVD_TPU_FUSION_THRESHOLD"] = str(args.fusion_threshold)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hvd.init(args.device, init_method=f"file://{args.store}",
@@ -80,28 +96,49 @@ def worker(args) -> None:
         batch = (torch.rand(*shape, generator=g, device=dev),
                  torch.randint(0, classes, (shape[0],), generator=g, device=dev))
         counters = {"B1": kernels.scale_cast, "B3": qk.quant_packed,
-                    "B4": qk.dequant_accum, "B5": qk.dequant_rows}
+                    "B4": qk.dequant_accum, "B5": qk.dequant_rows,
+                    "B6": rk.rs_ring, "B7": rk.ag_ring}
+        fused = (args.backend or "fused") == "fused"
 
         def window(wire: str):
             os.environ["HVD_TPU_SCHED_WIRE"] = wire
             float(step(batch))  # warm-up step; the host read fences it
             before = {k: c.launches for k, c in counters.items()}
+            before["fallback"] = metrics.get_counter("quant.fused_fallback")
             t0 = time.perf_counter()
             losses = [step(batch) for _ in range(args.steps)]
             last = float(losses[-1])
             ms = (time.perf_counter() - t0) / args.steps * 1e3
-            return ms, {k: c.launches - before[k] for k, c in counters.items()}, last
+            counts = {k: c.launches - before[k] for k, c in counters.items()}
+            counts["fallback"] = (metrics.get_counter("quant.fused_fallback")
+                                  - before["fallback"])
+            return ms, counts, last
+
+        def fits_ring(bucket) -> bool:
+            n, v = args.nproc, bucket.nbytes // 4
+            c = -(-v // (n * 512)) * 512
+            return n > 1 and n * (c + 4 * (c // 512)) <= peer.CAP
 
         def expected(wire: str) -> dict:
-            per = dict.fromkeys(counters, 0)
-            if dev.type == "cuda":
-                above_one = int(args.nproc > 1)
-                if wire == "bf16":
-                    per["B1"] = 2 + above_one
-                elif wire in ("int8", "fp8"):
-                    per.update(B1=above_one, B3=2, B4=1, B5=1)
-            n = len(opt.schedule) * args.steps
-            return {k: v * n for k, v in per.items()}
+            total = dict.fromkeys(list(counters) + ["fallback"], 0)
+            for bucket in opt.schedule.buckets:
+                per = dict.fromkeys(total, 0)
+                quantized = wire in ("int8", "fp8")
+                ring = quantized and fused and dev.type == "cuda" and fits_ring(bucket)
+                if fused and quantized and not ring and (dev.type == "cuda"
+                                                         or args.nproc == 1):
+                    per["fallback"] = 2  # the reduce-scatter and the all-gather
+                if dev.type == "cuda":
+                    above_one = int(args.nproc > 1)
+                    if wire == "bf16":
+                        per["B1"] = 2 + above_one
+                    elif ring:
+                        per.update(B1=above_one, B6=1, B7=1)
+                    elif quantized:
+                        per.update(B1=above_one, B3=2, B4=1, B5=1)
+                for k, v in per.items():
+                    total[k] += v * args.steps
+            return total
 
         timing = {w: [] for w in wires}
         losses = []
@@ -135,6 +172,8 @@ def worker(args) -> None:
                 "batch_per_rank": shape[0],
                 "buckets": [b.nbytes for b in opt.schedule.buckets],
                 "residuals": opt.residuals is not None,
+                "quant_backend": args.backend or "fused",
+                "fusion_threshold": args.fusion_threshold,
                 "step_ms": timing,
                 "img_s": {w: [imgs / ms * 1e3 for ms in v] for w, v in timing.items()},
                 "losses": losses, "weights_equal_on_all_ranks": True,
@@ -153,6 +192,10 @@ def launch(args) -> int:
             cmd.append("--tiny")
         if args.wire:
             cmd += ["--wire", args.wire]
+        if args.backend:
+            cmd += ["--backend", args.backend]
+        if args.fusion_threshold:
+            cmd += ["--fusion-threshold", str(args.fusion_threshold)]
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
@@ -175,6 +218,10 @@ def main() -> None:
                     help="small float32 ResNet at 32x32 (a rehearsal on the CPU)")
     ap.add_argument("--wire", choices=["int8", "fp8"],
                     help="also time windows on this quantized wire")
+    ap.add_argument("--backend", choices=["phase", "fused"],
+                    help="HVD_TPU_QUANT_BACKEND of the quantized windows (default fused)")
+    ap.add_argument("--fusion-threshold", type=int,
+                    help="HVD_TPU_FUSION_THRESHOLD, bytes per bucket")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
