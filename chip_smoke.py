@@ -9,9 +9,11 @@ exits non-zero):
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off
    for float32 matmuls and convolutions (stated).
 2. build: ``horovod_tpu_torch/csrc/scale_cast.cu`` (kernel B1),
-   ``quant.cu`` (B3, B4, B5), ``flash_attn.cu`` (B2) and
+   ``quant.cu`` (B3, B4, B5), ``flash_attn_sm90.cu`` (B2's wgmma
+   route), ``flash_attn.cu`` (B2's retained mma route) and
    ``quant_ring.cu`` (B6, B7) compiled with ``nvcc`` for sm_90a, one
-   ``nvcc`` per source, started together; the ptxas register lines.
+   ``nvcc`` per source, started together; ptxas's register and spill
+   lines, and the wgmma route's shared memory per block.
 3. kernel: B1 against its plain PyTorch version, bitwise, at the
    ResNet-50 bf16 wire's bucket sizes and at 1 / 127 / 65 537 elements,
    for f32->bf16, bf16->f32, bf16->bf16 at scale 1/3 and f32->f16 with
@@ -30,13 +32,16 @@ exits non-zero):
    beside the bound (this run's inputs and outputs over 3.35 TB/s: on
    one card the "peer" stores stay in its memory) and, as the yardstick,
    the B3 + B4 (B3 + B5) kernels of the NCCL lowering for the same ranks.
-   Then B2, flash attention, against its plain
-   version (``FLASH_TOL``) at the GPT slice's shape (B 16, T 1024, H 12,
-   D 64, bf16): causal dense, causal packed, non-causal, ragged T 1000,
-   and float32 at ``gpt_tiny``'s heads (4 x 16, T 256); the kernel's,
-   the plain version's and, for causal dense, ``scaled_dot_product_
-   attention``'s time, and the bound from the bytes and the operations
-   this run's masks need.
+   Then B2, flash attention, each case on the route that serves its
+   dtype and head dim, against its plain version at that route's key
+   tile (``FLASH_TOL``): at the GPT slice's shape (B 16, T 1024, H 12,
+   D 64, bf16, the wgmma route) causal dense, causal packed,
+   non-causal, ragged T 1000; bf16 at D 128 (6 heads, wgmma); float32 at
+   ``gpt_tiny``'s heads (4 x 16, T 256) and bf16 at D 32 (the mma
+   route); and the mma route held and timed at the causal dense GPT
+   shape too.  Each with the kernel's and the plain version's time, and
+   for causal dense ``scaled_dot_product_attention``'s, each beside the
+   bound from the bytes and the operations this run's masks need.
 4. slice bf16: ``init`` on NCCL (world of one), full-width ResNet-50 at
    224x224, batch 32, bf16 compute, ``HVD_TPU_SCHED_WIRE=bf16``,
    ``build_dp_step``; 2 warm-up + 5 timed steps with finite losses, B1
@@ -70,8 +75,9 @@ exits non-zero):
    AdamW and ``Compression.bf16`` (``HVD_TPU_SCHED_WIRE=off``, as
    ``bench_gpt``); dense rows for 2 warm-up + 5 timed steps, packed rows
    (``packed_lm_batch``) for 1 + 2; finite losses, the first dense one
-   within 1 of ln(50304), B2 launched exactly 12 times per step and no
-   other kernel; step ms, tokens/s and peak memory.
+   within 1 of ln(50304), B2 launched exactly 12 times per step, all on
+   the wgmma route, and no other kernel; step ms, tokens/s and peak
+   memory.
 9. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
    seq 256) for three steps on the card against the CPU path, to stated
    tolerances.
@@ -104,7 +110,7 @@ FP8_WARMUP, FP8_TIMED = 1, 2
 PACKED_WARMUP, PACKED_TIMED = 1, 2
 BLOCK = 512  # HVD_TPU_QUANT_BLOCK default
 GPT_BATCH, GPT_SEQ, GPT_LAYERS, GPT_VOCAB = 16, 1024, 12, 50304
-SOURCES = ["scale_cast", "quant", "flash_attn", "quant_ring"]
+SOURCES = ["scale_cast", "quant", "flash_attn", "flash_attn_sm90", "quant_ring"]
 RING_THRESHOLD = 32 * 1024 * 1024  # HVD_TPU_FUSION_THRESHOLD of the ring slice
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 REPLACES = {
@@ -833,30 +839,41 @@ def _attention_pairs(t, causal, segs):
 
 
 def flash_phase(flash, segs, log):
-    """B2 against its plain version at the GPT slice's shape; returns the
-    causal dense case's record for the kernels line."""
+    """B2 against its plain version, each case on the route that serves
+    it, at that route's key tile; the wgmma route's causal dense case is
+    returned for the kernels line.  The mma route is also held and timed
+    at the causal dense GPT shape (``flash_forward_mma``), beside the
+    wgmma route and ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    cases = [
-        ("causal dense", GPT_SEQ, 12, 64, torch.bfloat16, True, None),
-        ("causal packed", GPT_SEQ, 12, 64, torch.bfloat16, True, segs),
-        ("non-causal", GPT_SEQ, 12, 64, torch.bfloat16, False, None),
-        ("ragged T=1000", 1000, 12, 64, torch.bfloat16, True, None),
-        ("float32 gpt_tiny heads", 256, 4, 16, torch.float32, True, None),
+    bf16, f32 = torch.bfloat16, torch.float32
+    routes = {"wgmma": flash.flash_forward_wgmma, "mma": flash.flash_forward_mma}
+    cases = [  # name, T, H, D, dtype, causal, segments, route (None: flash_forward's)
+        ("causal dense", GPT_SEQ, 12, 64, bf16, True, None, None),
+        ("causal dense, mma route", GPT_SEQ, 12, 64, bf16, True, None, "mma"),
+        ("causal packed", GPT_SEQ, 12, 64, bf16, True, segs, None),
+        ("non-causal", GPT_SEQ, 12, 64, bf16, False, None, None),
+        ("ragged T=1000", 1000, 12, 64, bf16, True, None, None),
+        ("D=128", GPT_SEQ, 6, 128, bf16, True, None, None),
+        ("float32 gpt_tiny heads", 256, 4, 16, f32, True, None, None),
+        ("bf16 D=32", GPT_SEQ, 12, 32, bf16, True, None, None),
     ]
     before = flash.flash_forward.launches
     record = None
-    for name, t, h, d, dtype, causal, seg in cases:
+    times = {}
+    for name, t, h, d, dtype, causal, seg, which in cases:
         b = GPT_BATCH
+        which = which or flash.route(dtype, d)
+        fn = routes[which]
         # q, k, v as the model passes them: strided views of one qkv.
         qkv = torch.randn(b, t, 3, h, d, generator=g, device="cuda").to(dtype)
         q, k, v = qkv.unbind(2)
         scale = d ** -0.5
-        out, lse = flash.flash_forward(q, k, v, causal, scale, seg)
+        out, lse = fn(q, k, v, causal, scale, seg)
         want_o, want_l = flash.flash_forward_reference(
-            q, k, v, causal, scale, seg, block_k=flash.KERNEL_BLOCK)
+            q, k, v, causal, scale, seg, block_k=flash.KERNEL_BLOCK[which])
         torch.cuda.synchronize()
         dname = str(dtype).split(".")[-1]
         rtol, atol, lse_tol = FLASH_TOL[dname]
@@ -864,9 +881,9 @@ def flash_phase(flash, segs, log):
         err_l = float((lse - want_l).abs().max())
         if not bool(torch.isfinite(out).all()) or bool(
                 (err_o > atol + rtol * want_o.float().abs()).any()) or err_l > lse_tol:
-            fail(f"B2 {name}: out error {float(err_o.max())} (rtol {rtol}, atol "
-                 f"{atol}), lse error {err_l} (atol {lse_tol})")
-        ms = time_ms(lambda: flash.flash_forward(q, k, v, causal, scale, seg))
+            fail(f"B2 {name} ({which}): out error {float(err_o.max())} (rtol {rtol}, "
+                 f"atol {atol}), lse error {err_l} (atol {lse_tol})")
+        ms = time_ms(lambda: fn(q, k, v, causal, scale, seg))
         plain_ms = time_ms(lambda: flash.flash_forward_reference(
             q, k, v, causal, scale, seg), iters=5)
         lib_ms = None
@@ -874,6 +891,7 @@ def flash_phase(flash, segs, log):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
+            del qt, kt, vt
         esize = q.element_size()
         nbytes = 4 * b * t * h * d * esize + 4 * b * h * t
         if seg is not None:
@@ -883,21 +901,31 @@ def flash_phase(flash, segs, log):
         t_ops = flops / H100_FLOPS[dname] * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        rec = {"kernel": "flash_fwd", "case": name, "shape": [b, t, h, d],
-               "dtype": dname, "ms": ms, "plain_ms": plain_ms,
+        rec = {"kernel": "flash_fwd", "route": which, "case": name,
+               "shape": [b, t, h, d], "dtype": dname, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "bytes": nbytes, "flops": flops, "max_abs_err": float(err_o.max()),
                "lse_err": err_l}
         log["kernel_cases"].append(rec)
-        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        print(f"phase kernel: B2 {name} [{b},{t},{h},{d}] {dname}: out error "
-              f"{float(err_o.max()):.3g}, lse error {err_l:.3g} (within FLASH_TOL); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_txt}, "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.1f} GFLOP; {bound_ms / ms:.1%} of bound)", flush=True)
+        times[name] = ms
+        lib_txt = (f"{lib_ms:.4f} ms ({bound_ms / lib_ms:.1%} of bound)"
+                   if lib_ms is not None else "none")
+        print(f"phase kernel: B2 {name} [{b},{t},{h},{d}] {dname}, {which} route: out "
+              f"error {float(err_o.max()):.3g}, lse error {err_l:.3g} (within FLASH_TOL); "
+              f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of bound), plain "
+              f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)", flush=True)
         if name == "causal dense":
             record = rec
         del qkv, q, k, v, out, lse, want_o, want_l, err_o
+    speedup = times["causal dense, mma route"] / times["causal dense"]
+    print(f"phase kernel: B2 at the causal dense GPT shape: wgmma route "
+          f"{times['causal dense']:.4f} ms, mma route "
+          f"{times['causal dense, mma route']:.4f} ms ({speedup:.2f}x), "
+          f"scaled_dot_product_attention {record['library_ms']:.4f} ms "
+          f"({record['library_ms'] / times['causal dense']:.2f}x the wgmma route's "
+          f"speed)", flush=True)
+    record["mma_route_ms"] = times["causal dense, mma route"]
     print(f"phase kernel: {flash.flash_forward.launches - before} B2 launches for "
           "comparison and timing (not counted for the main path)", flush=True)
     return record
@@ -931,7 +959,8 @@ def gpt_phase(hvd, tt, build_lm_step, timed_throughput, counters, batch,
         fail(f"gpt {what}: non-finite losses {losses}")
     if not packed and abs(losses[0] - math.log(GPT_VOCAB)) > 1.0:
         fail(f"gpt dense: first loss {losses[0]} is not near ln({GPT_VOCAB})")
-    expected = {k: (GPT_LAYERS * steps if k == "flash_fwd" else 0) for k in counters}
+    on_path = ("flash_fwd", "flash_fwd_wgmma")  # every B2 launch on the wgmma route
+    expected = {k: (GPT_LAYERS * steps if k in on_path else 0) for k in counters}
     if launches != expected:
         fail(f"gpt {what}: launches {launches}, expected {expected}")
     step_ms = seconds / timed * 1e3
@@ -1067,9 +1096,12 @@ def main() -> None:
     for name in SOURCES:
         ptxas = " | ".join(
             line.strip() for line in build.build_logs.get(name, "").splitlines()
-            if "registers" in line
+            if "registers" in line or "spill" in line or "C75" in line
         )
         print(f"phase build: {name}.cu; ptxas: {ptxas or 'cached'}", flush=True)
+    smem = {d: flash.sm90_smem_bytes(d) for d in flash.WGMMA_HEAD_DIMS}
+    print(f"phase build: flash_attn_sm90.cu: dynamic shared memory per block "
+          f"{smem} bytes (D: bytes), one block per SM", flush=True)
     print(f"phase build: {len(SOURCES)} sources in {build_s:.1f} s", flush=True)
     log["build_s"] = build_s
 
@@ -1129,7 +1161,9 @@ def main() -> None:
     counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
                 "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
                 "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring,
-                "flash_fwd": flash.flash_forward}
+                "flash_fwd": flash.flash_forward,
+                "flash_fwd_wgmma": flash.flash_forward_wgmma,
+                "flash_fwd_mma": flash.flash_forward_mma}
     g = torch.Generator(device="cuda").manual_seed(2)
     dense_batch = torch.randint(0, GPT_VOCAB, (GPT_BATCH, GPT_SEQ), generator=g,
                                 device="cuda")
@@ -1147,7 +1181,7 @@ def main() -> None:
     entries = [("scale_cast", "scale_cast.cu", record, runs["bf16"])]
     entries += [(k, "quant.cu", qrecords[k], runs["int8"])
                 for k in ("quant_pack", "dequant_accum", "dequant_rows")]
-    entries.append(("flash_fwd", "flash_attn.cu", frecord, gpt_runs["dense"]))
+    entries.append(("flash_fwd", "flash_attn_sm90.cu", frecord, gpt_runs["dense"]))
     entries += [(k, "quant_ring.cu", rrecords[k], ring_run) for k in ("rs_ring", "ag_ring")]
     finish(args, log, card, kind, count, entries)
 

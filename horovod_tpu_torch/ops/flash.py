@@ -3,18 +3,28 @@ and the blockwise-recompute backward.
 
 Counterpart of the flash section of ``horovod_tpu/ops/pallas_kernels.py``
 (``:139-549``): ``_flash_fwd_kernel`` / ``_flash_forward`` (``:144``,
-``:260``) become ``csrc/flash_attn.cu``, built with ``nvcc`` for
-``sm_90a`` at first use and called through ctypes on PyTorch's current
-stream; ``_flash_bwd_chunked`` (``:337``), a ``lax.scan`` in the JAX
-package and no Pallas kernel, is plain PyTorch here; the two
-``jax.custom_vjp`` s (``:418-497``) become one ``torch.autograd.Function``.
+``:260``) become two CUDA kernels, built with ``nvcc`` for ``sm_90a`` at
+first use and called through ctypes on PyTorch's current stream;
+``_flash_bwd_chunked`` (``:337``), a ``lax.scan`` in the JAX package and
+no Pallas kernel, is plain PyTorch here; the two ``jax.custom_vjp`` s
+(``:418-497``) become one ``torch.autograd.Function``.
 
-Layout ``[B, T, H, D]`` throughout.  The kernel reads q, k and v by
-their strides (they may be views of one qkv tensor); it takes float32 or
-bfloat16 and head dims 16, 32, 64 and 128, and raises on anything else.
-On a CPU tensor :func:`flash_forward` computes
+B2 has two routes, chosen by dtype and head dim alone (:func:`route`):
+
+* ``"wgmma"``, ``csrc/flash_attn_sm90.cu``: bf16 at head dims 64 and
+  128, Hopper's wgmma fed by TMA, 128-query by 128-key tiles
+  (:func:`flash_forward_wgmma`).  TMA reads q, k and v by their strides,
+  so the base and the b/t/h strides must be multiples of 16 bytes; a
+  layout it cannot address raises.
+* ``"mma"``, ``csrc/flash_attn.cu``: float32 at head dims 16 to 128 and
+  bf16 at 16 and 32, ``mma.sync`` on 64 by 64 tiles
+  (:func:`flash_forward_mma`).
+
+Layout ``[B, T, H, D]`` throughout; q, k and v may be strided views of
+one qkv tensor.  On a CPU tensor every entry point computes
 :func:`flash_forward_reference` instead.  ``flash_forward.launches``
-counts kernel launches.
+counts every B2 launch, ``flash_forward_wgmma.launches`` and
+``flash_forward_mma.launches`` each route's.
 """
 
 from __future__ import annotations
@@ -27,9 +37,12 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-KERNEL_BLOCK = 64  # query and key tile of csrc/flash_attn.cu
+# Key tile of each route: p is rounded to bf16 against the running
+# maximum of each key tile, so the plain version is compared with it.
+KERNEL_BLOCK = {"wgmma": 128, "mma": 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def _mask(t: int, k0: int, k1: int, causal: bool,
@@ -84,23 +97,158 @@ def flash_forward_reference(
     return out.transpose(1, 2), lse[..., 0]
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("flash_attn")
-    fn = lib.hvd_flash_fwd
+def route(dtype: torch.dtype, d: int) -> str:
+    """The B2 route that serves q of ``dtype`` and head dim ``d`` on the
+    card: ``"wgmma"`` for bf16 at 64 and 128, else ``"mma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "mma"
+
+
+_ENTRY = {"mma": "hvd_flash_fwd", "wgmma": "hvd_flash_fwd_sm90"}
+_SOURCE = {"mma": "flash_attn", "wgmma": "flash_attn_sm90"}
+
+
+def _library(which: str) -> ctypes.CDLL:
+    lib = build.load(_SOURCE[which])
+    fn = getattr(lib, _ENTRY[which])
     if fn.argtypes is None:
         ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        dtype = [i] if which == "mma" else []
         fn.argtypes = [ptr, ll, ll, ll, ptr, ll, ll, ll, ptr, ll, ll, ll,
-                       ptr, ptr, ptr, i, i, i, i, i, ctypes.c_float, i, ptr]
+                       ptr, ptr, ptr, *dtype, i, i, i, i, ctypes.c_float, i, ptr]
         fn.restype = ctypes.c_int
     return lib
 
 
+def sm90_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of the wgmma route at head dim
+    ``d`` (builds the library on first use)."""
+    lib = _library("wgmma")
+    lib.hvd_flash_fwd_sm90_smem.argtypes = [ctypes.c_int]
+    lib.hvd_flash_fwd_sm90_smem.restype = ctypes.c_int
+    return int(lib.hvd_flash_fwd_sm90_smem(d))
+
+
 def _strided_ok(x: torch.Tensor) -> bool:
-    """Rows the kernel can read 16 bytes at a time: d contiguous, the
+    """Rows the kernels can read 16 bytes at a time: d contiguous, the
     base and the b/t/h strides 16-byte aligned."""
     es = x.element_size()
     return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
             and all(s * es % 16 == 0 for s in x.stride()[:3]))
+
+
+def _tma_ok(x: torch.Tensor) -> bool:
+    """What a TMA tensor map can address: as :func:`_strided_ok`, with
+    the b/t/h strides positive and under 2^40 bytes."""
+    es = x.element_size()
+    return _strided_ok(x) and all(0 < s * es < 1 << 40 for s in x.stride()[:3])
+
+
+def _checked(name: str, q, k, v, segments, dtypes, head_dims, layout_ok):
+    """Validate a launch of one route; the segments as the kernel reads
+    them ([B, T] int32, contiguous, on q's card) or None."""
+    b, t, h, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"{name}: q, k, v must share [B, T, H, D], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"{name}: the kernel takes {', '.join(map(str, dtypes))} q, k, v "
+            f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if d not in head_dims:
+        raise ValueError(
+            f"{name}: the kernel takes head dims {head_dims}, got {d}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k, v on different devices")
+    if not all(layout_ok(x) for x in (q, k, v)):
+        raise ValueError(
+            f"{name}: the kernel reads rows of D contiguous elements, "
+            "16-byte aligned, at b/t/h strides that are multiples of 16 "
+            "bytes (positive, for TMA); pass contiguous q, k, v"
+        )
+    if segments is None:
+        return None
+    if tuple(segments.shape) != (b, t):
+        raise ValueError(f"segments must be [B, T] = {(b, t)}, got "
+                         f"{tuple(segments.shape)}")
+    return segments.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _launch(which: str, q, k, v, causal, scale, segments):
+    """Launch route ``which`` on validated CUDA tensors."""
+    b, t, h, d = q.shape
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse.fill_(NEG_INF)
+    lib = _library(which)
+    dtype = [_DTYPE_CODE[q.dtype]] if which == "mma" else []
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, _ENTRY[which])(
+            q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3],
+            None if segments is None else segments.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *dtype, b, t, h, d, float(scale), int(bool(causal)),
+            stream,
+        )
+    if rc < 0:
+        raise RuntimeError(f"flash attention ({which}): cuTensorMapEncodeTiled "
+                           f"failed with CUresult {-rc}")
+    if rc != 0:
+        raise RuntimeError(f"flash attention ({which}) kernel launch failed: "
+                           f"cudaError {rc}")
+    flash_forward.launches += 1
+    _ROUTES[which].launches += 1
+    return out, lse
+
+
+def _on_card(name: str, q: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return True
+
+
+def flash_forward_wgmma(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    scale: float, segments: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2's Hopper route (``csrc/flash_attn_sm90.cu``): bf16 q, k, v at
+    head dims 64 and 128; raises on anything else, and on a layout TMA
+    cannot address.  CPU tensors take the plain version at its key tile
+    (128)."""
+    if not _on_card("flash_forward_wgmma", q):
+        return flash_forward_reference(q, k, v, causal, scale, segments,
+                                       KERNEL_BLOCK["wgmma"])
+    seg = _checked("flash_forward_wgmma", q, k, v, segments,
+                   (torch.bfloat16,), WGMMA_HEAD_DIMS, _tma_ok)
+    return _launch("wgmma", q, k, v, causal, scale, seg)
+
+
+def flash_forward_mma(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    scale: float, segments: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2's retained route (``csrc/flash_attn.cu``, ``mma.sync``): float32
+    or bf16 at head dims 16, 32, 64 and 128, 64-key tiles.  The main path
+    sends it float32 and bf16 at 16 and 32; it takes the others too, so
+    that the two routes can be held side by side.  CPU tensors take the
+    plain version at its key tile (64)."""
+    if not _on_card("flash_forward_mma", q):
+        return flash_forward_reference(q, k, v, causal, scale, segments,
+                                       KERNEL_BLOCK["mma"])
+    seg = _checked("flash_forward_mma", q, k, v, segments,
+                   tuple(_DTYPE_CODE), HEAD_DIMS, _strided_ok)
+    return _launch("mma", q, k, v, causal, scale, seg)
+
+
+_ROUTES = {"wgmma": flash_forward_wgmma, "mma": flash_forward_mma}
 
 
 def flash_forward(
@@ -111,65 +259,21 @@ def flash_forward(
     """B2: ``(out [B,T,H,D], lse [B,H,T] float32)``.
 
     CPU tensors take :func:`flash_forward_reference` with ``block_k``.
-    CUDA tensors launch ``csrc/flash_attn.cu`` (64-key tiles, whatever
-    ``block_k``) on the current stream, or raise for a dtype, head dim,
-    shape or layout it does not take: q, k and v may be strided views
-    (the model passes views of one qkv tensor) whose rows of D elements
-    are contiguous and 16-byte aligned."""
-    if q.device.type == "cpu":
+    CUDA tensors launch the route :func:`route` names for their dtype
+    and head dim (whatever ``block_k``) on the current stream, or raise
+    for a dtype, head dim, shape or layout it does not take: q, k and v
+    may be strided views (the model passes views of one qkv tensor)
+    whose rows of D elements are contiguous and 16-byte aligned."""
+    if not _on_card("flash_forward", q):
         return flash_forward_reference(q, k, v, causal, scale, segments,
                                        block_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_forward: unsupported device {q.device}")
-    b, t, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"flash_forward: q, k, v must share [B, T, H, D], got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flash_forward: the kernel takes float32 or bfloat16 q, k, v "
-            f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_forward: the kernel takes head dims {HEAD_DIMS}, got {d}"
-        )
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_forward: q, k, v on different devices")
-    if not all(_strided_ok(x) for x in (q, k, v)):
-        raise ValueError(
-            "flash_forward: the kernel reads rows of D contiguous elements, "
-            "16-byte aligned; pass contiguous q, k, v"
-        )
-    seg_ptr = None
-    if segments is not None:
-        if tuple(segments.shape) != (b, t):
-            raise ValueError(f"segments must be [B, T] = {(b, t)}, got "
-                             f"{tuple(segments.shape)}")
-        segments = segments.to(device=q.device, dtype=torch.int32).contiguous()
-        seg_ptr = segments.data_ptr()
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse.fill_(NEG_INF)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.hvd_flash_fwd(
-            q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-            v.data_ptr(), *v.stride()[:3], seg_ptr, out.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, d, float(scale),
-            int(bool(causal)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
-    flash_forward.launches += 1
-    return out, lse
+    return _ROUTES[route(q.dtype, q.shape[-1])](q, k, v, causal, scale,
+                                                segments)
 
 
 flash_forward.launches = 0
+flash_forward_wgmma.launches = 0
+flash_forward_mma.launches = 0
 
 
 def flash_backward_chunked(

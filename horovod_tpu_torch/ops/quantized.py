@@ -125,12 +125,14 @@ def dispatch_mode(n: int, wire_nbytes: int, on_cuda: bool, one_host: bool,
     the card, ``"ring"`` for B6/B7, ``None`` when the caller must take
     the NCCL lowering (``pallas_quant.dispatch_mode``, ``:229``: its
     ``"tpu"`` is ``"ring"``, one slice is one host, and the ICI links are
-    the cards' peer access)."""
+    the cards' peer access).  A world larger than the kernels' pointer
+    tables (``peer.MAX_RANKS``) falls back as any other ineligible
+    collective does (``_fused_mode``, ``quantized.py:157``)."""
     if n <= 1:
         return None
     if not on_cuda:
         return "interp"
-    if not one_host or not peers_reach:
+    if not one_host or not peers_reach or n > peer.MAX_RANKS:
         return None
     if wire_nbytes > peer.CAP:
         return None

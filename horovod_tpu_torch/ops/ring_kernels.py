@@ -31,13 +31,23 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import runtime
 from . import peer
 from .collectives import f32_reciprocal
 from .quant_kernels import WIRE_FORMATS, _WIRE_CODE, quant_math_reference
 
-# Bound on every spin of the kernels (the entry barrier, a slot's
-# flag): past it the kernel prints which flag it waited on and traps.
-SPIN_TIMEOUT_S = 10.0
+
+
+def spin_timeout_s() -> float:
+    """Bound on every spin of the kernels (the entry barrier, a slot's
+    flag): past it the kernel prints which flag it waited on and traps.
+    It is the process group's timeout (``init``'s ``timeout_s``), so a
+    late peer is waited for as long as the reference's unbounded
+    semaphore wait would be before the group itself gives up; with no
+    runtime (virtual ranks on one card), ``runtime.DEFAULT_TIMEOUT_S``."""
+    if runtime.is_initialized():
+        return float(runtime.get_runtime().timeout_s)
+    return runtime.DEFAULT_TIMEOUT_S
 
 
 def _chunks(x: torch.Tensor, n: int, block: int) -> Tuple[int, int]:
@@ -126,13 +136,15 @@ def _launched(fn, lib, rc: int) -> None:
     fn.launches += 1
 
 
-def rs_ring(x: torch.Tensor, window, wire: str, block: int, want_deq: bool = False
+def rs_ring(x: torch.Tensor, window, wire: str, block: int, want_deq: bool = False,
+            timeout_s: Optional[float] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """B6: ``x`` is ``(R, n·c)`` float32, one row per rank this process
     launches (``window.ranks``).  Returns ``acc`` ``(R, c)``: each rank's
     float32 sum of its chunk over the n ranks; with ``want_deq`` also
     ``(R, n, c)``: the dequant of every chunk the rank quantized, the
-    error-feedback residual's input."""
+    error-feedback residual's input.  ``timeout_s`` bounds each spin
+    (default :func:`spin_timeout_s`)."""
     if not _check(x, "rs_ring", window, block, wire):
         return rs_ring_reference(x, wire, block, want_deq)
     n, ranks = window.n, len(window.ranks)
@@ -152,17 +164,20 @@ def rs_ring(x: torch.Tensor, window, wire: str, block: int, want_deq: bool = Fal
         rc = lib.hvd_rs_ring(
             xs, accs, deqs, wins, n, window.ranks[0], ranks, nb, block,
             _WIRE_CODE[wire], f32_reciprocal(WIRE_FORMATS[wire][1]),
-            window.next_epoch(), window.slot_bytes, SPIN_TIMEOUT_S,
+            window.next_epoch(), window.slot_bytes,
+            spin_timeout_s() if timeout_s is None else timeout_s,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _launched(rs_ring, lib, rc)
     return acc, deq
 
 
-def ag_ring(shards: torch.Tensor, window, wire: str, block: int) -> torch.Tensor:
+def ag_ring(shards: torch.Tensor, window, wire: str, block: int,
+            timeout_s: Optional[float] = None) -> torch.Tensor:
     """B7: ``shards`` is ``(R, c)`` float32, one shard per rank this
     process launches.  Returns ``(R, n·c)``: every rank's dequantized
-    shard, in rank order."""
+    shard, in rank order.  ``timeout_s`` bounds each spin (default
+    :func:`spin_timeout_s`)."""
     if not _check(shards, "ag_ring", window, block, wire):
         return ag_ring_reference(shards, wire, block)
     n, ranks = window.n, len(window.ranks)
@@ -180,7 +195,8 @@ def ag_ring(shards: torch.Tensor, window, wire: str, block: int) -> torch.Tensor
         rc = lib.hvd_ag_ring(
             xs, outs, wins, n, window.ranks[0], ranks, nb, block,
             _WIRE_CODE[wire], f32_reciprocal(WIRE_FORMATS[wire][1]),
-            window.next_epoch(), window.slot_bytes, SPIN_TIMEOUT_S,
+            window.next_epoch(), window.slot_bytes,
+            spin_timeout_s() if timeout_s is None else timeout_s,
             torch.cuda.current_stream(shards.device).cuda_stream,
         )
     _launched(ag_ring, lib, rc)

@@ -31,6 +31,9 @@ import torch.distributed as dist
 
 from .exceptions import NotInitializedError
 
+# The process group's timeout when ``init`` is given none.
+DEFAULT_TIMEOUT_S = 300.0
+
 
 class Runtime:
     """One process's place in the world and the device it computes on."""
@@ -38,12 +41,16 @@ class Runtime:
     def __init__(self, device: torch.device, rank: int, size: int,
                  local_rank: int, owns_group: bool, backend: str,
                  hosts: Optional[List[str]] = None,
-                 cards: Optional[List[str]] = None):
+                 cards: Optional[List[str]] = None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S):
         self.device = device
         self.rank = rank
         self.size = size
         self.local_rank = local_rank
         self.backend = backend
+        # How long a collective waits for a late peer: the process
+        # group's timeout, and the bound of the ring kernels' spins.
+        self.timeout_s = timeout_s
         self._owns_group = owns_group
         # Per rank: host name, and the card's UUID ("" on the CPU).
         self.hosts = hosts or [socket.gethostname()] * size
@@ -89,7 +96,7 @@ def init(
     init_method: Optional[str] = None,
     rank: Optional[int] = None,
     size: Optional[int] = None,
-    timeout_s: float = 300.0,
+    timeout_s: float = DEFAULT_TIMEOUT_S,
     backend: Optional[str] = None,
 ) -> None:
     """Join the process group (idempotent).
@@ -102,7 +109,9 @@ def init(
     the process group's: NCCL on ``cuda`` and gloo on ``cpu`` by
     default; NCCL refuses two ranks on one card, gloo serves them.  An
     already initialized default process group is adopted and left to
-    its owner.
+    its owner.  ``timeout_s`` bounds how long a collective waits for a
+    late peer: the process group's timeout, and every spin of the
+    quantized ring's kernels (``ops/ring_kernels.py``).
     """
     global _runtime
     dev = torch.device(device)
@@ -156,7 +165,8 @@ def init(
             places = [None] * size
             dist.all_gather_object(places, (socket.gethostname(), _card_id(dev)))
             hosts, cards = [p[0] for p in places], [p[1] for p in places]
-        _runtime = Runtime(dev, rank, size, local_rank, owns, backend, hosts, cards)
+        _runtime = Runtime(dev, rank, size, local_rank, owns, backend, hosts, cards,
+                           timeout_s)
 
 
 def shutdown() -> None:

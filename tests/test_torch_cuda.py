@@ -11,8 +11,10 @@ The comparison is bitwise for B1, B3, B4 and B5: B1's conversions are
 the same round-to-nearest-even instructions PyTorch's CUDA casts use;
 B3-B5 round every product, quotient and sum to float32 as PyTorch's
 separate operations do, and define the wire values of a non-finite block
-(0).  B2, flash attention, sums its dot products and row sums in another
-order than the plain version's matmuls, so it is held to tolerances
+(0).  B2, flash attention, has two routes (``flash.route``): wgmma for
+bf16 at head dims 64 and 128, mma for float32 and bf16 at 16 and 32.
+Each sums its dot products and row sums in another order than the plain
+version's matmuls, so each is held, at its own key tile, to tolerances
 (``FLASH_TOL``): in bfloat16 a score that moves by a float32 ulp can
 round its p, and the output, to the other bf16 neighbour, so out agrees
 to 2^-7 of itself + 2^-9; lse (about 7 at these lengths) to 1e-4, some
@@ -233,13 +235,17 @@ def _segments(b, t, seed):
     return seg.cuda()
 
 
-def _check_flash(q, k, v, causal, seg=None):
+def _check_flash(q, k, v, causal, seg=None, fn=None, block=None):
+    """``fn`` (default ``flash_forward``) against the plain version at
+    ``block`` (default: the key tile of the route for q's dtype and D)."""
     scale = q.shape[-1] ** -0.5
+    fn = fn or flash.flash_forward
+    block = block or flash.KERNEL_BLOCK[flash.route(q.dtype, q.shape[-1])]
     before = flash.flash_forward.launches
-    out, lse = flash.flash_forward(q, k, v, causal, scale, seg)
+    out, lse = fn(q, k, v, causal, scale, seg)
     assert flash.flash_forward.launches == before + 1
     want_o, want_l = flash.flash_forward_reference(
-        q, k, v, causal, scale, seg, block_k=flash.KERNEL_BLOCK)
+        q, k, v, causal, scale, seg, block_k=block)
     torch.cuda.synchronize()
     rtol, atol, lse_tol = FLASH_TOL[q.dtype]
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -292,6 +298,112 @@ def test_flash_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(1, 16, 2, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         flash.flash_forward(q, q, q, True, 0.125)
+
+
+def _qkv_views(b, t, h, d, seed):
+    """q, k, v as the model passes them: bf16 views of one [B, T, 3, H, D]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, t, 3, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    return qkv.unbind(2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [1, 100, 127, 128, 129, 1000, 1024])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_matches_plain(d, t, causal, packed):
+    """The wgmma route on strided qkv views against the plain version at
+    its 128-key tile: ragged and exact tiles, one row, dense and packed
+    rows (padding segments included)."""
+    _cuda()
+    q, k, v = _qkv_views(2, t, 3, d, seed=t + d)
+    assert not q.is_contiguous()
+    seg = _segments(2, t, t) if packed else None
+    before = flash.flash_forward_wgmma.launches
+    _check_flash(q, k, v, causal, seg)
+    assert flash.flash_forward_wgmma.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_runs_are_bitwise_equal(d):
+    _cuda()
+    q, k, v = _qkv_views(3, 700, 4, d, seed=11)
+    seg = _segments(3, 700, 12)
+    first = flash.flash_forward_wgmma(q, k, v, True, 0.125, seg)
+    again = flash.flash_forward_wgmma(q, k, v, True, 0.125, seg)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,which", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.float32, 64, "mma"),
+])
+def test_flash_forward_takes_the_route_for_its_dtype_and_head_dim(dtype, d, which):
+    _cuda()
+    q, k, v = _qkv(1, 64, 2, d, dtype, seed=d)
+    counts = {r: getattr(flash, f"flash_forward_{r}").launches for r in ("wgmma", "mma")}
+    flash.flash_forward(q, k, v, True, 0.125)
+    for r, c in counts.items():
+        assert getattr(flash, f"flash_forward_{r}").launches == c + (r == which)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_mma_route_still_held(d):
+    """The retained mma route, called on its own, at every head dim it
+    takes in bf16 (the main path sends it 16 and 32; 64 is where it is
+    timed beside the wgmma route), against the plain version at 64."""
+    _cuda()
+    before = flash.flash_forward_mma.launches
+    _check_flash(*_qkv_views(2, 257, 3, d, seed=d), True, fn=flash.flash_forward_mma,
+                 block=flash.KERNEL_BLOCK["mma"])
+    assert flash.flash_forward_mma.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_rejects_what_it_does_not_take():
+    _cuda()
+    q = torch.zeros(1, 16, 2, 64, device="cuda")
+    with pytest.raises(TypeError):
+        flash.flash_forward_wgmma(q, q, q, True, 0.125)  # float32
+    q = torch.zeros(1, 16, 2, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash.flash_forward_wgmma(q, q, q, True, 0.125)
+    q = torch.zeros(1, 16, 2, 68, device="cuda", dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash.flash_forward_wgmma(q, q, q, True, 0.125)  # h stride of 136 bytes
+    q = torch.zeros(1, 16, 1, 64, device="cuda", dtype=torch.bfloat16).expand(2, 16, 3, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash.flash_forward_wgmma(q, q, q, True, 0.125)  # a broadcast (0) stride
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_flash_gradient_goes_through_the_wgmma_route(packed):
+    """bf16 gradients of flash_attention at D 64 (the wgmma route's out
+    and lse feed the chunked backward) against autograd through
+    full_attention in float32 on the same values: the backward rounds
+    only its result to bf16 (2^-8 of itself) and reads out rounded to
+    bf16, which moves delta = rowsum(do * out) by some 1e-3, so 2^-6 of
+    the value + 1e-2."""
+    _cuda()
+    from horovod_tpu_torch.parallel.ring_attention import full_attention
+
+    q, k, v = (x.contiguous().requires_grad_() for x in _qkv_views(2, 96, 2, 64, 7))
+    seg = _segments(2, 96, 8) if packed else None
+    w = torch.randn(2, 96, 2, 64, device="cuda")
+    before = flash.flash_forward_wgmma.launches
+    (flash.flash_attention(q, k, v, True, None, segment_ids=seg).float() * w).sum().backward()
+    assert flash.flash_forward_wgmma.launches == before + 1
+    got = [x.grad.float() for x in (q, k, v)]
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    (full_attention(qf, kf, vf, causal=True, segment_ids=seg) * w).sum().backward()
+    for g, x in zip(got, (qf, kf, vf)):
+        torch.testing.assert_close(g, x.grad, rtol=2 ** -6, atol=1e-2)
 
 
 @pytest.mark.cuda
@@ -429,8 +541,8 @@ _TRAP = textwrap.dedent("""
     # Rank 0 alone: rank 1 never enters, so rank 0 waits at the barrier.
     alone = peer.PeerWindow(both.device, 2, [0], both.bases, both.slot_bytes,
                             [], [], False)
-    rk.SPIN_TIMEOUT_S = 0.5
-    rk.rs_ring(torch.ones(1, 2 * 512 * 4, device="cuda"), alone, "int8", 512)
+    rk.rs_ring(torch.ones(1, 2 * 512 * 4, device="cuda"), alone, "int8", 512,
+               timeout_s=0.5)
     try:
         torch.cuda.synchronize()
     except RuntimeError as e:
@@ -453,6 +565,7 @@ def test_a_spin_past_its_bound_traps():
 
 _WORLD = textwrap.dedent("""
     import sys
+    import time
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics
@@ -460,13 +573,26 @@ _WORLD = textwrap.dedent("""
     from horovod_tpu_torch.ops import ring_kernels as rk
 
     rank, n, store, backend = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    late = float(sys.argv[5])  # seconds the last rank arrives late
     hvd.init("cuda", init_method="file://" + store, rank=rank, size=n,
              timeout_s=100, backend=backend)
     try:
         g = torch.Generator(device="cuda").manual_seed(5)
         x = torch.randn(n, 300000, generator=g, device="cuda")
         r = torch.randn(n, 300000, generator=g, device="cuda") * 1e-3
+        if late:
+            # A first collective maps the peer windows (a host exchange
+            # on the process group); in the second the early rank's
+            # kernels spin on the card until the late rank's arrive.
+            tq.quantized_allreduce_ef(x[rank], r[rank], backend="fused")
+            torch.cuda.synchronize()
+            rk.rs_ring.launches = rk.ag_ring.launches = 0
+            if rank == n - 1:
+                time.sleep(late)
+        t0 = time.perf_counter()
         out, r_new = tq.quantized_allreduce_ef(x[rank], r[rank], backend="fused")
+        torch.cuda.synchronize()
+        print("WAITED", rank, time.perf_counter() - t0)
         assert (rk.rs_ring.launches, rk.ag_ring.launches) == (1, 1)
         assert metrics.get_counter("quant.fused_fallback") == 0
         # The plain versions over every rank's input.
@@ -500,8 +626,13 @@ def test_ring_dispatch_in_a_world_of_two(tmp_path, layout):
     if layout == "one card shared":
         env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     backend = "nccl" if layout == "two cards" else "gloo"
+    _run_world(root, env, tmp_path, backend, 0.0)
+
+
+def _run_world(root, env, tmp_path, backend, late):
+    """Run ``_WORLD`` on two ranks; their outputs."""
     procs = [subprocess.Popen([sys.executable, "-c", _WORLD, str(r), "2",
-                               str(tmp_path / "store"), backend],
+                               str(tmp_path / "store"), backend, str(late)],
                               cwd=root, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(2)]
@@ -514,3 +645,22 @@ def test_ring_dispatch_in_a_world_of_two(tmp_path, layout):
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RING OK {r}" in out, out
+    return outs
+
+
+@pytest.mark.cuda
+def test_ring_waits_for_a_late_peer(tmp_path):
+    """A peer 12 s late (past the 10 s bound the ring once had, within
+    the process group's 100 s timeout, which is now the spins' bound):
+    the early rank's kernels wait on the card and the collective ends
+    bitwise equal to the plain versions.  Two ranks share one card on
+    gloo."""
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, HVD_TPU_QUANT_BACKEND="fused")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(k, None)
+    env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    outs = _run_world(root, env, tmp_path, "gloo", 12.0)
+    waited = float(outs[0].split("WAITED 0 ")[1].split()[0])
+    assert waited > 10.0, outs[0]

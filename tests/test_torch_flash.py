@@ -89,6 +89,44 @@ def test_forward_reference_matches_jax(dtype, t, block, causal, packed):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+def test_forward_reference_matches_jax_at_the_kernel_tiles(dtype, block, causal, packed):
+    """The plain version against the JAX kernel at the key tiles of B2's
+    two routes (64: ``flash_forward_mma``; 128: ``flash_forward_wgmma``),
+    over two or four tiles, so that the card tests, which hold each route
+    to the plain version at its tile, hold it to the JAX kernel too.
+    XLA:CPU and PyTorch sum q·k in other orders, so over 256 keys a
+    score can move by a float32 ulp and round its bf16 p to the other
+    neighbour: bf16 outputs agree to 2^-7 of themselves + 2^-9 (the
+    card's ``FLASH_TOL``), and 99% of them exactly; float32 and lse as
+    above."""
+    jdt, tdt = _DT[dtype]
+    b, t, h, d = 2, 256, 2, 64
+    q, k, v = _qkv(b, t, h, d, seed=block)
+    seg = _segments(b, t, seed=t) if packed else None
+    scale = d ** -0.5
+    want_o, want_l = _flash_forward(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), causal, scale, block,
+        block, None if seg is None else jnp.asarray(seg),
+    )
+    got_o, got_l = flash.flash_forward_reference(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal, scale,
+        None if seg is None else torch.from_numpy(seg), block_k=block,
+    )
+    want_o = np.asarray(want_o, np.float32)
+    if dtype == "bfloat16":
+        got_o = got_o.float().numpy()
+        np.testing.assert_allclose(got_o, want_o, rtol=2 ** -7, atol=2 ** -9)
+        assert (got_o == want_o).mean() >= 0.99
+    else:
+        np.testing.assert_allclose(got_o.numpy(), want_o, rtol=0, atol=2e-6)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), rtol=0,
+                               atol=1e-6)
+
+
 def test_forward_on_cpu_takes_the_plain_version():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 40, 2, 16, seed=1))
     before = flash.flash_forward.launches

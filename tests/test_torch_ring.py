@@ -39,6 +39,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +55,7 @@ from horovod_tpu.ops import pallas_quant as jpq
 from horovod_tpu.ops import quantized as jq
 from horovod_tpu.runtime import WORLD_AXIS
 from horovod_tpu_torch import metrics as tmetrics
+from horovod_tpu_torch.ops import peer
 from horovod_tpu_torch.ops import quant_kernels as qk
 from horovod_tpu_torch.ops import quantized as tq
 from horovod_tpu_torch.ops import ring_kernels as rk
@@ -305,6 +307,88 @@ def test_world_of_one_counts_one_fallback_per_collective():
         thvd.shutdown()
     assert tmetrics.get_counter("quant.fused_fallback") == 2
     assert tmetrics.get_counter("quant.fused_collectives") == 0
+
+
+@pytest.mark.parametrize("n,want", [(16, "ring"), (17, None)])
+def test_dispatch_mode_falls_back_past_the_kernels_ranks(n, want):
+    """The kernels' pointer tables hold ``peer.MAX_RANKS`` (16) ranks; a
+    larger one-host world falls back, as ``_fused_mode`` falls back on
+    anything it cannot serve (``horovod_tpu/ops/quantized.py:157``)."""
+    assert peer.MAX_RANKS == 16
+    assert tq.dispatch_mode(n, 4096, True, True, True) == want
+
+
+@pytest.fixture
+def one_host_cards(monkeypatch):
+    """A CUDA world on one host whose cards reach each other, without a
+    card: the runtime ``dispatch`` asks is a stand-in."""
+    fake = types.SimpleNamespace(cross_size=1, peers_reach=True)
+    monkeypatch.setattr(tq.runtime, "get_runtime", lambda: fake)
+    return fake
+
+
+def test_dispatch_counts_the_fallback_past_the_kernels_ranks(one_host_cards):
+    tmetrics.reset("quant.")
+    cuda = torch.device("cuda")  # a device name: nothing is allocated
+    assert tq.dispatch(16, 512, 512, "int8", cuda, "fused") == "ring"
+    assert tmetrics.get_counter("quant.fused_collectives") == 1
+    assert tmetrics.get_counter("quant.fused_fallback") == 0
+    assert tq.dispatch(17, 512, 512, "int8", cuda, "fused") is None
+    assert tmetrics.get_counter("quant.fused_fallback") == 1
+    assert tmetrics.get_counter("quant.fused_collectives") == 1
+
+
+# ------------------------------------------------------------ spin bound
+
+
+@pytest.mark.parametrize("timeout_s", [37.5, 300.0])
+def test_spin_bound_is_the_process_groups_timeout(timeout_s):
+    import horovod_tpu_torch as thvd
+
+    thvd.init("cpu", timeout_s=timeout_s)
+    try:
+        assert thvd.runtime.get_runtime().timeout_s == timeout_s
+        assert rk.spin_timeout_s() == timeout_s
+    finally:
+        thvd.shutdown()
+    assert rk.spin_timeout_s() == thvd.runtime.DEFAULT_TIMEOUT_S == 300.0
+
+
+@pytest.mark.parametrize("which", ["rs_ring", "ag_ring"])
+def test_ring_launch_passes_the_process_groups_timeout(monkeypatch, which):
+    """The launch argument of each ring kernel is the runtime's timeout,
+    unless the caller passes its own bound: the kernels' C entry points
+    are replaced by a spy that records their arguments."""
+    import contextlib
+
+    import horovod_tpu_torch as thvd
+
+    seen = []
+
+    class _Lib:
+        def _spy(self, *args):
+            seen.append(args)
+            return 0
+        hvd_rs_ring = hvd_ag_ring = _spy
+
+    monkeypatch.setattr(rk, "_check", lambda *a: True)
+    monkeypatch.setattr(rk.peer, "library", lambda: _Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    window = types.SimpleNamespace(n=2, ranks=[0, 1], bases=[0, 0],
+                                   slot_bytes=1 << 20, next_epoch=lambda: 1)
+    fn = getattr(rk, which)
+    x = torch.ones(2, 2 * 64 if which == "rs_ring" else 64)
+    thvd.init("cpu", timeout_s=41.0)
+    try:
+        before = fn.launches
+        fn(x, window, "int8", 64)
+        fn(x, window, "int8", 64, timeout_s=0.5)
+        assert fn.launches == before + 2
+    finally:
+        thvd.shutdown()
+    assert [args[-2] for args in seen] == [41.0, 0.5]
 
 
 # --------------------------------------------------------- gloo worlds
