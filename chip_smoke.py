@@ -17,7 +17,8 @@ exits non-zero):
 3. kernel: B1 against its plain PyTorch version, bitwise, at the
    ResNet-50 bf16 wire's bucket sizes and at 1 / 127 / 65 537 elements,
    for f32->bf16, bf16->f32, bf16->bf16 at scale 1/3 and f32->f16 with
-   NaN, infinities, f16 overflow and subnormals; then B3 (int8 and fp8,
+   NaN, infinities, f16 overflow and subnormals, and at the smaller
+   bucket beside ``x.to``; then B3 (int8 and fp8,
    with and without the dequant), B4 (1, 2 and 4 arrivals) and B5,
    bitwise, at the int8 wire's padded bucket sizes and at a ragged size
    for blocks 64 / 128 / 512 / 96, with an all-zero, an inf, a NaN and a
@@ -27,11 +28,13 @@ exits non-zero):
    the quantized rings, bitwise against their plain versions on 2 and 4
    virtual ranks of the one card (every rank's blocks in one grid, the
    windows all on this card), at the 32 MiB plan's bucket sizes padded
-   to n·512 and at a ragged size for blocks 64 / 512 / 96, int8 and fp8,
-   with the special blocks; the times at world 4 on the largest bucket
-   beside the bound (this run's inputs and outputs over 3.35 TB/s: on
-   one card the "peer" stores stay in its memory) and, as the yardstick,
-   the B3 + B4 (B3 + B5) kernels of the NCCL lowering for the same ranks.
+   to n·512 and at a ragged size for blocks 64 / 512 / 96 / 36 / 33 (B7's
+   16-byte, 4-byte and byte paths), int8 and fp8, with the special
+   blocks; the times at world 4 on the largest bucket beside the bound
+   (this run's inputs and outputs over 3.35 TB/s: on one card the
+   "peer" stores stay in its memory) and, as the yardstick, the B3 + B4
+   (B3 + B5) kernels of the NCCL lowering for the same ranks; and B7's
+   per-block timeline (``ag_ring_trace``).
    Then B2, flash attention, each case on the route that serves its
    dtype and head dim, against its plain version at that route's key
    tile (``FLASH_TOL``): at the GPT slice's shape (B 16, T 1024, H 12,
@@ -68,7 +71,10 @@ exits non-zero):
    ranks, one per card, on NCCL, the stores crossing NVLink, and each
    bucket's exchange timed on the ring and on the NCCL lowering; with
    one card, two ranks sharing it on gloo (NCCL refuses two ranks on
-   one card), the stores staying on the card.
+   one card), the stores staying on the card.  In either, B6 (with the
+   dequant) and B7 bitwise against their plain versions on every rank
+   at the largest bucket and at blocks 96 / 36 / 33; across cards also
+   B7's timeline on rank 0.
 8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
@@ -84,9 +90,19 @@ exits non-zero):
 10. result: the card line, the kernels JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
+Every kernel time is given three ways (``split_ms``): the device time
+(``ms``: the calls queued behind a spin kernel that outlasts their
+issue, so the events bracket device work only), the host-paced time of
+earlier runs (``paced_ms``: events around back-to-back calls on an idle
+stream, the host's issue rate where that is slower) and the host's cost
+per call while the stream is busy (``host_ms``).  A device time below
+the host cost means the main path's calls of that kernel are paced by
+the host.
+
 ``--out PATH`` also writes every measurement as JSON.  ``--only ring``
 runs phases 1, 2 and 7 alone (the phase that needs more than one card,
-for a run on several) and prints no kernels line.
+for a run on several), ``--only kernel`` phases 1 to 3; neither prints a
+kernels line.
 """
 
 import argparse
@@ -136,7 +152,10 @@ ADAM_APART = 2 * 3 * 3e-4 * (1.004 + 1e-4) + 1e-6
 
 
 def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Host-paced time of ``fn``: CUDA events around ``iters``
+    back-to-back calls on an idle stream.  Where the host takes longer
+    to issue a call than the device takes to run it, this is the host's
+    issue rate, not the kernel's time."""
     import torch
 
     fn()
@@ -149,6 +168,67 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# A spin of torch.cuda._sleep(cycles) sized at this rate lasts at least
+# the seconds asked for: it is above the H100's highest SM clock (1.98
+# GHz), and a slower clock only lengthens the spin.
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
+def split_ms(fn, iters: int = 20, before_start=None, agree=None,
+             required: bool = True) -> dict:
+    """Three times per call of ``fn``, in ms:
+
+    - ``ms``, device time: a spin kernel (``torch.cuda._sleep``) is
+      queued first, long enough to outlast the host's issue of all
+      ``iters`` calls, so the CUDA events around the calls bracket
+      device work only;
+    - ``paced_ms``: :func:`time_ms`, the host-paced figure of earlier
+      runs;
+    - ``host_ms``: the host's time per call during that issue, against a
+      stream that is busy: the wrapper's own cost.
+
+    ``before_start`` is queued after the spin and before the first event
+    (the ring worker aligns its ranks there); ``agree`` turns this
+    rank's "the spin covered the issue" into every rank's.  If the spin
+    ends before the last call is issued, it is lengthened four-fold and
+    the run repeated; after four tries the device time is None, or the
+    check fails if ``required``."""
+    import torch
+
+    paced = time_ms(fn, iters)
+    sleep_s = 2e-3 + 2.0 * iters * paced / 1e3
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        if before_start is not None:
+            before_start()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_s = time.perf_counter() - t0
+        end.record()
+        covered = not start.query()
+        end.synchronize()
+        if agree is not None:
+            covered = agree(covered)
+        if covered:
+            return {"ms": start.elapsed_time(end) / iters, "paced_ms": paced,
+                    "host_ms": host_s / iters * 1e3}
+        sleep_s *= 4
+    if required:
+        fail(f"a {sleep_s / 4:.3f} s spin did not outlast the issue of {iters} calls")
+    return {"ms": None, "paced_ms": paced, "host_ms": host_s / iters * 1e3}
+
+
+def fmt_split(t: dict) -> str:
+    """``device X ms (host-paced Y ms, host Z ms per call)``."""
+    dev = "not measured" if t["ms"] is None else f"{t['ms']:.4f} ms"
+    return (f"device {dev} (host-paced {t['paced_ms']:.4f} ms, host "
+            f"{t['host_ms']:.4f} ms per call)")
 
 
 def bits(t):
@@ -202,24 +282,40 @@ def kernel_phase(kernels, sizes, log):
             max_err = max(max_err, finite_err(got, want))
         case_launches = kernels.scale_cast.launches - case_launches
         x = (torch.randn(largest, generator=g, device="cuda")).to(din)
-        ms = time_ms(lambda: kernels.scale_cast(x, scale, dout))
-        plain_ms = time_ms(lambda: kernels.scale_cast_reference(x, scale, dout))
+        kt = split_ms(lambda: kernels.scale_cast(x, scale, dout))
+        pt = split_ms(lambda: kernels.scale_cast_reference(x, scale, dout))
         if scale == 1.0:
-            lib_ms = time_ms(lambda: x.to(dout))
+            lt = split_ms(lambda: x.to(dout))
         else:
-            lib_ms = time_ms(lambda: x * scale)
+            lt = split_ms(lambda: x * scale)
+        ms, plain_ms, lib_ms = kt["ms"], pt["ms"], lt["ms"]
         nbytes = largest * (x.element_size() + torch.empty(0, dtype=dout).element_size())
         bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-        rec = {"case": name, "n": largest, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms, "bytes": nbytes}
+        rec = {"case": name, "n": largest, "ms": ms, "paced_ms": kt["paced_ms"],
+               "host_ms": kt["host_ms"], "plain_ms": plain_ms,
+               "plain_paced_ms": pt["paced_ms"], "library_ms": lib_ms,
+               "library_paced_ms": lt["paced_ms"], "library_host_ms": lt["host_ms"],
+               "bound_ms": bound_ms, "bytes": nbytes}
         log["kernel_cases"].append(rec)
         print(f"phase kernel: B1 {name} bitwise at n in {sorted(set(sizes) | {1, 127, 65537})}; "
-              f"n={largest}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_ms / ms:.1%} of bound); {case_launches} launches",
-              flush=True)
+              f"n={largest}: kernel {fmt_split(kt)}; plain {fmt_split(pt)}; "
+              f"library {fmt_split(lt)}; bound {bound_ms:.4f} ms "
+              f"(device time {bound_ms / ms:.1%} of bound, library's "
+              f"{bound_ms / lib_ms:.1%}); {case_launches} launches", flush=True)
         if name == "f32->bf16":
             record = rec
+    # The smallest bucket, where the wrapper's host cost weighs most.
+    small = min(sizes)
+    x = torch.randn(small, generator=g, device="cuda")
+    kt = split_ms(lambda: kernels.scale_cast(x, 1.0, torch.bfloat16))
+    lt = split_ms(lambda: x.to(torch.bfloat16))
+    log["kernel_cases"].append({"case": "f32->bf16 smallest bucket", "n": small,
+                                "ms": kt["ms"], "paced_ms": kt["paced_ms"],
+                                "host_ms": kt["host_ms"], "library_ms": lt["ms"],
+                                "library_paced_ms": lt["paced_ms"],
+                                "library_host_ms": lt["host_ms"]})
+    print(f"phase kernel: B1 f32->bf16 at the smallest bucket, n={small}: kernel "
+          f"{fmt_split(kt)}; library {fmt_split(lt)}", flush=True)
     compare_launches = kernels.scale_cast.launches - compare_launches
     print(f"phase kernel: {compare_launches} launches for comparison and timing "
           f"(not counted for the main path); max abs error {max_err}",
@@ -333,18 +429,21 @@ def quant_kernel_phase(qk, sizes, log):
     before = (qk.quant_packed.launches, qk.dequant_accum.launches,
               qk.dequant_rows.launches)
     for name, what, nbytes, kern, plain, lib in timings:
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain)
-        lib_ms = time_ms(lib) if lib is not None else None
+        kt, pt = split_ms(kern), split_ms(plain)
+        lt = split_ms(lib) if lib is not None else None
+        ms, plain_ms = kt["ms"], pt["ms"]
+        lib_ms = lt["ms"] if lt is not None else None
         bound_ms = nbytes / H100_BYTES_PER_S * 1e3
         rec = {"kernel": name, "case": what, "elements": v, "ms": ms,
+               "paced_ms": kt["paced_ms"], "host_ms": kt["host_ms"],
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bytes": nbytes}
         log["kernel_cases"].append(rec)
-        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        print(f"phase kernel: {what}, {v} elements: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB; {bound_ms / ms:.1%} of bound)", flush=True)
+        lib_txt = fmt_split(lt) if lt is not None else "none"
+        print(f"phase kernel: {what}, {v} elements: kernel {fmt_split(kt)}; plain "
+              f"{fmt_split(pt)}; library {lib_txt}; bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB; device time {bound_ms / ms:.1%} of bound)",
+              flush=True)
         if name not in records:
             records[name] = dict(rec, max_abs_err=max_err[name])
     after = (qk.quant_packed.launches, qk.dequant_accum.launches,
@@ -352,6 +451,35 @@ def quant_kernel_phase(qk, sizes, log):
     print(f"phase kernel: {[a - b for a, b in zip(after, before)]} B3/B4/B5 "
           "launches for timing (not counted for the main path)", flush=True)
     return records
+
+
+AG_TRACE_EVENTS = ("start", "quantized", "sent", "published", "own dequant",
+                   "first arrival", "end")
+
+
+def ag_ring_trace(peer, launch, ranks):
+    """B7's timeline (``hvd_ag_ring_trace``): per launched rank and per
+    event, the median and the largest time over the grid's blocks, in
+    us from the earliest block's start, in the last of five back-to-back
+    launches of ``launch``."""
+    import torch
+
+    lib = peer.library()
+    buf = torch.zeros(ranks, 2048, len(AG_TRACE_EVENTS), dtype=torch.int64, device="cuda")
+    lib.hvd_ag_ring_trace(buf.data_ptr())
+    try:
+        for _ in range(5):
+            launch()
+        torch.cuda.synchronize()
+    finally:
+        lib.hvd_ag_ring_trace(None)
+    out = []
+    for t in buf.cpu():
+        rows = t[t[:, 0] != 0].double()
+        rel = (rows - rows[:, 0].min()) / 1e3
+        out.append({ev: [round(float(rel[:, k].median()), 2), round(float(rel[:, k].max()), 2)]
+                    for k, ev in enumerate(AG_TRACE_EVENTS)} | {"blocks": rows.shape[0]})
+    return out
 
 
 def ring_input(n, cols, block, g):
@@ -385,7 +513,7 @@ def ring_kernel_phase(rk, peer, qk, sizes, log):
     for n in (2, 4):
         window = peer.PeerWindow.virtual(n)
         try:
-            cases = [(BLOCK, v) for v in sizes] + [(b, 65537) for b in (64, 512, 96)]
+            cases = [(BLOCK, v) for v in sizes] + [(b, 65537) for b in (64, 512, 96, 36, 33)]
             for block, v in cases:
                 c = -(-v // (n * block)) * block
                 for wire in ("int8", "fp8"):
@@ -448,22 +576,28 @@ def ring_kernel_phase(rk, peer, qk, sizes, log):
              lambda: rk.ag_ring_reference(acc, "int8", BLOCK), lowering_ag),
         ]
         for name, what, nbytes, kern, plain, lowering in timings:
-            ms = time_ms(kern)
-            plain_ms = time_ms(plain, iters=5)
-            low_ms = time_ms(lowering) if lowering is not None else None
+            kt, pt = split_ms(kern), split_ms(plain, iters=5)
+            lt = split_ms(lowering) if lowering is not None else None
+            ms, plain_ms = kt["ms"], pt["ms"]
+            low_ms = lt["ms"] if lt is not None else None
             bound_ms = nbytes / H100_BYTES_PER_S * 1e3
             rec = {"kernel": name, "case": what, "ranks": n, "elements": v, "chunk": c,
-                   "ms": ms, "plain_ms": plain_ms, "lowering_kernels_ms": low_ms,
+                   "ms": ms, "paced_ms": kt["paced_ms"], "host_ms": kt["host_ms"],
+                   "plain_ms": plain_ms, "lowering_kernels_ms": low_ms,
                    "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes",
                    "bytes": nbytes, "packed_chunk_bytes": packed}
             log["kernel_cases"].append(rec)
-            low_txt = f"{low_ms:.4f} ms" if low_ms is not None else "not timed"
+            low_txt = fmt_split(lt) if lt is not None else "not timed"
             print(f"phase kernel: {what}, {n} virtual ranks x {v} elements (c {c}): kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the NCCL lowering's kernels "
-                  f"{low_txt}, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB; "
-                  f"{bound_ms / ms:.1%} of bound)", flush=True)
+                  f"{fmt_split(kt)}; plain {fmt_split(pt)}; the NCCL lowering's kernels "
+                  f"{low_txt}; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB; "
+                  f"device time {bound_ms / ms:.1%} of bound)", flush=True)
             if name not in records:
                 records[name] = dict(rec, max_abs_err=max_err[name])
+        trace = ag_ring_trace(peer, lambda: rk.ag_ring(acc, window, "int8", BLOCK), n)
+        log["ag_ring_trace"] = trace
+        print(f"phase kernel: B7 timeline, {n} virtual ranks, rank 0 (us from the first "
+              f"block's start, median / largest over the blocks): {trace[0]}", flush=True)
     finally:
         window.close()
     after = (rk.rs_ring.launches, rk.ag_ring.launches)
@@ -595,6 +729,34 @@ def ring_worker(args) -> None:
         del model, opt
         torch.cuda.empty_cache()
 
+        # B6 and B7 bitwise against their plain versions in this world:
+        # every rank makes every rank's rows from one seed and launches its
+        # own; B7 gathers the plain B6 sums, so its inputs are known too.
+        # Blocks 512 and 96 take B7's 16-byte path, 36 its 4-byte path, 33
+        # the byte path.
+        window = peer.world_window(hvd.runtime.get_runtime())
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        held = []
+        for block, cols in ((BLOCK, max(buckets)), (96, 65537), (36, 65537), (33, 65537)):
+            c = -(-cols // (n * block)) * block
+            for wire in ("int8", "fp8"):
+                allx = ring_input(n, n * c, block, gen)
+                acc, deq = rk.rs_ring(allx[rank:rank + 1].contiguous(), window, wire,
+                                      block, True)
+                racc, rdeq = rk.rs_ring_reference(allx, wire, block, True)
+                out = rk.ag_ring(racc[rank:rank + 1].contiguous(), window, wire, block)
+                rout = rk.ag_ring_reference(racc, wire, block)
+                torch.cuda.synchronize()
+                for what, got, want in (("B6", acc[0], racc[rank]),
+                                        ("B6 dequant", deq[0], rdeq[rank]),
+                                        ("B7", out[0], rout[rank])):
+                    if not torch.equal(bits(got), bits(want)):
+                        raise SystemExit(f"rank {rank}: {what} {wire} block {block} c {c} "
+                                         "differs from the plain version")
+                held.append(f"{wire} {c}x{block}")
+                del allx, acc, deq, racc, rdeq, out, rout
+        torch.cuda.empty_cache()
+
         # Each bucket's exchange (reduce-scatter with error feedback, then
         # all-gather) on the ring and on the NCCL lowering, then B6 and B7
         # alone on the largest bucket.  Across cards only: on one shared
@@ -602,18 +764,22 @@ def ring_worker(args) -> None:
         exchange = {}
         kernel_ms = {}
         if args.ring_backend == "nccl":
-            def timed_ms(fn, iters=10):
+            token = torch.zeros(1, device=dev)
+
+            def align():  # queued after the spin: the ranks' streams meet here
+                dist.all_reduce(token)
+
+            def agree(covered):
+                flag = torch.tensor([1.0 if covered else 0.0], device=dev)
+                dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+                return bool(flag.item())
+
+            def timed(fn, iters, required=True):
                 fn()
                 torch.cuda.synchronize()
                 dist.barrier()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(iters):
-                    fn()
-                end.record()
-                end.synchronize()
-                return start.elapsed_time(end) / iters
+                return split_ms(fn, iters, before_start=align, agree=agree,
+                                required=required)
 
             gen = torch.Generator(device=dev).manual_seed(7 + rank)
             for v in buckets:
@@ -623,21 +789,24 @@ def ring_worker(args) -> None:
                         shard, _ = tq.quantized_reduce_scatter(e, tq.Sum, ef=True,
                                                                backend=backend)
                         tq.quantized_all_gather(shard, backend=backend)
-                    exchange.setdefault(backend, []).append(timed_ms(exchange_once))
+                    exchange.setdefault(backend, []).append(
+                        timed(exchange_once, 10, required=False))
             v = max(buckets)
             c = -(-v // (n * BLOCK)) * BLOCK
             window = peer.world_window(hvd.runtime.get_runtime())
             x = torch.randn(1, n * c, generator=gen, device=dev)
             shard = x[:, :c].contiguous()
-            kernel_ms["rs_ring"] = timed_ms(lambda: rk.rs_ring(x, window, "int8", BLOCK, True), 20)
-            kernel_ms["ag_ring"] = timed_ms(lambda: rk.ag_ring(shard, window, "int8", BLOCK), 20)
+            kernel_ms["rs_ring"] = timed(lambda: rk.rs_ring(x, window, "int8", BLOCK, True), 20)
+            kernel_ms["ag_ring"] = timed(lambda: rk.ag_ring(shard, window, "int8", BLOCK), 20)
             kernel_ms["chunk"] = c
+            kernel_ms["ag_ring_trace"] = ag_ring_trace(
+                peer, lambda: rk.ag_ring(shard, window, "int8", BLOCK), 1)[0]
         if rank == 0:
             with open(args.ring_out, "w") as f:
                 json.dump({"world": n, "backend": args.ring_backend, "buckets": buckets,
                            "losses": losses, "phase_first_loss": phase_losses[0],
                            "seconds": seconds, "launches": launches,
-                           "fallback": fallback, "digests": digests,
+                           "fallback": fallback, "digests": digests, "held": held,
                            "exchange_ms": exchange, "kernel_ms": kernel_ms}, f)
         if len(set(digests)) != 1:
             raise SystemExit(f"rank {rank}: ranks hold different weights: {digests}")
@@ -698,24 +867,31 @@ def ring_slice_phase(card, count, log):
           f"launches {rec['launches']} (= expected), no fallback; weights bitwise equal "
           f"on every rank; step {rec['step_ms']:.2f} ms, {rec['img_s']:.1f} img/s "
           f"(world) on {card}; {wall:.0f} s with start-up", flush=True)
+    print(f"phase slice ring: B6 (with the dequant) and B7 bitwise with their plain "
+          f"versions on every rank at world {n}: {rec['held']}", flush=True)
     if rec["exchange_ms"]:
         c = rec["kernel_ms"]["chunk"]
         packed = c // BLOCK * (BLOCK + 4)
         out_bytes = (n - 1) * packed
+        print(f"phase slice ring: ag_ring timeline at world {n}, rank 0 (us from its first "
+              f"block's start, median / largest over the blocks): "
+              f"{rec['kernel_ms']['ag_ring_trace']}", flush=True)
         for name, local in (("rs_ring", 4 * n * c * 2 + 4 * c + out_bytes),
                             ("ag_ring", 4 * c + 4 * n * c + out_bytes)):
             bound = max(local / H100_BYTES_PER_S, out_bytes / NVLINK_BYTES_PER_S) * 1e3
             by = "bytes" if local / H100_BYTES_PER_S >= out_bytes / NVLINK_BYTES_PER_S \
                 else "NVLink bytes"
             rec["kernel_ms"][name + "_bound_ms"] = bound
-            print(f"phase slice ring: {name} at world {n}, c {c}: {rec['kernel_ms'][name]:.4f} "
-                  f"ms per launch, bound {bound:.4f} ms by {by} ({local / 1e6:.1f} MB on "
-                  f"the card, {out_bytes / 1e6:.1f} MB out over NVLink)", flush=True)
+            t = rec["kernel_ms"][name]
+            print(f"phase slice ring: {name} at world {n}, c {c}: {fmt_split(t)} per "
+                  f"launch on rank 0; bound {bound:.4f} ms by {by} ({local / 1e6:.1f} MB on "
+                  f"the card, {out_bytes / 1e6:.1f} MB out over NVLink; device time "
+                  f"{bound / t['ms']:.1%} of bound)", flush=True)
         for v, ring, low in zip(rec["buckets"], rec["exchange_ms"]["fused"],
                                 rec["exchange_ms"]["phase"]):
-            print(f"phase slice ring: bucket {v} elements: exchange {ring:.4f} ms on the "
-                  f"ring, {low:.4f} ms on the NCCL lowering (B3 + all_to_all + B4, "
-                  f"B3 + all_gather + B5)", flush=True)
+            print(f"phase slice ring: bucket {v} elements: exchange on the ring "
+                  f"{fmt_split(ring)}; on the NCCL lowering (B3 + all_to_all + B4, "
+                  f"B3 + all_gather + B5) {fmt_split(low)}", flush=True)
     else:
         print("phase slice ring: the per-bucket exchange times and the NVLink bound "
               "need two or more cards; on one card B6 and B7 were held against their "
@@ -883,14 +1059,16 @@ def flash_phase(flash, segs, log):
                 (err_o > atol + rtol * want_o.float().abs()).any()) or err_l > lse_tol:
             fail(f"B2 {name} ({which}): out error {float(err_o.max())} (rtol {rtol}, "
                  f"atol {atol}), lse error {err_l} (atol {lse_tol})")
-        ms = time_ms(lambda: fn(q, k, v, causal, scale, seg))
-        plain_ms = time_ms(lambda: flash.flash_forward_reference(
+        ft = split_ms(lambda: fn(q, k, v, causal, scale, seg))
+        pt = split_ms(lambda: flash.flash_forward_reference(
             q, k, v, causal, scale, seg), iters=5)
-        lib_ms = None
+        ms, plain_ms = ft["ms"], pt["ms"]
+        lib_ms, lt = None, None
         if name == "causal dense":
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            lt = split_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
+            lib_ms = lt["ms"]
             del qt, kt, vt
         esize = q.element_size()
         nbytes = 4 * b * t * h * d * esize + 4 * b * h * t
@@ -902,18 +1080,19 @@ def flash_phase(flash, segs, log):
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         rec = {"kernel": "flash_fwd", "route": which, "case": name,
-               "shape": [b, t, h, d], "dtype": dname, "ms": ms, "plain_ms": plain_ms,
+               "shape": [b, t, h, d], "dtype": dname, "ms": ms,
+               "paced_ms": ft["paced_ms"], "host_ms": ft["host_ms"], "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "bytes": nbytes, "flops": flops, "max_abs_err": float(err_o.max()),
                "lse_err": err_l}
         log["kernel_cases"].append(rec)
         times[name] = ms
-        lib_txt = (f"{lib_ms:.4f} ms ({bound_ms / lib_ms:.1%} of bound)"
-                   if lib_ms is not None else "none")
+        lib_txt = (f"{fmt_split(lt)} ({bound_ms / lib_ms:.1%} of bound)"
+                   if lt is not None else "none")
         print(f"phase kernel: B2 {name} [{b},{t},{h},{d}] {dname}, {which} route: out "
               f"error {float(err_o.max()):.3g}, lse error {err_l:.3g} (within FLASH_TOL); "
-              f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of bound), plain "
-              f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms by "
+              f"kernel {fmt_split(ft)} ({bound_ms / ms:.1%} of bound); plain "
+              f"{fmt_split(pt)}; library {lib_txt}; bound {bound_ms:.4f} ms by "
               f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)", flush=True)
         if name == "causal dense":
             record = rec
@@ -1039,8 +1218,9 @@ def reference_gpt_phase(hvd, tt, build_lm_step):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
-    ap.add_argument("--only", choices=["ring"],
-                    help="run only the phases that need more than one card")
+    ap.add_argument("--only", choices=["ring", "kernel"],
+                    help="ring: only the phases that need more than one card; "
+                         "kernel: only the kernels against their plain versions")
     for name, kind in (("rank", int), ("size", int), ("backend", str), ("store", str),
                        ("out", str)):
         ap.add_argument(f"--ring-{name}", type=kind, help=argparse.SUPPRESS)
@@ -1132,6 +1312,9 @@ def main() -> None:
     tok_np, seg_np = packed_lm_batch(GPT_BATCH, GPT_SEQ, GPT_VOCAB)
     packed_batch = (torch.from_numpy(tok_np).cuda(), torch.from_numpy(seg_np).cuda())
     frecord = flash_phase(flash, packed_batch[1], log)
+    if args.only == "kernel":
+        finish(args, log, card, kind, count, [])
+        return
 
     # Phases 4 and 5: the slice on each wire, through the entry points a
     # user calls; the counts are set to 0 before each run.
@@ -1198,6 +1381,8 @@ def finish(args, log, card, kind, count, entries) -> None:
         "launches": run["launches"][name],
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"],
+        "paced_ms": rec["paced_ms"],
+        "host_ms": rec["host_ms"],
         "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"],
         "bound_by": rec.get("bound_by", "bytes"),

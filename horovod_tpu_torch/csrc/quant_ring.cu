@@ -39,6 +39,12 @@
 // float4 per lane, and written once.  The packed payload is 1/4 of the
 // float32 bytes, so the kernel moves about the bytes B3 + B4 move, in
 // one launch, without the all-to-all's own pass over device memory.
+// B7 goes further (its section below): its slots keep the q bytes apart
+// from the scales, so a lane stores 16 bytes into each peer and a warp
+// whole lines; it does not wait at the entry barrier, which its epochs
+// make redundant; a block publishes its stripe to every peer after one
+// system fence and stores its own dequant only after that; it
+// dequantizes the arrivals in the order they land.
 //
 // Synchronisation.  Each rank's window (ops/peer.py allocates it, CUDA
 // IPC maps it into the peers) holds two epoch-parity sets of n - 1
@@ -48,7 +54,9 @@
 // stores the epoch into its barrier word at every peer and every block
 // waits until all peers have entered (the TPU kernel's barrier
 // semaphore, :378-385): a peer that entered this launch has finished
-// the previous one, so no slot is overwritten while it is read.  A
+// the previous one, so no slot is overwritten while it is read.  (B7
+// announces itself but does not wait: the previous launch already
+// proves what it needs; ag_ring_kernel says how.)  A
 // sender's block fences its stores to system scope and then stores the
 // epoch into the flag of its stripe at the receiver with st.release.sys;
 // the receiver's block spins on ld.acquire.sys and reads the slot
@@ -98,6 +106,7 @@ struct RingArgs {
   int n, rank0, block;
   unsigned epoch;
   float inv_qmax;
+  unsigned long long* trace;  // B7: kTraceEvents timestamps per block, or null
 };
 
 __device__ __forceinline__ uint8_t* slot(const RingArgs& a, int r, int parity, int hop) {
@@ -148,15 +157,20 @@ __device__ void wait_epoch(const unsigned* p, const RingArgs& a, unsigned long l
   }
 }
 
-// Block 0 announces this rank at every peer; every block waits until
-// every peer has entered.  Ends with a __syncthreads().
-__device__ void enter(const RingArgs& a, int my, unsigned long long deadline,
-                      const char* kernel) {
+// Block 0 announces this rank at every peer.
+__device__ __forceinline__ void announce(const RingArgs& a, int my) {
   const int t = threadIdx.x;
   if (blockIdx.x == 0 && t >= 1 && t < a.n) {
     store_release(barrier(a, (my + t) % a.n) + my, a.epoch);
   }
-  if (t == 0) {
+}
+
+// Block 0 announces this rank at every peer; every block waits until
+// every peer has entered.  Ends with a __syncthreads().
+__device__ void enter(const RingArgs& a, int my, unsigned long long deadline,
+                      const char* kernel) {
+  announce(a, my);
+  if (threadIdx.x == 0) {
     for (int h = 1; h < a.n; ++h) {
       const int p = (my + a.n - h) % a.n;
       wait_epoch(barrier(a, my) + p, a, deadline, kernel, "the barrier of rank", my, p);
@@ -262,55 +276,304 @@ rs_ring_kernel(const __grid_constant__ RingArgs a) {
   }
 }
 
-// B7.  VEC: block % 4 == 0 and x / out 16-byte aligned.
-template <int W, bool VEC>
+// B7's trace: thread 0 of each block stores %globaltimer at these points
+// into trace[((rank - rank0) * kMaxStripes + blockIdx.x) * kTraceEvents].
+constexpr int kTraceEvents = 7;
+enum TraceEvent { kStart, kQuantized, kSent, kPublished, kOwn, kFirstArrival, kEnd };
+
+__device__ __forceinline__ void trace_event(const RingArgs& a, int my, int event) {
+  if (a.trace != nullptr && threadIdx.x == 0) {
+    a.trace[((my - a.rank0) * static_cast<long long>(kMaxStripes) + blockIdx.x) * kTraceEvents +
+            event] = now_ns();
+  }
+}
+
+// ------------------------------------------------------------------ B7
+//
+// B7's receive slots have a layout of their own (B6's keep the packed
+// rows): the stripe's q bytes first, block b's at byte b * block, then
+// the nb float32 scales, block b's at byte nb * block + 4 * b.  The slot
+// still takes nb * (block + 4) bytes.  On the 16-byte path (block % 16 ==
+// 0, block <= 512; L = block / 16 lanes per block) the q bytes of a block
+// are in lane order: 16-byte word l holds the q words of the block's
+// float4s l, l + L, l + 2L and l + 3L.  A warp then reads x, stores into
+// a peer's slot, reads its own slot and stores out in whole contiguous
+// 128-byte lines, 512 bytes per instruction at block 512.
+
+constexpr int kPath16 = 16;   // block % 16 == 0, block <= 512, tensors 16-byte aligned
+constexpr int kPath4 = 4;     // block % 4 == 0, tensors 16-byte aligned
+constexpr int kPath1 = 1;     // anything else: byte by byte
+constexpr int kAgBatch = 4;   // arrivals whose loads a lane issues before its stores
+
+// The scale of a block from its amax and non-finiteness, on every lane:
+// warp_block_scale's reduction, for values the caller already holds.
+__device__ __forceinline__ BlockScale warp_scale(float amax, bool bad, float inv_qmax) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+  bad = __any_sync(kFull, bad);
+  const float cand = __fmul_rn(amax, inv_qmax);
+  const float safe = (!bad && cand > 0.0f) ? cand : 1.0f;
+  return {safe, bad ? __uint_as_float(kNaN) : safe, bad};
+}
+
+// 16-byte path: one warp reads block xb into registers (lane l < L: the
+// float4s l + k * L) and returns lane l's q word and the block's scale.
+template <int W>
+__device__ __forceinline__ void quant16(const float* xb, int block, float inv_qmax, int lane,
+                                        uint4& q, float& scale) {
+  const int L = block / 16;
+  float4 v[4];
+  float amax = 0.0f;
+  bool bad = false;
+  if (lane < L) {
+    const float4* x4 = reinterpret_cast<const float4*>(xb);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = x4[lane + k * L];
+      observe(v[k].x, amax, bad); observe(v[k].y, amax, bad);
+      observe(v[k].z, amax, bad); observe(v[k].w, amax, bad);
+    }
+  }
+  const BlockScale bs = warp_scale(amax, bad, inv_qmax);
+  scale = bs.scale;
+  if (lane < L) {
+    float4 unused;
+    q = make_uint4(quant_word<W>(v[0], bs, unused), quant_word<W>(v[1], bs, unused),
+                   quant_word<W>(v[2], bs, unused), quant_word<W>(v[3], bs, unused));
+  }
+}
+
+// 16-byte path: lane l's dequant of a q word into block ob.
+template <int W>
+__device__ __forceinline__ void dequant16(float* ob, int block, int lane, uint4 q, float s) {
+  const int L = block / 16;
+  if (lane < L) {
+    float4* o = reinterpret_cast<float4*>(ob);
+    o[lane] = dequant_word<W>(q.x, s);
+    o[lane + L] = dequant_word<W>(q.y, s);
+    o[lane + 2 * L] = dequant_word<W>(q.z, s);
+    o[lane + 3 * L] = dequant_word<W>(q.w, s);
+  }
+}
+
+// Block b of this rank's shard into every peer's slot for this source.
+// The 16-byte path stores the q word the caller quantized; the other
+// paths quantize here (reading x twice, as B3 does) and also store the
+// own dequant.
+template <int W, int PATH>
+__device__ __forceinline__ void send_block(const RingArgs& a, int my, int parity, long long b,
+                                           int lane, uint4 q, float scale, const float* xb,
+                                           float* own) {
+  const int n = a.n;
+  const int block = a.block;
+  const long long qoff = b * block;
+  const long long soff = a.nb * block + 4 * b;
+  if (PATH == kPath16) {
+    if (lane < block / 16) {
+      for (int t = 1; t < n; ++t) {
+        uint8_t* dst = slot(a, (my + t) % n, parity, t);
+        *reinterpret_cast<uint4*>(dst + qoff + 16 * lane) = q;
+      }
+    }
+    if (lane == 0) {
+      for (int t = 1; t < n; ++t) {
+        *reinterpret_cast<float*>(slot(a, (my + t) % n, parity, t) + soff) = scale;
+      }
+    }
+  } else if (PATH == kPath4) {
+    const BlockScale bs = warp_block_scale<true>(xb, block, a.inv_qmax, lane);
+    const float4* x4 = reinterpret_cast<const float4*>(xb);
+    for (int g = lane; g < block / 4; g += 32) {
+      float4 d;
+      const uint32_t w = quant_word<W>(x4[g], bs, d);
+      for (int t = 1; t < n; ++t) {
+        reinterpret_cast<uint32_t*>(slot(a, (my + t) % n, parity, t) + qoff)[g] = w;
+      }
+      reinterpret_cast<float4*>(own)[g] = d;
+    }
+    if (lane == 0) {
+      for (int t = 1; t < n; ++t) {
+        *reinterpret_cast<float*>(slot(a, (my + t) % n, parity, t) + soff) = bs.scale;
+      }
+    }
+  } else {
+    const BlockScale bs = warp_block_scale<false>(xb, block, a.inv_qmax, lane);
+    for (int i = lane; i < block; i += 32) {
+      const uint32_t v = bs.bad ? 0u : quantize<W>(xb[i], bs.safe);
+      for (int t = 1; t < n; ++t) slot(a, (my + t) % n, parity, t)[qoff + i] = static_cast<uint8_t>(v);
+      own[i] = dequant<W>(v, bs.scale);
+    }
+    if (lane < 4) {  // the scale's bytes: nb * block need not be 4-aligned here
+      const uint8_t byte = static_cast<uint8_t>(__float_as_uint(bs.scale) >> (8 * lane));
+      for (int t = 1; t < n; ++t) slot(a, (my + t) % n, parity, t)[soff + lane] = byte;
+    }
+  }
+}
+
+// After this block's stores into every peer: make them visible at
+// system scope once, then raise the n - 1 flags of this stripe at once.
+__device__ __forceinline__ void publish_all(const RingArgs& a, int my, int parity) {
+  __threadfence_system();
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t >= 1 && t < a.n) store_release(flag(a, (my + t) % a.n, parity, t, blockIdx.x), a.epoch);
+}
+
+// Wait until at least one arrival of this stripe not in `done` has
+// landed; returns every such arrival that has (bit h: slot h), on every
+// thread.  Ends with a __syncthreads().
+__device__ unsigned await_any(const RingArgs& a, int my, int parity, unsigned done,
+                              unsigned long long deadline, unsigned* ready_smem) {
+  if (threadIdx.x == 0) {
+    unsigned ready = 0;
+    for (;;) {
+      for (int h = 1; h < a.n; ++h) {
+        if (!((done >> h) & 1u) &&
+            static_cast<int>(load_acquire(flag(a, my, parity, h, blockIdx.x)) - a.epoch) >= 0) {
+          ready |= 1u << h;
+        }
+      }
+      if (ready) break;
+      if (now_ns() > deadline) {
+        const int h = __ffs(~done & ~1u) - 1;
+        printf("ag_ring: rank %d block %d timed out after %llu ns waiting for the slot of "
+               "hop %d (epoch %u, flag holds %u)\n", my, static_cast<int>(blockIdx.x),
+               a.timeout_ns, h, a.epoch, load_acquire(flag(a, my, parity, h, blockIdx.x)));
+        __trap();
+      }
+      __nanosleep(32);
+    }
+    __threadfence();
+    *ready_smem = ready;
+  }
+  __syncthreads();
+  return *ready_smem;
+}
+
+// Dequantize block b of the arrivals in `ready` into out[src].
+template <int W, int PATH>
+__device__ __forceinline__ void receive_block(const RingArgs& a, int my, int parity,
+                                              unsigned ready, long long b, int lane,
+                                              float* out) {
+  const int n = a.n;
+  const int block = a.block;
+  const long long chunk = a.nb * block;
+  const long long qoff = b * block;
+  const long long soff = a.nb * block + 4 * b;
+  if (PATH == kPath16) {
+    // Up to kAgBatch arrivals at a time: every load, then every store.
+    while (ready) {
+      int hop[kAgBatch];
+      uint4 q[kAgBatch];
+      float s[kAgBatch];
+#pragma unroll
+      for (int k = 0; k < kAgBatch; ++k) {
+        hop[k] = 0;
+        if (ready) {
+          hop[k] = __ffs(ready) - 1;
+          ready &= ready - 1;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kAgBatch; ++k) {
+        if (hop[k] && lane < block / 16) {
+          const uint8_t* r = slot(a, my, parity, hop[k]);
+          q[k] = __ldcg(reinterpret_cast<const uint4*>(r + qoff) + lane);
+          s[k] = __uint_as_float(__ldcg(reinterpret_cast<const unsigned*>(r + soff)));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kAgBatch; ++k) {
+        if (hop[k]) {
+          const int src = (my + n - hop[k]) % n;
+          dequant16<W>(out + src * chunk + qoff, block, lane, q[k], s[k]);
+        }
+      }
+    }
+  } else {
+    for (; ready; ready &= ready - 1) {
+      const int h = __ffs(ready) - 1;
+      const uint8_t* r = slot(a, my, parity, h);
+      float* ob = out + ((my + n - h) % n) * chunk + qoff;
+      if (PATH == kPath4) {
+        const float s = __uint_as_float(__ldcg(reinterpret_cast<const unsigned*>(r + soff)));
+        for (int g = lane; g < block / 4; g += 32) {
+          const uint32_t w = __ldcg(reinterpret_cast<const unsigned*>(r + qoff) + g);
+          reinterpret_cast<float4*>(ob)[g] = dequant_word<W>(w, s);
+        }
+      } else {
+        uint32_t bits = 0;
+        for (int k = 0; k < 4; ++k) bits |= static_cast<uint32_t>(__ldcg(r + soff + k)) << (8 * k);
+        const float s = __uint_as_float(bits);
+        for (int i = lane; i < block; i += 32) ob[i] = dequant<W>(__ldcg(r + qoff + i), s);
+      }
+    }
+  }
+}
+
+// B7.  Warp w of a block takes blocks lo + w, lo + w + kWarps, ... of the
+// block's stripe.  On the 16-byte path the warp's first block is read
+// and quantized into registers before anything else, and its own
+// dequant is stored only after the stripe's flags are up, so the fence
+// waits for the peer stores alone.  The arrivals are dequantized in the
+// order they land.
+//
+// B7 does not wait at the entry barrier; it needs no wait.  Launch e
+// stores into the peers' slots and flags of parity e & 1, which only
+// launch e - 2 used.
+// Launch e - 1 on this card, B6 or B7, ended after it had taken every
+// peer's arrivals of epoch e - 1, so every peer had started launch e - 1
+// and had therefore ended launch e - 2, reads of those slots included.
+// Launches 1 and 2 store into slots no launch has used.  It still
+// announces itself, so B6's barrier reads every epoch.
+template <int W, int PATH>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ag_ring_kernel(const __grid_constant__ RingArgs a) {
-  const int n = a.n;
+  __shared__ unsigned ready_smem;
   const int my = a.rank0 + static_cast<int>(blockIdx.y);
   const unsigned long long deadline = now_ns() + a.timeout_ns;
   const int parity = static_cast<int>(a.epoch & 1u);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int block = a.block;
-  const long long row = block + 4;
   const long long chunk = a.nb * block;
   const long long lo = a.nb * blockIdx.x / gridDim.x;
   const long long hi = a.nb * (blockIdx.x + 1) / gridDim.x;
-  float* out = a.out[my];
-  enter(a, my, deadline, "ag_ring");
+  const float* x = a.x[my];
+  float* own = a.out[my] + my * chunk;
+  const long long b0 = lo + warp;
 
-  // Quantize the shard once; its row goes to slot t of rank (my + t) % n
-  // for every t, its dequant to out[my].
-  for (long long b = lo + warp; b < hi; b += kWarps) {
-    const long long off = b * row;
-    warp_quant_block<W, VEC>(
-        a.x[my] + b * block, block, a.inv_qmax, lane, n - 1,
-        [&a, my, parity, off](int k) { return slot(a, (my + k + 1) % a.n, parity, k + 1) + off; },
-        out + my * chunk + b * block);
-  }
-  for (int t = 1; t < n; ++t) {
-    publish(a, (my + t) % n, parity, t);
-  }
+  trace_event(a, my, kStart);
+  announce(a, my);
+  uint4 q0 = make_uint4(0u, 0u, 0u, 0u);
+  float s0 = 0.0f;
+  if (PATH == kPath16 && b0 < hi) quant16<W>(x + b0 * block, block, a.inv_qmax, lane, q0, s0);
+  trace_event(a, my, kQuantized);
 
-  await_arrivals(a, my, parity, deadline, "ag_ring");
-  for (int t = 1; t < n; ++t) {
-    const int src = (my + n - t) % n;
-    const uint8_t* base = slot(a, my, parity, t);
-    for (long long b = lo + warp; b < hi; b += kWarps) {
-      const uint8_t* r = base + b * row;
-      float* ob = out + src * chunk + b * block;
-      const float s = slot_scale(r, block, VEC);
-      if (VEC) {
-        for (int g = lane; g < block / 4; g += 32) {
-          const uint32_t w = __ldcg(reinterpret_cast<const unsigned*>(r) + g);
-          reinterpret_cast<float4*>(ob)[g] = dequant_word<W>(w, s);
-        }
-      } else {
-        for (int i = lane; i < block; i += 32) ob[i] = dequant<W>(__ldcg(r + i), s);
-      }
+  for (long long b = b0; b < hi; b += kWarps) {
+    uint4 q = q0;
+    float s = s0;
+    if (PATH == kPath16 && b != b0) quant16<W>(x + b * block, block, a.inv_qmax, lane, q, s);
+    send_block<W, PATH>(a, my, parity, b, lane, q, s, x + b * block, own + b * block);
+    if (PATH == kPath16 && b != b0) dequant16<W>(own + b * block, block, lane, q, s);
+  }
+  trace_event(a, my, kSent);
+  publish_all(a, my, parity);
+  trace_event(a, my, kPublished);
+  if (PATH == kPath16 && b0 < hi) dequant16<W>(own + b0 * block, block, lane, q0, s0);
+  trace_event(a, my, kOwn);
+
+  const unsigned all = ((1u << a.n) - 1u) & ~1u;
+  for (unsigned done = 0; done != all;) {
+    const unsigned ready = await_any(a, my, parity, done, deadline, &ready_smem);
+    if (done == 0) trace_event(a, my, kFirstArrival);
+    for (long long b = b0; b < hi; b += kWarps) {
+      receive_block<W, PATH>(a, my, parity, ready, b, lane, a.out[my]);
     }
+    done |= ready;
+    __syncthreads();  // every thread has read ready_smem before it is rewritten
   }
+  trace_event(a, my, kEnd);
 }
 
 int sm_count(int* sms) {
@@ -323,6 +586,9 @@ int sm_count(int* sms) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 long long round_up(long long v, long long m) { return (v + m - 1) / m * m; }
+
+// B7's trace buffer for later launches (hvd_ag_ring_trace), or null.
+unsigned long long* g_ag_trace = nullptr;
 
 int launch(const void* kernel, RingArgs& a, int ranks, void* stream) {
   int sms = 0;
@@ -393,9 +659,10 @@ const void* rs_kernel(bool deq, bool vec) {
 }
 
 template <int W>
-const void* ag_kernel(bool vec) {
-  return vec ? reinterpret_cast<const void*>(ag_ring_kernel<W, true>)
-             : reinterpret_cast<const void*>(ag_ring_kernel<W, false>);
+const void* ag_kernel(int path) {
+  if (path == kPath16) return reinterpret_cast<const void*>(ag_ring_kernel<W, kPath16>);
+  if (path == kPath4) return reinterpret_cast<const void*>(ag_ring_kernel<W, kPath4>);
+  return reinterpret_cast<const void*>(ag_ring_kernel<W, kPath1>);
 }
 
 }  // namespace
@@ -477,11 +744,22 @@ extern "C" int hvd_ag_ring(void* const* x, void* const* out, void* const* win, i
   int e = make_args(a, x, out, nullptr, win, n, rank0, ranks, nb, block, inv_qmax, epoch,
                     slot_bytes, timeout_s);
   if (e != 0) return e;
-  const bool vec = block % 4 == 0 && all_aligned(a, rank0, ranks, false);
+  a.trace = g_ag_trace;
+  int path = kPath1;
+  if (block % 4 == 0 && all_aligned(a, rank0, ranks, false)) {
+    path = (block % 16 == 0 && block <= 512) ? kPath16 : kPath4;
+  }
   const void* k;
-  if (wire == kInt8) k = ag_kernel<kInt8>(vec);
-  else if (wire == kFp8) k = ag_kernel<kFp8>(vec);
+  if (wire == kInt8) k = ag_kernel<kInt8>(path);
+  else if (wire == kFp8) k = ag_kernel<kFp8>(path);
   else return static_cast<int>(cudaErrorInvalidValue);
   e = launch(k, a, ranks, stream);
   return e != 0 ? e : static_cast<int>(cudaGetLastError());
+}
+
+// B7's trace buffer for later launches: `buf` holds kTraceEvents uint64
+// for each of kMaxStripes (2048) blocks of each launched rank; null
+// turns the trace off.
+extern "C" void hvd_ag_ring_trace(void* buf) {
+  g_ag_trace = static_cast<unsigned long long*>(buf);
 }

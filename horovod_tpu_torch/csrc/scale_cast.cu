@@ -11,18 +11,35 @@
 // Bound: memory.  Each element is read once and written once, with one
 // multiply and one conversion in between, so the least time is
 // (in + out bytes) / 3.35 TB/s on an H100 SXM.  The down-cast of
-// ResNet-50's ~102 MB of f32 gradients to bf16 moves ~153 MB: about 46 us.
+// ResNet-50's 16,489,448-element bucket moves ~99 MB: about 30 us.
 //
 // Design against that bound.  The TPU kernel pads the buffer to 512x128
 // tiles and copies it into the padded layout; here there is no padding
-// and no extra copy: one pass, a grid-stride loop over 8-element groups
-// moved with 16-byte vector loads and stores (two per group on the f32
-// side), and a scalar tail for the last n % 8 elements.  Buffers that are
-// not 16-byte aligned take the scalar loop throughout.  The scale is a
-// kernel argument (the TPU kernel kept it in SMEM).  Conversions use the
-// round-to-nearest-even intrinsics, which compile to the same cvt.rn
-// instructions PyTorch's own casts use on sm_90, so NaN, infinities,
-// overflow and subnormals come out as torch.Tensor.to gives them.
+// and no extra copy, one pass over the buffer:
+// - A unit is 4 elements when either side is float32 (16 bytes of it),
+//   else 8 (16 bytes of a 2-byte type).  Lane l of a warp takes unit
+//   base + l, so every warp-wide load and store covers 32 consecutive
+//   units: 512 contiguous bytes on a 16-byte side, 256 on the 2-byte
+//   side of a cast to or from float32 (8 bytes a lane; whole 128-byte
+//   lines all the same; a cross-lane shuffle to make them 16 would cost
+//   one shuffle per element).
+// - A thread issues the loads of kUnroll units (kUnroll * 16 bytes)
+//   before the first of their stores.
+// - Every block takes one round of kThreads * kUnroll units, and the
+//   grid has as many blocks as that takes: the hardware hands a finished
+//   SM its next block.  A grid of one wave with equal spans per block,
+//   and one wave striding by rounds, were both slower in same-run
+//   measurements on the H100 (PERF.md §6).
+// - Loads bypass L1 and stores stream (ld.global.nc.L1::no_allocate,
+//   st.global.cs): 1-3% faster than plain loads and stores in same-run
+//   measurements (PERF.md §6).
+// - The last n % unit elements, and buffers that are not 16-byte
+//   aligned, take a scalar loop.
+// The scale is a kernel argument (the TPU kernel kept it in SMEM).
+// Conversions use the round-to-nearest-even intrinsics, which compile to
+// the same cvt.rn instructions PyTorch's own casts use on sm_90, so NaN,
+// infinities, overflow and subnormals come out as torch.Tensor.to gives
+// them.
 //
 // Plain C interface, loaded with ctypes (horovod_tpu_torch/ops/kernels.py).
 
@@ -38,8 +55,8 @@ constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kF16 = 2;
 
-constexpr int kVec = 8;        // elements per vector group
 constexpr int kThreads = 256;  // threads per block
+constexpr int kUnroll = 4;     // units in flight per thread
 
 template <int K> struct Bits;
 template <> struct Bits<kF32> { using T = uint32_t; };
@@ -68,89 +85,116 @@ template <> __device__ __forceinline__ uint16_t from_f32<kF16>(float f) {
   return __half_as_ushort(__float2half_rn(f));
 }
 
-// One group of kVec elements as floats: two uint4 loads for 4-byte types,
-// one for 2-byte types.  Little-endian: the low half of a 32-bit word is
-// the lower-addressed element.
-template <int K> __device__ __forceinline__ void load_group(const void* p, int64_t g, float f[kVec]);
-template <> __device__ __forceinline__ void load_group<kF32>(const void* p, int64_t g, float f[kVec]) {
-  const uint4* q = reinterpret_cast<const uint4*>(p) + 2 * g;
-  const uint4 a = q[0];
-  const uint4 b = q[1];
-  f[0] = __uint_as_float(a.x); f[1] = __uint_as_float(a.y);
-  f[2] = __uint_as_float(a.z); f[3] = __uint_as_float(a.w);
-  f[4] = __uint_as_float(b.x); f[5] = __uint_as_float(b.y);
-  f[6] = __uint_as_float(b.z); f[7] = __uint_as_float(b.w);
-}
-template <int K> __device__ __forceinline__ void unpack_halves(const uint4 a, float f[kVec]) {
-  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = to_f32<K>(static_cast<uint16_t>(w[j] & 0xffffu));
-    f[2 * j + 1] = to_f32<K>(static_cast<uint16_t>(w[j] >> 16));
+// Elements per unit, and the bytes of a unit on each side.
+template <int KI, int KO> struct Unit {
+  static constexpr int kElems = (KI == kF32 || KO == kF32) ? 4 : 8;
+  static constexpr int kInWords = kElems * sizeof(typename Bits<KI>::T) / 4;
+  static constexpr int kOutWords = kElems * sizeof(typename Bits<KO>::T) / 4;
+};
+
+// A unit's 32-bit words: 4 (16 bytes) or 2 (8 bytes).
+template <int W> struct Words { uint32_t w[W]; };
+
+// Loads bypass L1 (ld.global.nc.L1::no_allocate) and stores stream
+// (st.global.cs): each byte is touched once.
+template <int W>
+__device__ __forceinline__ Words<W> load_words(const void* p, long long unit) {
+  Words<W> r;
+  if constexpr (W == 4) {
+    const uint4* q = reinterpret_cast<const uint4*>(p) + unit;
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]) : "l"(q));
+  } else {
+    const uint2* q = reinterpret_cast<const uint2*>(p) + unit;
+    asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+        : "=r"(r.w[0]), "=r"(r.w[1]) : "l"(q));
   }
-}
-template <> __device__ __forceinline__ void load_group<kBF16>(const void* p, int64_t g, float f[kVec]) {
-  unpack_halves<kBF16>(reinterpret_cast<const uint4*>(p)[g], f);
-}
-template <> __device__ __forceinline__ void load_group<kF16>(const void* p, int64_t g, float f[kVec]) {
-  unpack_halves<kF16>(reinterpret_cast<const uint4*>(p)[g], f);
+  return r;
 }
 
-template <int K> __device__ __forceinline__ void store_group(void* p, int64_t g, const float f[kVec]);
-template <> __device__ __forceinline__ void store_group<kF32>(void* p, int64_t g, const float f[kVec]) {
-  uint4* q = reinterpret_cast<uint4*>(p) + 2 * g;
-  q[0] = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-  q[1] = make_uint4(__float_as_uint(f[4]), __float_as_uint(f[5]),
-                    __float_as_uint(f[6]), __float_as_uint(f[7]));
-}
-template <int K> __device__ __forceinline__ uint4 pack_halves(const float f[kVec]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    w[j] = static_cast<uint32_t>(from_f32<K>(f[2 * j])) |
-           (static_cast<uint32_t>(from_f32<K>(f[2 * j + 1])) << 16);
+template <int W>
+__device__ __forceinline__ void store_words(void* p, long long unit, const Words<W>& r) {
+  if constexpr (W == 4) {
+    uint4* q = reinterpret_cast<uint4*>(p) + unit;
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(q), "r"(r.w[0]), "r"(r.w[1]), "r"(r.w[2]), "r"(r.w[3]) : "memory");
+  } else {
+    uint2* q = reinterpret_cast<uint2*>(p) + unit;
+    asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};"
+                 :: "l"(q), "r"(r.w[0]), "r"(r.w[1]) : "memory");
   }
-  return make_uint4(w[0], w[1], w[2], w[3]);
 }
-template <> __device__ __forceinline__ void store_group<kBF16>(void* p, int64_t g, const float f[kVec]) {
-  reinterpret_cast<uint4*>(p)[g] = pack_halves<kBF16>(f);
-}
-template <> __device__ __forceinline__ void store_group<kF16>(void* p, int64_t g, const float f[kVec]) {
-  reinterpret_cast<uint4*>(p)[g] = pack_halves<kF16>(f);
+
+// One unit, scaled and converted.  Little-endian: the low half of a
+// 32-bit word is the lower-addressed element.
+template <int KI, int KO>
+__device__ __forceinline__ Words<Unit<KI, KO>::kOutWords> convert(
+    const Words<Unit<KI, KO>::kInWords>& in, float scale) {
+  using U = Unit<KI, KO>;
+  float f[U::kElems];
+#pragma unroll
+  for (int j = 0; j < U::kElems; ++j) {
+    if constexpr (KI == kF32) {
+      f[j] = __uint_as_float(in.w[j]);
+    } else {
+      const uint32_t w = in.w[j / 2];
+      f[j] = to_f32<KI>(static_cast<uint16_t>((j & 1) ? (w >> 16) : (w & 0xffffu)));
+    }
+    f[j] *= scale;
+  }
+  Words<U::kOutWords> out;
+#pragma unroll
+  for (int j = 0; j < U::kOutWords; ++j) {
+    if constexpr (KO == kF32) {
+      out.w[j] = __float_as_uint(f[j]);
+    } else {
+      out.w[j] = static_cast<uint32_t>(from_f32<KO>(f[2 * j])) |
+                 (static_cast<uint32_t>(from_f32<KO>(f[2 * j + 1])) << 16);
+    }
+  }
+  return out;
 }
 
 template <int KI, int KO>
-__device__ __forceinline__ void scale_one(const void* x, void* y, int64_t i, float scale) {
+__device__ __forceinline__ void scale_one(const void* x, void* y, long long i, float scale) {
   const auto b = reinterpret_cast<const typename Bits<KI>::T*>(x)[i];
   reinterpret_cast<typename Bits<KO>::T*>(y)[i] = from_f32<KO>(to_f32<KI>(b) * scale);
 }
 
-// Vector body over n / kVec groups, then the n % kVec tail element-wise.
+// Block b converts the kThreads * kUnroll units from b * kThreads *
+// kUnroll, thread t the units at t + u * kThreads: all kUnroll loads,
+// then the stores.  The last block also takes the n - units * elems tail
+// element-wise.
 template <int KI, int KO>
 __global__ void __launch_bounds__(kThreads)
-scale_cast_vec(const void* __restrict__ x, void* __restrict__ y, float scale, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t groups = n / kVec;
-  for (int64_t g = tid; g < groups; g += stride) {
-    float f[kVec];
-    load_group<KI>(x, g, f);
+scale_cast_vec(const void* __restrict__ x, void* __restrict__ y, float scale, long long n,
+               long long units) {
+  using U = Unit<KI, KO>;
+  const long long base = static_cast<long long>(blockIdx.x) * kThreads * kUnroll + threadIdx.x;
+  Words<U::kInWords> v[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) f[j] *= scale;
-    store_group<KO>(y, g, f);
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < units) v[u] = load_words<U::kInWords>(x, i);
   }
-  for (int64_t i = groups * kVec + tid; i < n; i += stride) {
-    scale_one<KI, KO>(x, y, i, scale);
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < units) store_words<U::kOutWords>(y, i, convert<KI, KO>(v[u], scale));
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    for (long long i = units * U::kElems + threadIdx.x; i < n; i += kThreads) {
+      scale_one<KI, KO>(x, y, i, scale);
+    }
   }
 }
 
-// Fallback for buffers that are not 16-byte aligned.
+// Buffers that are not 16-byte aligned.
 template <int KI, int KO>
 __global__ void __launch_bounds__(kThreads)
-scale_cast_scalar(const void* __restrict__ x, void* __restrict__ y, float scale, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+scale_cast_scalar(const void* __restrict__ x, void* __restrict__ y, float scale, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     scale_one<KI, KO>(x, y, i, scale);
   }
@@ -172,25 +216,27 @@ int sm_count() {
 }
 
 template <int KI, int KO>
-void launch(const void* x, void* y, int64_t n, float scale, cudaStream_t stream) {
+void launch(const void* x, void* y, long long n, float scale, cudaStream_t stream) {
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15u) == 0;
-  const int64_t work = aligned ? (n + kVec - 1) / kVec : n;
-  // Enough blocks to fill every SM several times over; the grid-stride
-  // loop covers the rest.
-  const int64_t cap = static_cast<int64_t>(sm_count()) * 8;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
   if (aligned) {
-    scale_cast_vec<KI, KO><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(x, y, scale, n);
+    const long long units = n / Unit<KI, KO>::kElems;
+    long long blocks = (units + kThreads * kUnroll - 1) / (kThreads * kUnroll);
+    if (blocks < 1) blocks = 1;
+    scale_cast_vec<KI, KO><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, y, scale, n, units);
   } else {
-    scale_cast_scalar<KI, KO><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(x, y, scale, n);
+    long long blocks = (n + kThreads - 1) / kThreads;
+    const long long cap = static_cast<long long>(sm_count()) * 8;
+    if (blocks > cap) blocks = cap;
+    scale_cast_scalar<KI, KO><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, y, scale, n);
   }
 }
 
 template <int KI>
-int dispatch_out(const void* x, void* y, int out_kind, int64_t n, float scale, cudaStream_t s) {
+int dispatch_out(const void* x, void* y, int out_kind, long long n, float scale,
+                 cudaStream_t s) {
   switch (out_kind) {
     case kF32: launch<KI, kF32>(x, y, n, scale, s); break;
     case kBF16: launch<KI, kBF16>(x, y, n, scale, s); break;
@@ -216,3 +262,4 @@ extern "C" int hvd_scale_cast(const void* x, int in_kind, void* out, int out_kin
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+

@@ -35,16 +35,30 @@ def scale_cast_reference(
     return (x.float() * float(np.float32(scale))).to(dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("scale_cast")
-    fn = lib.hvd_scale_cast
-    if fn.argtypes is None:
+_entry = None  # the bound C function, after the first launch
+
+
+def _current_stream(index: int) -> int:
+    """The address of device ``index``'s current stream, without making a
+    ``torch.cuda.Stream`` (PyTorch's own generated kernels read it so)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _bind():
+    """``hvd_scale_cast`` of ``csrc/scale_cast.cu``, built on first use."""
+    global _entry
+    if _entry is None:
+        fn = build.load("scale_cast").hvd_scale_cast
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    return lib
+        _entry = fn
+    return _entry
 
 
 def scale_cast(
@@ -54,31 +68,36 @@ def scale_cast(
 
     CPU tensors take :func:`scale_cast_reference`.  CUDA tensors must be
     contiguous and of a supported dtype; the output comes from
-    ``torch.empty`` and the kernel runs on the current stream.
+    ``torch.empty_like`` and the kernel runs on the current stream of
+    ``x``'s device.  The scale is rounded to float32 by the call itself
+    (ctypes' ``c_float``: round to nearest even, as ``np.float32``).
     ``scale_cast.launches`` counts kernel launches."""
     dtype = x.dtype if dtype is None else dtype
-    if x.dtype not in _KIND or dtype not in _KIND:
+    kind_in, kind_out = _KIND.get(x.dtype), _KIND.get(dtype)
+    if kind_in is None or kind_out is None:
         raise TypeError(
             f"scale_cast supports float32/bfloat16/float16, got "
             f"{x.dtype} -> {dtype}"
         )
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return scale_cast_reference(x, scale, dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"scale_cast: unsupported device {x.device}")
+    if device.type != "cuda":
+        raise ValueError(f"scale_cast: unsupported device {device}")
     if not x.is_contiguous():
         raise ValueError("scale_cast: input must be contiguous")
-    out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    out = torch.empty_like(x, dtype=dtype)
     n = x.numel()
     if n == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.hvd_scale_cast(
-            x.data_ptr(), _KIND[x.dtype], out.data_ptr(), _KIND[dtype],
-            n, float(np.float32(scale)), stream,
-        )
+    fn = _bind()
+    args = (x.data_ptr(), kind_in, out.data_ptr(), kind_out, n, float(scale))
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _current_stream(index))
     if rc != 0:
         raise RuntimeError(f"scale_cast kernel launch failed: cudaError {rc}")
     scale_cast.launches += 1

@@ -67,6 +67,9 @@ def library() -> ctypes.CDLL:
                                     d, vp]
         lib.hvd_ag_ring.argtypes = [pp, pp, pp, i, i, i, ll, i, i, f, u, ll, d,
                                     vp]
+        # B7's per-block timeline buffer, for chip_smoke.py.
+        lib.hvd_ag_ring_trace.argtypes = [vp]
+        lib.hvd_ag_ring_trace.restype = None
         for fn in (lib.hvd_ring_alloc, lib.hvd_ring_free, lib.hvd_ring_handle_size,
                    lib.hvd_ring_export, lib.hvd_ring_open, lib.hvd_ring_close,
                    lib.hvd_rs_ring, lib.hvd_ag_ring):

@@ -116,19 +116,38 @@ def _check(x: torch.Tensor, name: str, window, block: int, wire: str) -> bool:
     return True
 
 
-def _tables(window, rows) -> list:
-    """ctypes tables of n pointers: ``rows`` (tensors of the launched
-    ranks, or None) at their ranks' indices, the rest null."""
+# float32(1 / qmax) of each wire, the kernels' argument.
+_INV_QMAX = {w: f32_reciprocal(q) for w, (_, q) in WIRE_FORMATS.items()}
+
+
+def _tables(window, rows):
+    """The ctypes tables of a launch: every rank's window base, and one
+    table of n pointers per entry of ``rows`` (tensors of the launched
+    ranks, one row each, or None) with each row's address at its rank's
+    index, the rest null.  The tables are made once per window and each
+    call writes its own tensors' addresses into them: the C entry copies
+    them into the kernel's arguments before it returns."""
+    cached = getattr(window, "_launch_tables", None)
+    if cached is None:
+        n = window.n
+        cached = ((ctypes.c_void_p * n)(*window.bases),
+                  [(ctypes.c_void_p * n)() for _ in range(3)])
+        window._launch_tables = cached
+    wins, tables = cached
+    ranks = window.ranks
     out = []
-    for t in rows:
+    for table, t in zip(tables, rows):
         if t is None:
             out.append(None)
-            continue
-        table = (ctypes.c_void_p * window.n)()
-        for i, r in enumerate(window.ranks):
-            table[r] = t[i].data_ptr()
-        out.append(table)
-    return out
+        elif len(ranks) == 1:
+            table[ranks[0]] = t.data_ptr()
+            out.append(table)
+        else:
+            base, step = t.data_ptr(), t.stride(0) * t.element_size()
+            for i, r in enumerate(ranks):
+                table[r] = base + i * step
+            out.append(table)
+    return wins, out
 
 
 def _launched(fn, lib, rc: int) -> None:
@@ -157,13 +176,12 @@ def rs_ring(x: torch.Tensor, window, wire: str, block: int, want_deq: bool = Fal
            if want_deq else None)
     if nb == 0:
         return acc, deq
-    xs, accs, deqs = _tables(window, (x, acc, deq))
-    wins = (ctypes.c_void_p * n)(*window.bases)
+    wins, (xs, accs, deqs) = _tables(window, (x, acc, deq))
     lib = peer.library()
     with torch.cuda.device(x.device):
         rc = lib.hvd_rs_ring(
             xs, accs, deqs, wins, n, window.ranks[0], ranks, nb, block,
-            _WIRE_CODE[wire], f32_reciprocal(WIRE_FORMATS[wire][1]),
+            _WIRE_CODE[wire], _INV_QMAX[wire],
             window.next_epoch(), window.slot_bytes,
             spin_timeout_s() if timeout_s is None else timeout_s,
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -188,13 +206,12 @@ def ag_ring(shards: torch.Tensor, window, wire: str, block: int,
     out = torch.empty((ranks, n * c), dtype=torch.float32, device=shards.device)
     if nb == 0:
         return out
-    xs, outs = _tables(window, (shards, out))
-    wins = (ctypes.c_void_p * n)(*window.bases)
+    wins, (xs, outs) = _tables(window, (shards, out))
     lib = peer.library()
     with torch.cuda.device(shards.device):
         rc = lib.hvd_ag_ring(
             xs, outs, wins, n, window.ranks[0], ranks, nb, block,
-            _WIRE_CODE[wire], f32_reciprocal(WIRE_FORMATS[wire][1]),
+            _WIRE_CODE[wire], _INV_QMAX[wire],
             window.next_epoch(), window.slot_bytes,
             spin_timeout_s() if timeout_s is None else timeout_s,
             torch.cuda.current_stream(shards.device).cuda_stream,

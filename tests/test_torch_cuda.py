@@ -28,6 +28,7 @@ ranks sharing one card).
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -88,6 +89,48 @@ def test_unaligned_buffer_takes_the_scalar_path():
     x = _input(4099, torch.float32, 1)[1:]  # 4-byte offset: not 16-aligned
     got = kernels.scale_cast(x, 0.5, torch.bfloat16)
     assert torch.equal(_bits(got), _bits(kernels.scale_cast_reference(x, 0.5, torch.bfloat16)))
+
+
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _wave(unit):
+    """Elements of one full wave of B1's vector kernel on this card:
+    every thread the card holds (2048 an SM) with its four units."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return props.multi_processor_count * props.max_threads_per_multi_processor * 4 * unit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dout", _DTYPES)
+@pytest.mark.parametrize("din", _DTYPES)
+def test_kernel_at_its_loop_bounds(din, dout):
+    """Bitwise at one full wave of the vector kernel (every thread the
+    card holds, each with its four units), one unit (4 or 8 elements) and
+    one element either side of it, and past two waves."""
+    _cuda()
+    unit = 4 if torch.float32 in (din, dout) else 8
+    r = _wave(unit)
+    for n in (r, r - unit, r + unit, r - 1, r + 1, 2 * r + unit + 3):
+        x = _input(n, din, n)
+        got = kernels.scale_cast(x, 0.75, dout)
+        assert torch.equal(_bits(got), _bits(kernels.scale_cast_reference(x, 0.75, dout))), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset_bytes", [4, 8])
+@pytest.mark.parametrize("dout", _DTYPES)
+@pytest.mark.parametrize("din", _DTYPES)
+def test_views_off_a_16_byte_boundary(din, dout, offset_bytes):
+    """A view starting 4 or 8 bytes past a 16-byte boundary takes the
+    scalar path, bitwise."""
+    _cuda()
+    k = offset_bytes // torch.empty(0, dtype=din).element_size()
+    base = _input(70000, din, offset_bytes)
+    x = base[k:]
+    assert x.data_ptr() % 16 == offset_bytes
+    got = kernels.scale_cast(x, 1.0, dout)
+    assert torch.equal(_bits(got), _bits(kernels.scale_cast_reference(x, 1.0, dout)))
 
 
 @pytest.mark.cuda
@@ -459,7 +502,7 @@ def test_rs_ring_matches_plain_bitwise(n, wire, block, want_deq):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block", [64, 512, 96])
+@pytest.mark.parametrize("block", [64, 512, 96, 36, 33])
 @pytest.mark.parametrize("wire", ["int8", "fp8"])
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_ag_ring_matches_plain_bitwise(n, wire, block):
@@ -499,6 +542,31 @@ def test_rings_at_the_bucket_size_and_over_many_epochs():
             got = rk.rs_ring(small, win, "fp8", 512)[0]
             rk.ag_ring(got, win, "fp8", 512)
         assert torch.equal(_int_bits(got), _int_bits(want_small))
+    finally:
+        win.close()
+
+
+@pytest.mark.cuda
+def test_rings_alternate_on_one_window_at_the_bucket_size():
+    """B6 and B7 in turns on one window, three inputs in rotation: B7's
+    split slots and B6's packed rows take the same slots in alternate
+    epochs, and a slot read two epochs late would hold another input."""
+    _cuda()
+    n = 4
+    c = -(-8208384 // (n * 512)) * 512
+    win = peer.PeerWindow.virtual(n)
+    try:
+        xs = [_ring_input(n, n * c, 512, 30 + i) for i in range(3)]
+        want = []
+        for x in xs:
+            acc, _ = rk.rs_ring_reference(x, "int8", 512)
+            want.append((acc, rk.ag_ring_reference(acc, "int8", 512)))
+        for i in range(12):
+            x, (want_acc, want_out) = xs[i % 3], want[i % 3]
+            acc, _ = rk.rs_ring(x, win, "int8", 512)
+            assert torch.equal(_int_bits(acc), _int_bits(want_acc)), i
+            out = rk.ag_ring(acc, win, "int8", 512)
+            assert torch.equal(_int_bits(out), _int_bits(want_out)), i
     finally:
         win.close()
 
@@ -603,6 +671,21 @@ _WORLD = textwrap.dedent("""
         assert torch.equal(out.view(torch.int32), want.view(torch.int32))
         res = (e[rank] - deq[rank].reshape(-1))[:300000]
         assert torch.equal(r_new.view(torch.int32), res.view(torch.int32))
+        # B7 alone: the early rank's B7 quantizes its shard and stores it
+        # into the late rank's slots, then waits on the card for the late
+        # rank's arrivals.
+        s = torch.randn(n, 512 * 37, generator=g, device="cuda")
+        torch.cuda.synchronize()
+        rk.ag_ring.launches = 0
+        if late and rank == n - 1:
+            time.sleep(late)
+        t0 = time.perf_counter()
+        got = tq.quantized_all_gather(s[rank], backend="fused")
+        torch.cuda.synchronize()
+        print("AG WAITED", rank, time.perf_counter() - t0)
+        assert rk.ag_ring.launches == 1
+        want = rk.ag_ring_reference(s, "int8", 512)[0]
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         print("RING OK", rank)
     finally:
         hvd.shutdown()
@@ -653,8 +736,11 @@ def test_ring_waits_for_a_late_peer(tmp_path):
     """A peer 12 s late (past the 10 s bound the ring once had, within
     the process group's 100 s timeout, which is now the spins' bound):
     the early rank's kernels wait on the card and the collective ends
-    bitwise equal to the plain versions.  Two ranks share one card on
-    gloo."""
+    bitwise equal to the plain versions.  Then the late rank is 12 s
+    late to an all-gather alone: the early rank's B7 quantizes its shard
+    and stores it into the late rank's slots (it does not wait at the
+    entry barrier), then waits for the late rank's arrivals.  Two ranks
+    share one card on gloo."""
     _cuda()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, HVD_TPU_QUANT_BACKEND="fused")
@@ -662,5 +748,6 @@ def test_ring_waits_for_a_late_peer(tmp_path):
         env.pop(k, None)
     env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     outs = _run_world(root, env, tmp_path, "gloo", 12.0)
-    waited = float(outs[0].split("WAITED 0 ")[1].split()[0])
-    assert waited > 10.0, outs[0]
+    for stage in ("WAITED", "AG WAITED"):
+        waited = float(re.search(rf"^{stage} 0 (\S+)", outs[0], re.M).group(1))
+        assert waited > 10.0, outs[0]

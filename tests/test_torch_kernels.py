@@ -128,6 +128,48 @@ def test_plain_matches_jax_bitwise(n, in_dtype, out_dtype, scale):
     )
 
 
+# The CUDA kernel's bounds on an H100 (csrc/scale_cast.cu): one full
+# wave is 132 SMs x 2048 threads x 4 units of 4 elements (a cast to or
+# from float32) or 8 (bf16 -> bf16).
+_ROUND_UNITS = 132 * 2048 * 4
+
+
+def _bound_sizes(unit):
+    r = _ROUND_UNITS * unit
+    return [r, r - unit, r + unit, r - 1, r + 1]
+
+
+@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("in_dtype,out_dtype,scale", CASES)
+def test_plain_matches_jax_at_the_kernels_loop_bounds(in_dtype, out_dtype, scale, k):
+    unit = 4 if "float32" in (in_dtype, out_dtype) else 8
+    n = _bound_sizes(unit)[k]
+    x = _inputs(n, in_dtype, specials=True)
+    _assert_bitwise(
+        _port(x, in_dtype, out_dtype, scale),
+        _jax(x, in_dtype, out_dtype, scale),
+        x, scale, out_dtype,
+    )
+
+
+def test_launch_scale_rounds_as_float32():
+    """The wrapper hands the scale to the kernel as a ctypes ``c_float``;
+    that conversion rounds to nearest even, as ``np.float32`` (the plain
+    version's rounding) does."""
+    import ctypes
+
+    rng = np.random.default_rng(3)
+    vals = np.concatenate([
+        rng.standard_normal(2000) * 10.0 ** rng.integers(-40, 38, 2000),
+        [0.1, 1 / 3, 1 / 7, 1e-40, -3e-39, 3.4028234e38, 1.0 + 2.0 ** -24,
+         1.0 + 3 * 2.0 ** -24, 0.0, -0.0],
+    ])
+    for v in vals:
+        want = np.float32(v)
+        got = np.float32(ctypes.c_float(float(v)).value)
+        assert got.view(np.uint32) == want.view(np.uint32), v
+
+
 def test_float32_subnormal_inputs_follow_torch_cast():
     """XLA:CPU flushes f32 subnormal inputs; the kernel keeps them, as
     ``torch.Tensor.to`` does (the card's cvt.rn does too)."""
@@ -198,6 +240,28 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, horovod_tpu_torch, horovod_tpu_torch.models, "
         "horovod_tpu_torch.utils.benchmarks\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, cwd=root,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "horovod_tpu_torch.ops.kernels", "horovod_tpu_torch.ops.ring_kernels",
+    "horovod_tpu_torch.ops.peer", "chip_smoke",
+])
+def test_kernel_modules_and_the_card_check_pull_in_no_jax(module):
+    """The kernel wrappers and ``chip_smoke.py`` import neither ``jax``
+    nor ``horovod_tpu`` (the card machine runs them without either)."""
+    code = (
+        f"import sys, {module}\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "assert not bad, bad\n"

@@ -391,6 +391,59 @@ def test_ring_launch_passes_the_process_groups_timeout(monkeypatch, which):
     assert [args[-2] for args in seen] == [41.0, 0.5]
 
 
+@pytest.mark.parametrize("ranks", [[0, 1], [1]])
+@pytest.mark.parametrize("which", ["rs_ring", "ag_ring"])
+def test_cached_pointer_tables_carry_each_calls_tensors(monkeypatch, which, ranks):
+    """The wrappers keep their ctypes tables on the window and rewrite
+    them per call: a spy on the C entry copies the tables it is handed,
+    and two calls with different tensors on one window each carry their
+    own tensors' addresses at their ranks' indices (the other ranks'
+    null), and every rank's window base."""
+    import contextlib
+
+    seen = []
+
+    def spy(*args):
+        tables = []
+        for a in args:  # the tables lead; the world size is the first int
+            if isinstance(a, int):
+                break
+            tables.append(None if a is None else list(a))
+        seen.append(tables)
+        return 0
+
+    lib = types.SimpleNamespace(hvd_rs_ring=spy, hvd_ag_ring=spy)
+    monkeypatch.setattr(rk, "_check", lambda *a: True)
+    monkeypatch.setattr(rk.peer, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    window = types.SimpleNamespace(n=2, ranks=ranks, bases=[4096, 8192],
+                                   slot_bytes=1 << 20, next_epoch=lambda: 1)
+    fn = getattr(rk, which)
+    cols = 2 * 64 if which == "rs_ring" else 64
+    calls = [torch.ones(len(ranks), cols), torch.zeros(len(ranks), cols)]
+    kept = [fn(x, window, "int8", 64, **({"want_deq": True} if which == "rs_ring" else {}))
+            for x in calls]  # both calls' outputs alive: their addresses differ
+    assert len(seen) == 2 and len(kept) == 2
+    for x, tables in zip(calls, seen):
+        xs, wins = tables[0], tables[-1]
+        assert len(tables) == (4 if which == "rs_ring" else 3)
+        assert wins == [4096, 8192]
+        want = [None, None]
+        for i, r in enumerate(ranks):
+            want[r] = x[i].data_ptr()
+        assert xs == want
+    # The outputs' tables carry each call's own fresh output rows.
+    for result, tables in zip(kept, seen):
+        out = result[0] if which == "rs_ring" else result
+        want = [None, None]
+        for i, r in enumerate(ranks):
+            want[r] = out[i].data_ptr()
+        assert tables[1] == want
+    assert seen[0][1] != seen[1][1]
+
+
 # --------------------------------------------------------- gloo worlds
 
 
