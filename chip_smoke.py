@@ -28,13 +28,13 @@ exits non-zero):
    the quantized rings, bitwise against their plain versions on 2 and 4
    virtual ranks of the one card (every rank's blocks in one grid, the
    windows all on this card), at the 32 MiB plan's bucket sizes padded
-   to n·512 and at a ragged size for blocks 64 / 512 / 96 / 36 / 33 (B7's
-   16-byte, 4-byte and byte paths), int8 and fp8, with the special
+   to n·512 and at a ragged size for blocks 64 / 512 / 96 / 36 / 33 (the
+   rings' 16-byte, 4-byte and byte paths), int8 and fp8, with the special
    blocks; the times at world 4 on the largest bucket beside the bound
    (this run's inputs and outputs over 3.35 TB/s: on one card the
    "peer" stores stay in its memory) and, as the yardstick, the B3 + B4
-   (B3 + B5) kernels of the NCCL lowering for the same ranks; and B7's
-   per-block timeline (``ag_ring_trace``).
+   (B3 + B5) kernels of the NCCL lowering for the same ranks; and B6's
+   and B7's per-block timelines (``ring_trace``).
    Then B2, flash attention, each case on the route that serves its
    dtype and head dim, against its plain version at that route's key
    tile (``FLASH_TOL``): at the GPT slice's shape (B 16, T 1024, H 12,
@@ -71,10 +71,10 @@ exits non-zero):
    ranks, one per card, on NCCL, the stores crossing NVLink, and each
    bucket's exchange timed on the ring and on the NCCL lowering; with
    one card, two ranks sharing it on gloo (NCCL refuses two ranks on
-   one card), the stores staying on the card.  In either, B6 (with the
-   dequant) and B7 bitwise against their plain versions on every rank
-   at the largest bucket and at blocks 96 / 36 / 33; across cards also
-   B7's timeline on rank 0.
+   one card), the stores staying on the card.  In either, B6 (with and
+   without the dequant) and B7 bitwise against their plain versions on
+   every rank at the largest bucket and at blocks 96 / 64 / 36 / 33;
+   across cards also B6's and B7's timelines on rank 0.
 8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
@@ -453,32 +453,44 @@ def quant_kernel_phase(qk, sizes, log):
     return records
 
 
-AG_TRACE_EVENTS = ("start", "quantized", "sent", "published", "own dequant",
-                   "first arrival", "end")
+# The events of each ring kernel's per-block timeline, in the order of
+# its trace buffer (csrc/quant_ring.cu, RsTraceEvent and TraceEvent).
+TRACE_EVENTS = {
+    "rs_ring": ("start", "sent 1", "sent", "published", "own chunk", "first arrival",
+                "all arrivals", "end"),
+    "ag_ring": ("start", "quantized", "sent", "published", "own dequant", "first arrival",
+                "end"),
+}
 
 
-def ag_ring_trace(peer, launch, ranks):
-    """B7's timeline (``hvd_ag_ring_trace``): per launched rank and per
-    event, the median and the largest time over the grid's blocks, in
-    us from the earliest block's start, in the last of five back-to-back
-    launches of ``launch``."""
+def ring_trace(peer, name, launch, ranks):
+    """The timeline of ring kernel ``name`` (``hvd_rs_ring_trace``,
+    ``hvd_ag_ring_trace``): per launched rank and per event, the median
+    and the largest time over the grid's blocks, in us from the earliest
+    block's start, in the last of five back-to-back launches of
+    ``launch``; None for an event the kernel does not record."""
     import torch
 
-    lib = peer.library()
-    buf = torch.zeros(ranks, 2048, len(AG_TRACE_EVENTS), dtype=torch.int64, device="cuda")
-    lib.hvd_ag_ring_trace(buf.data_ptr())
+    events = TRACE_EVENTS[name]
+    set_trace = getattr(peer.library(), f"hvd_{name}_trace")
+    buf = torch.zeros(ranks, 2048, len(events), dtype=torch.int64, device="cuda")
+    set_trace(buf.data_ptr())
     try:
         for _ in range(5):
             launch()
         torch.cuda.synchronize()
     finally:
-        lib.hvd_ag_ring_trace(None)
+        set_trace(None)
     out = []
     for t in buf.cpu():
         rows = t[t[:, 0] != 0].double()
         rel = (rows - rows[:, 0].min()) / 1e3
-        out.append({ev: [round(float(rel[:, k].median()), 2), round(float(rel[:, k].max()), 2)]
-                    for k, ev in enumerate(AG_TRACE_EVENTS)} | {"blocks": rows.shape[0]})
+        rec = {}
+        for k, ev in enumerate(events):
+            seen = rel[rows[:, k] != 0, k]
+            rec[ev] = ([round(float(seen.median()), 2), round(float(seen.max()), 2)]
+                       if seen.numel() else None)
+        out.append(rec | {"blocks": rows.shape[0]})
     return out
 
 
@@ -594,10 +606,14 @@ def ring_kernel_phase(rk, peer, qk, sizes, log):
                   f"device time {bound_ms / ms:.1%} of bound)", flush=True)
             if name not in records:
                 records[name] = dict(rec, max_abs_err=max_err[name])
-        trace = ag_ring_trace(peer, lambda: rk.ag_ring(acc, window, "int8", BLOCK), n)
-        log["ag_ring_trace"] = trace
-        print(f"phase kernel: B7 timeline, {n} virtual ranks, rank 0 (us from the first "
-              f"block's start, median / largest over the blocks): {trace[0]}", flush=True)
+        for name, what, launch in (
+                ("rs_ring", "B6", lambda: rk.rs_ring(x, window, "int8", BLOCK, True)),
+                ("ag_ring", "B7", lambda: rk.ag_ring(acc, window, "int8", BLOCK))):
+            trace = ring_trace(peer, name, launch, n)
+            log[name + "_trace"] = trace
+            print(f"phase kernel: {what} timeline, {n} virtual ranks, rank 0 (us from the "
+                  f"first block's start, median / largest over the blocks): {trace[0]}",
+                  flush=True)
     finally:
         window.close()
     after = (rk.rs_ring.launches, rk.ag_ring.launches)
@@ -732,29 +748,32 @@ def ring_worker(args) -> None:
         # B6 and B7 bitwise against their plain versions in this world:
         # every rank makes every rank's rows from one seed and launches its
         # own; B7 gathers the plain B6 sums, so its inputs are known too.
-        # Blocks 512 and 96 take B7's 16-byte path, 36 its 4-byte path, 33
-        # the byte path.
+        # Blocks 512, 96 and 64 take the 16-byte path, 36 the 4-byte path,
+        # 33 the byte path.
         window = peer.world_window(hvd.runtime.get_runtime())
         gen = torch.Generator(device="cuda").manual_seed(11)
         held = []
-        for block, cols in ((BLOCK, max(buckets)), (96, 65537), (36, 65537), (33, 65537)):
+        for block, cols in ((BLOCK, max(buckets)), (96, 65537), (64, 65537), (36, 65537),
+                            (33, 65537)):
             c = -(-cols // (n * block)) * block
             for wire in ("int8", "fp8"):
                 allx = ring_input(n, n * c, block, gen)
-                acc, deq = rk.rs_ring(allx[rank:rank + 1].contiguous(), window, wire,
-                                      block, True)
+                mine = allx[rank:rank + 1].contiguous()
+                acc, deq = rk.rs_ring(mine, window, wire, block, True)
+                acc_only, _ = rk.rs_ring(mine, window, wire, block, False)
                 racc, rdeq = rk.rs_ring_reference(allx, wire, block, True)
                 out = rk.ag_ring(racc[rank:rank + 1].contiguous(), window, wire, block)
                 rout = rk.ag_ring_reference(racc, wire, block)
                 torch.cuda.synchronize()
                 for what, got, want in (("B6", acc[0], racc[rank]),
                                         ("B6 dequant", deq[0], rdeq[rank]),
+                                        ("B6 without the dequant", acc_only[0], racc[rank]),
                                         ("B7", out[0], rout[rank])):
                     if not torch.equal(bits(got), bits(want)):
                         raise SystemExit(f"rank {rank}: {what} {wire} block {block} c {c} "
                                          "differs from the plain version")
                 held.append(f"{wire} {c}x{block}")
-                del allx, acc, deq, racc, rdeq, out, rout
+                del allx, mine, acc, deq, acc_only, racc, rdeq, out, rout
         torch.cuda.empty_cache()
 
         # Each bucket's exchange (reduce-scatter with error feedback, then
@@ -799,8 +818,10 @@ def ring_worker(args) -> None:
             kernel_ms["rs_ring"] = timed(lambda: rk.rs_ring(x, window, "int8", BLOCK, True), 20)
             kernel_ms["ag_ring"] = timed(lambda: rk.ag_ring(shard, window, "int8", BLOCK), 20)
             kernel_ms["chunk"] = c
-            kernel_ms["ag_ring_trace"] = ag_ring_trace(
-                peer, lambda: rk.ag_ring(shard, window, "int8", BLOCK), 1)[0]
+            kernel_ms["rs_ring_trace"] = ring_trace(
+                peer, "rs_ring", lambda: rk.rs_ring(x, window, "int8", BLOCK, True), 1)[0]
+            kernel_ms["ag_ring_trace"] = ring_trace(
+                peer, "ag_ring", lambda: rk.ag_ring(shard, window, "int8", BLOCK), 1)[0]
         if rank == 0:
             with open(args.ring_out, "w") as f:
                 json.dump({"world": n, "backend": args.ring_backend, "buckets": buckets,
@@ -867,15 +888,16 @@ def ring_slice_phase(card, count, log):
           f"launches {rec['launches']} (= expected), no fallback; weights bitwise equal "
           f"on every rank; step {rec['step_ms']:.2f} ms, {rec['img_s']:.1f} img/s "
           f"(world) on {card}; {wall:.0f} s with start-up", flush=True)
-    print(f"phase slice ring: B6 (with the dequant) and B7 bitwise with their plain "
+    print(f"phase slice ring: B6 (with and without the dequant) and B7 bitwise with their plain "
           f"versions on every rank at world {n}: {rec['held']}", flush=True)
     if rec["exchange_ms"]:
         c = rec["kernel_ms"]["chunk"]
         packed = c // BLOCK * (BLOCK + 4)
         out_bytes = (n - 1) * packed
-        print(f"phase slice ring: ag_ring timeline at world {n}, rank 0 (us from its first "
-              f"block's start, median / largest over the blocks): "
-              f"{rec['kernel_ms']['ag_ring_trace']}", flush=True)
+        for name in ("rs_ring", "ag_ring"):
+            print(f"phase slice ring: {name} timeline at world {n}, rank 0 (us from its "
+                  f"first block's start, median / largest over the blocks): "
+                  f"{rec['kernel_ms'][name + '_trace']}", flush=True)
         for name, local in (("rs_ring", 4 * n * c * 2 + 4 * c + out_bytes),
                             ("ag_ring", 4 * c + 4 * n * c + out_bytes)):
             bound = max(local / H100_BYTES_PER_S, out_bytes / NVLINK_BYTES_PER_S) * 1e3

@@ -66,9 +66,8 @@ quant_pack_kernel(const float* __restrict__ x, uint8_t* __restrict__ packed,
                   float inv_qmax) {
   const int lane = threadIdx.x & 31;
   for (int64_t b = warp_id(); b < nblocks; b += warp_count()) {
-    uint8_t* pb = packed + b * (block + 4);
-    warp_quant_block<W, VEC>(x + b * block, block, inv_qmax, lane, 1,
-                             [pb](int) { return pb; }, DEQ ? deq + b * block : nullptr);
+    warp_quant_block<W, VEC>(x + b * block, block, inv_qmax, lane, packed + b * (block + 4),
+                             DEQ ? deq + b * block : nullptr);
   }
 }
 

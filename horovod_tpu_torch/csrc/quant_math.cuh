@@ -156,36 +156,28 @@ __device__ __forceinline__ uint32_t quant_word(float4 v, const BlockScale& bs, f
   return w;
 }
 
-// One warp quantizes one block and stores its packed row at row_of(k)
-// for k in [0, nrows) (B3: one local row; B7: one row in every peer's
-// receive slot) and, when `deq` is not null, its dequant there.
-template <int W, bool VEC, class RowOf>
+// One warp quantizes one block and stores its packed row at `row` (B3)
+// and, when `deq` is not null, its dequant there.
+template <int W, bool VEC>
 __device__ __forceinline__ void warp_quant_block(const float* xb, int block, float inv_qmax,
-                                                 int lane, int nrows, RowOf row_of,
-                                                 float* deq) {
+                                                 int lane, uint8_t* row, float* deq) {
   const BlockScale bs = warp_block_scale<VEC>(xb, block, inv_qmax, lane);
   if (VEC) {
     const float4* x4 = reinterpret_cast<const float4*>(xb);
     for (int g = lane; g < block / 4; g += 32) {
       float4 d;
       const uint32_t w = quant_word<W>(x4[g], bs, d);
-      for (int k = 0; k < nrows; ++k) reinterpret_cast<uint32_t*>(row_of(k))[g] = w;
+      reinterpret_cast<uint32_t*>(row)[g] = w;
       if (deq) reinterpret_cast<float4*>(deq)[g] = d;
     }
-    if (lane == 0) {
-      for (int k = 0; k < nrows; ++k)
-        reinterpret_cast<uint32_t*>(row_of(k))[block / 4] = __float_as_uint(bs.scale);
-    }
+    if (lane == 0) reinterpret_cast<uint32_t*>(row)[block / 4] = __float_as_uint(bs.scale);
   } else {
     for (int i = lane; i < block; i += 32) {
       const uint32_t q = bs.bad ? 0u : quantize<W>(xb[i], bs.safe);
-      for (int k = 0; k < nrows; ++k) row_of(k)[i] = static_cast<uint8_t>(q);
+      row[i] = static_cast<uint8_t>(q);
       if (deq) deq[i] = dequant<W>(q, bs.scale);
     }
-    if (lane < 4) {
-      const uint8_t byte = static_cast<uint8_t>(__float_as_uint(bs.scale) >> (8 * lane));
-      for (int k = 0; k < nrows; ++k) row_of(k)[block + lane] = byte;
-    }
+    if (lane < 4) row[block + lane] = static_cast<uint8_t>(__float_as_uint(bs.scale) >> (8 * lane));
   }
 }
 

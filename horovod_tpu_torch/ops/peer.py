@@ -7,7 +7,8 @@ per ``collective_id``.  Here each rank owns one window of device memory
 (``csrc/quant_ring.cu`` ``hvd_ring_window_bytes`` gives its layout): two
 epoch-parity sets of ``n - 1`` receive slots, each sized for a chunk of
 the largest payload the ring serves (``CAP`` over ``n``), then one flag
-per (parity, slot, stripe) and one barrier word per source rank.
+per (parity, slot, stripe).  The kernels need no barrier word: the
+previous launch proves the slots free (``quant_ring.cu``).
 
 :meth:`PeerWindow.world` makes the window of a world of processes, once,
 on first use: every rank ``cudaMalloc``s and zeroes its window and
@@ -67,9 +68,10 @@ def library() -> ctypes.CDLL:
                                     d, vp]
         lib.hvd_ag_ring.argtypes = [pp, pp, pp, i, i, i, ll, i, i, f, u, ll, d,
                                     vp]
-        # B7's per-block timeline buffer, for chip_smoke.py.
-        lib.hvd_ag_ring_trace.argtypes = [vp]
-        lib.hvd_ag_ring_trace.restype = None
+        # B6's and B7's per-block timeline buffers, for chip_smoke.py.
+        for fn in (lib.hvd_rs_ring_trace, lib.hvd_ag_ring_trace):
+            fn.argtypes = [vp]
+            fn.restype = None
         for fn in (lib.hvd_ring_alloc, lib.hvd_ring_free, lib.hvd_ring_handle_size,
                    lib.hvd_ring_export, lib.hvd_ring_open, lib.hvd_ring_close,
                    lib.hvd_rs_ring, lib.hvd_ag_ring):

@@ -39,8 +39,8 @@ from .quant_kernels import WIRE_FORMATS, _WIRE_CODE, quant_math_reference
 
 
 def spin_timeout_s() -> float:
-    """Bound on every spin of the kernels (the entry barrier, a slot's
-    flag): past it the kernel prints which flag it waited on and traps.
+    """Bound on every spin of the kernels (a slot's flag): past it the
+    kernel prints which flag it waited on and traps.
     It is the process group's timeout (``init``'s ``timeout_s``), so a
     late peer is waited for as long as the reference's unbounded
     semaphore wait would be before the group itself gives up; with no

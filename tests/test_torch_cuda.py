@@ -478,7 +478,7 @@ def _ring_input(ranks, cols, block, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_deq", [False, True])
-@pytest.mark.parametrize("block", [64, 512, 96])
+@pytest.mark.parametrize("block", [64, 512, 96, 36, 33])
 @pytest.mark.parametrize("wire", ["int8", "fp8"])
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_rs_ring_matches_plain_bitwise(n, wire, block, want_deq):
@@ -523,7 +523,10 @@ def test_ag_ring_matches_plain_bitwise(n, wire, block):
 def test_rings_at_the_bucket_size_and_over_many_epochs():
     """World 4 at the 32 MiB plan's largest bucket (8,208,384 elements,
     c = 2,052,096), then many launches in a row on one window: the
-    epochs and the two parity sets of slots."""
+    epochs and the two parity sets of slots.  The back-to-back B6
+    launches at the bucket size hold the argument that lets the rings
+    skip an entry barrier: no launch stores into a slot a peer may
+    still read."""
     _cuda()
     n = 4
     c = -(-8208384 // (n * 512)) * 512
@@ -542,15 +545,25 @@ def test_rings_at_the_bucket_size_and_over_many_epochs():
             got = rk.rs_ring(small, win, "fp8", 512)[0]
             rk.ag_ring(got, win, "fp8", 512)
         assert torch.equal(_int_bits(got), _int_bits(want_small))
+        # B6 back to back at the bucket size, three inputs in rotation,
+        # checked only after every launch has been queued.
+        xs = [x] + [_ring_input(n, n * c, 512, 23 + i) for i in range(2)]
+        wants = [(want_acc, want_deq)] + [rk.rs_ring_reference(v, "int8", 512, True)
+                                          for v in xs[1:]]
+        got = [rk.rs_ring(xs[i % 3], win, "int8", 512, True) for i in range(12)]
+        for i, (a, d) in enumerate(got):
+            assert torch.equal(_int_bits(a), _int_bits(wants[i % 3][0])), i
+            assert torch.equal(_int_bits(d), _int_bits(wants[i % 3][1])), i
     finally:
         win.close()
 
 
 @pytest.mark.cuda
 def test_rings_alternate_on_one_window_at_the_bucket_size():
-    """B6 and B7 in turns on one window, three inputs in rotation: B7's
-    split slots and B6's packed rows take the same slots in alternate
-    epochs, and a slot read two epochs late would hold another input."""
+    """B6 and B7 in turns on one window, three inputs in rotation: the
+    two kernels take the same slots in alternate epochs, and a slot read
+    two epochs late would hold another input.  Then the same turns back
+    to back, every launch queued before any is checked."""
     _cuda()
     n = 4
     c = -(-8208384 // (n * 512)) * 512
@@ -567,8 +580,33 @@ def test_rings_alternate_on_one_window_at_the_bucket_size():
             assert torch.equal(_int_bits(acc), _int_bits(want_acc)), i
             out = rk.ag_ring(acc, win, "int8", 512)
             assert torch.equal(_int_bits(out), _int_bits(want_out)), i
+        got = []
+        for i in range(12):
+            acc, _ = rk.rs_ring(xs[i % 3], win, "int8", 512)
+            got.append((acc, rk.ag_ring(want[i % 3][0], win, "int8", 512)))
+        for i, (acc, out) in enumerate(got):
+            assert torch.equal(_int_bits(acc), _int_bits(want[i % 3][0])), i
+            assert torch.equal(_int_bits(out), _int_bits(want[i % 3][1])), i
     finally:
         win.close()
+
+
+@pytest.mark.cuda
+def test_window_covers_the_slots_and_every_flag():
+    """``hvd_ring_window_bytes`` for n = 2 to 16: two parity sets of n - 1
+    slots, then one uint32 flag per (parity, slot, stripe) for the
+    kernels' 2048 stripes, rounded up to the slot alignment."""
+    _cuda()
+    lib = peer.library()
+    align = int(lib.hvd_ring_slot_align())
+    for n in range(2, peer.MAX_RANKS + 1):
+        slot = peer.slot_bytes(n)
+        total = int(lib.hvd_ring_window_bytes(n, slot))
+        flags = 2 * (n - 1) * 2048 * 4
+        assert total % align == 0, n
+        assert 2 * (n - 1) * slot + flags <= total < 2 * (n - 1) * slot + flags + align, n
+    assert lib.hvd_ring_window_bytes(1, 256) == -1
+    assert lib.hvd_ring_window_bytes(peer.MAX_RANKS + 1, 256) == -1
 
 
 @pytest.mark.cuda
@@ -606,7 +644,7 @@ _TRAP = textwrap.dedent("""
     from horovod_tpu_torch.ops import ring_kernels as rk
 
     both = peer.PeerWindow.virtual(2)
-    # Rank 0 alone: rank 1 never enters, so rank 0 waits at the barrier.
+    # Rank 0 alone: rank 1 never launches, so rank 0 waits for its arrivals.
     alone = peer.PeerWindow(both.device, 2, [0], both.bases, both.slot_bytes,
                             [], [], False)
     rk.rs_ring(torch.ones(1, 2 * 512 * 4, device="cuda"), alone, "int8", 512,
@@ -735,12 +773,11 @@ def _run_world(root, env, tmp_path, backend, late):
 def test_ring_waits_for_a_late_peer(tmp_path):
     """A peer 12 s late (past the 10 s bound the ring once had, within
     the process group's 100 s timeout, which is now the spins' bound):
-    the early rank's kernels wait on the card and the collective ends
-    bitwise equal to the plain versions.  Then the late rank is 12 s
-    late to an all-gather alone: the early rank's B7 quantizes its shard
-    and stores it into the late rank's slots (it does not wait at the
-    entry barrier), then waits for the late rank's arrivals.  Two ranks
-    share one card on gloo."""
+    the early rank's kernels store into the late rank's slots (neither
+    waits at an entry barrier), then wait on the card for its arrivals,
+    and the collective ends bitwise equal to the plain versions.  Then
+    the late rank is 12 s late to an all-gather alone.  Two ranks share
+    one card on gloo."""
     _cuda()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, HVD_TPU_QUANT_BACKEND="fused")

@@ -24,6 +24,8 @@ Tolerances, and why:
 * full attention, float32: 2e-6 absolute (one softmax, two products).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,19 @@ from horovod_tpu_torch.ops import flash
 from horovod_tpu_torch.parallel.ring_attention import full_attention
 
 torch.set_num_threads(2)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """One intra-op thread for a bitwise comparison of two float32 GEMM
+    computations: on a loaded host, MKL's threaded sgemm need not give
+    the same bits from one call to the next."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -130,8 +145,9 @@ def test_forward_reference_matches_jax_at_the_kernel_tiles(dtype, block, causal,
 def test_forward_on_cpu_takes_the_plain_version():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 40, 2, 16, seed=1))
     before = flash.flash_forward.launches
-    out, lse = flash.flash_forward(q, k, v, True, 0.25)
-    want_o, want_l = flash.flash_forward_reference(q, k, v, True, 0.25)
+    with _one_thread():
+        out, lse = flash.flash_forward(q, k, v, True, 0.25)
+        want_o, want_l = flash.flash_forward_reference(q, k, v, True, 0.25)
     assert flash.flash_forward.launches == before
     assert torch.equal(out, want_o) and torch.equal(lse, want_l)
 

@@ -8,10 +8,27 @@ entry point at that entry point's key tile.  The kernels themselves run
 only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
+import contextlib
+
 import pytest
 import torch
 
 from horovod_tpu_torch.ops import flash
+
+torch.set_num_threads(2)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """One intra-op thread for a bitwise comparison of two float32 GEMM
+    computations: on a loaded host, MKL's threaded sgemm need not give
+    the same bits from one call to the next."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -100,9 +117,10 @@ def test_cpu_tensors_take_the_plain_version_at_the_routes_tile(entry, block, cau
     fn = getattr(flash, entry)
     counts = (flash.flash_forward.launches, flash.flash_forward_wgmma.launches,
               flash.flash_forward_mma.launches)
-    out, lse = fn(q, k, v, causal, 0.125, seg)
-    want_o, want_l = flash.flash_forward_reference(q, k, v, causal, 0.125, seg,
-                                                   block_k=block)
+    with _one_thread():
+        out, lse = fn(q, k, v, causal, 0.125, seg)
+        want_o, want_l = flash.flash_forward_reference(q, k, v, causal, 0.125, seg,
+                                                       block_k=block)
     assert torch.equal(out, want_o) and torch.equal(lse, want_l)
     assert counts == (flash.flash_forward.launches, flash.flash_forward_wgmma.launches,
                       flash.flash_forward_mma.launches)

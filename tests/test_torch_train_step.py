@@ -502,9 +502,14 @@ def test_predivide_and_local_accumulation_world1():
         model, opt = _linear_step(gradient_predivide_factor=4.0)
         ref, _ = _linear_step()
         ref_opt = torch.optim.SGD(ref.parameters(), lr=0.5)
-        for m, o in ((model, opt), (ref, ref_opt)):
-            m(x).sum().backward()
-            o.step()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # two GEMM computations compared bitwise
+        try:
+            for m, o in ((model, opt), (ref, ref_opt)):
+                m(x).sum().backward()
+                o.step()
+        finally:
+            torch.set_num_threads(threads)
         for a, b in zip(model.parameters(), ref.parameters()):
             assert torch.equal(a, b)
 
