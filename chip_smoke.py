@@ -57,6 +57,16 @@ exits non-zero):
    residuals, and per bucket per step B3 twice, B4 and B5 once, B1, B6
    and B7 never (a world of one falls back from the ring).  Then fp8
    for 1 warm-up + 2 steps, with its counts.
+   Each bucket's exchange runs after the backward (the default).
+   Then slice overlap: the same model at world one on bf16 and on int8,
+   each bucket's exchange launched from the backward, on the exchange
+   worker thread and stream (``HVD_TPU_SCHED_BARRIERS=1``), and after it
+   (``=0``), in turns (on, off, off, on), 2 warm-up
+   + 10 timed steps and one traced step each: the four runs' weights and
+   losses bitwise equal, exact launches in each, every bucket launched
+   from the backward in the overlapped runs and none in the others;
+   step ms, img/s and, from CUDA events, each bucket's exchange start
+   and end against the end of the backward's kernels.
 6. reference: a small float32 ResNet on the card against the CPU path
    (plain versions), three steps on the bf16 wire and three on int8, to
    stated tolerances.
@@ -74,7 +84,11 @@ exits non-zero):
    one card), the stores staying on the card.  In either, B6 (with and
    without the dequant) and B7 bitwise against their plain versions on
    every rank at the largest bucket and at blocks 96 / 64 / 36 / 33;
-   across cards also B6's and B7's timelines on rank 0.
+   across cards also B6's and B7's timelines on rank 0, and the overlap
+   runs of phase 5 at this world on the int8 ring and on bf16 over
+   NCCL: every rank's weights bitwise equal in each run and across the
+   four, with B6's and B7's device time per launch beside the backward
+   and after it (``torch.profiler``, one step each of the int8 runs).
 8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
@@ -87,7 +101,10 @@ exits non-zero):
 9. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
    seq 256) for three steps on the card against the CPU path, to stated
    tolerances.
-10. result: the card line, the kernels JSON line, then
+10. examples: ``examples/torch_port_mnist.py`` (one epoch of 4096
+   samples) and ``examples/torch_synthetic_benchmark.py --num-iters 1``
+   run as a user starts them, each checked for its last lines.
+11. result: the card line, the kernels JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel time is given three ways (``split_ms``): the device time
@@ -122,6 +139,7 @@ def fail(msg: str) -> None:
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor core; FFMA
 WARMUP, TIMED = 2, 5
+OVERLAP_TIMED = 10  # timed steps of each overlap run
 FP8_WARMUP, FP8_TIMED = 1, 2
 PACKED_WARMUP, PACKED_TIMED = 1, 2
 BLOCK = 512  # HVD_TPU_QUANT_BLOCK default
@@ -687,6 +705,164 @@ def slice_phase(hvd, tresnet, build_dp_step, timed_throughput, kernels, qk, rk,
             "residual_l1": residual}
 
 
+def expected_launches(wire, buckets, steps, world=1):
+    """Kernel launches of ``steps`` ResNet steps of ``buckets`` buckets:
+    bf16, B1 twice per bucket per step (and once more for the 1/size
+    postscale at world > 1); int8 at world 1, B3 twice (with the dequant
+    for the residual, and for the all-gather), B4 and B5 once; int8 on
+    the ring, B6 and B7 once and B1 once (the postscale)."""
+    zero = {"scale_cast": 0, "quant_pack": 0, "dequant_accum": 0,
+            "dequant_rows": 0, "rs_ring": 0, "ag_ring": 0}
+    n = buckets * steps
+    if wire == "bf16":
+        return dict(zero, scale_cast=(2 if world == 1 else 3) * n)
+    if world == 1:
+        return dict(zero, quant_pack=2 * n, dequant_accum=n, dequant_rows=n)
+    return dict(zero, scale_cast=n, rs_ring=n, ag_ring=n)
+
+
+def profile_step(step, batch):
+    """One step under ``torch.profiler``: per launch, B6's and B7's device
+    ms (a wait for a late peer included), and the device ms of the step's
+    NCCL kernels (waits for peers included), of its other exchange
+    kernels (B1, B3-B5) and of every other kernel, the model's forward
+    and backward (None when the profiler records no device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step(batch))
+        torch.cuda.synchronize()
+    kinds = (("rs_ring", "rs_ring_kernel"), ("ag_ring", "ag_ring_kernel"),
+             ("nccl", "nccl"), ("exchange", "scale_cast"), ("exchange", "quant"))
+    times = {"rs_ring": [], "ag_ring": [], "nccl": [], "exchange": [], "compute": []}
+    for e in prof.events():
+        if getattr(e, "device_type", None) is None or \
+                not str(e.device_type).endswith("CUDA") or \
+                e.time_range.end <= e.time_range.start:
+            continue
+        key = next((k for k, pat in kinds if pat in e.name.lower()), "compute")
+        times[key].append((e.time_range.end - e.time_range.start) / 1e3)
+    if not any(times.values()):
+        return None
+    return {"rs_ring_ms": times["rs_ring"], "ag_ring_ms": times["ag_ring"],
+            "nccl_ms": sum(times["nccl"]), "exchange_ms": sum(times["exchange"]),
+            "compute_ms": sum(times["compute"]), "compute_kernels": len(times["compute"])}
+
+
+def overlap_run(hvd, tresnet, build_dp_step, timed_throughput, counters, batch,
+                barriers, timed, profile=False):
+    """One run of the ResNet-50 step with each bucket's exchange launched
+    from the backward (``barriers``) or after it: ``WARMUP`` + ``timed``
+    steps through ``TrainStep``, then one traced step (its chain's launch
+    log, where ``from_hook`` means launched from the backward, before
+    ``step()``; each bucket's exchange on CUDA events), then,
+    with ``profile``, one step under the profiler (after the launch
+    counts are read).  Returns the run's record with a digest of the
+    final weights and buffers."""
+    import hashlib
+
+    import torch
+    from horovod_tpu_torch.sched import execute
+
+    os.environ["HVD_TPU_SCHED_BARRIERS"] = "1" if barriers else "0"
+    dev = hvd.device()
+    model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device=dev)
+    step, opt = build_dp_step(hvd, model)
+    for c in counters.values():
+        c.launches = 0
+    seconds, losses = timed_throughput(step, batch, iters=timed, warmup=WARMUP)
+    with execute.traced() as chains:  # each bucket on CUDA events
+        losses.append(float(step(batch)))
+    chain = chains[-1]
+    timeline = chain.timeline()
+    launches = {k: c.launches for k, c in counters.items()}
+    prof = profile_step(step, batch) if profile else None
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    under = sum(max(0.0, min(end, 0.0) - start) for start, end in timeline)
+    rec = {"barriers": barriers, "losses": losses, "seconds": seconds,
+           "step_ms": seconds / timed * 1e3, "launches": launches,
+           "buckets": [b.nbytes // 4 for b in opt.schedule.buckets],
+           "from_hooks": sum(1 for _, hook in chain.log if hook), "timeline": timeline,
+           "ended_before": sum(1 for _, end in timeline if end < 0),
+           "exchange_ms": sum(end - start for start, end in timeline),
+           "under_ms": under, "profile": prof, "digest": h.hexdigest()}
+    del model, step, opt
+    os.environ.pop("HVD_TPU_SCHED_BARRIERS")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_overlap(runs, what, world):
+    """Every run of an A/B set bitwise equal, with exact launches; the
+    overlapped runs launched every bucket from the backward, the others
+    none."""
+    steps = WARMUP + OVERLAP_TIMED + 1
+    for r in runs:
+        nb = len(r["buckets"])
+        want = expected_launches(what, nb, steps, world)
+        if r["launches"] != want:
+            fail(f"overlap {what} world {world}: launches {r['launches']}; the "
+                 f"schedule implies {want} ({nb} buckets x {steps} steps)")
+        if r["from_hooks"] != (nb if r["barriers"] else 0):
+            fail(f"overlap {what} world {world}: {r['from_hooks']} of {nb} buckets "
+                 f"launched from the backward with the barriers "
+                 f"{'on' if r['barriers'] else 'off'}")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"overlap {what} world {world}: non-finite losses {r['losses']}")
+    if len({r["digest"] for r in runs}) != 1 or \
+            len({tuple(r["losses"]) for r in runs}) != 1:
+        fail(f"overlap {what} world {world}: the overlapped and after-backward runs "
+             f"differ: digests {[r['digest'][:12] for r in runs]}, losses "
+             f"{[r['losses'] for r in runs]}")
+
+
+def fmt_overlap(r, images):
+    """One run's line: step time, img/s and each bucket's exchange."""
+    spans = ", ".join(f"{a:+.2f}..{b:+.2f}" for a, b in r["timeline"])
+    return (f"{'overlapped' if r['barriers'] else 'after backward'}: step "
+            f"{r['step_ms']:.2f} ms, {images * OVERLAP_TIMED / r['seconds']:.1f} img/s; "
+            f"buckets' exchange (ms from the backward's end) [{spans}]; "
+            f"{r['ended_before']}/{len(r['timeline'])} ended before it, "
+            f"{r['under_ms']:.3f} of {r['exchange_ms']:.3f} ms under the backward")
+
+
+def overlap_phase(hvd, tresnet, build_dp_step, timed_throughput, counters, card, log):
+    """Phase slice overlap: the full-width ResNet-50 at world one on the
+    bf16 and int8 wires, each bucket's exchange launched from the
+    backward and after it, in turns (on, off, off, on)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = (torch.rand(32, 224, 224, 3, generator=g, device="cuda"),
+             torch.randint(0, 1000, (32,), generator=g, device="cuda"))
+    out = {}
+    for wire in ("bf16", "int8"):
+        os.environ["HVD_TPU_SCHED_WIRE"] = wire
+        runs = []
+        for barriers in (True, False, False, True):
+            hvd.init("cuda")
+            try:
+                runs.append(overlap_run(hvd, tresnet, build_dp_step, timed_throughput,
+                                        counters, batch, barriers, OVERLAP_TIMED))
+            finally:
+                hvd.shutdown()
+        check_overlap(runs, wire, 1)
+        print(f"phase slice overlap {wire}: ResNet-50 224x224 batch 32 bf16, world 1, "
+              f"{len(runs[0]['buckets'])} buckets; overlapped, after, after, overlapped: "
+              f"weights bitwise equal, launches {runs[0]['launches']} (= expected) in "
+              f"each, losses {[round(v, 5) for v in runs[0]['losses']]} on {card}",
+              flush=True)
+        for r in runs:
+            print(f"phase slice overlap {wire}: {fmt_overlap(r, 32)}", flush=True)
+        out[wire] = runs
+    log["overlap"] = out
+    return out
+
+
 def ring_worker(args) -> None:
     """One rank of the ring slice (phase 7), started by ``ring_slice_phase``."""
     import hashlib
@@ -744,6 +920,27 @@ def ring_worker(args) -> None:
         buckets = [b.nbytes // 4 for b in opt.schedule.buckets]
         del model, opt
         torch.cuda.empty_cache()
+
+        # Each bucket's exchange launched from the backward and after it,
+        # in turns, on the int8 ring and on bf16 over NCCL (across cards
+        # only: on one shared card the ranks take turns on it).
+        overlap = {}
+        if args.ring_backend == "nccl":
+            for what in ("int8", "bf16"):
+                os.environ["HVD_TPU_SCHED_WIRE"] = what
+                os.environ["HVD_TPU_QUANT_BACKEND"] = "fused"
+                runs = []
+                for barriers in (True, False, False, True):
+                    metrics.reset("quant.")
+                    r = overlap_run(hvd, tresnet, build_dp_step, timed_throughput,
+                                    counters, batch, barriers, OVERLAP_TIMED,
+                                    profile=True)
+                    r["fallback"] = metrics.get_counter("quant.fused_fallback")
+                    r["digests"] = [None] * n
+                    dist.all_gather_object(r["digests"], r["digest"])
+                    runs.append(r)
+                overlap[what] = runs
+            os.environ["HVD_TPU_SCHED_WIRE"] = "int8"
 
         # B6 and B7 bitwise against their plain versions in this world:
         # every rank makes every rank's rows from one seed and launches its
@@ -828,7 +1025,8 @@ def ring_worker(args) -> None:
                            "losses": losses, "phase_first_loss": phase_losses[0],
                            "seconds": seconds, "launches": launches,
                            "fallback": fallback, "digests": digests, "held": held,
-                           "exchange_ms": exchange, "kernel_ms": kernel_ms}, f)
+                           "exchange_ms": exchange, "kernel_ms": kernel_ms,
+                           "overlap": overlap}, f)
         if len(set(digests)) != 1:
             raise SystemExit(f"rank {rank}: ranks hold different weights: {digests}")
     finally:
@@ -914,6 +1112,30 @@ def ring_slice_phase(card, count, log):
             print(f"phase slice ring: bucket {v} elements: exchange on the ring "
                   f"{fmt_split(ring)}; on the NCCL lowering (B3 + all_to_all + B4, "
                   f"B3 + all_gather + B5) {fmt_split(low)}", flush=True)
+        for what, runs in rec["overlap"].items():
+            check_overlap(runs, what, n)
+            for r in runs:
+                if len(set(r["digests"])) != 1:
+                    fail(f"overlap {what} world {n}: ranks hold different weights")
+                if what == "int8" and r["fallback"]:
+                    fail(f"overlap int8 world {n}: {r['fallback']} collectives fell back")
+            print(f"phase slice ring overlap {what}: world {n}, {len(runs[0]['buckets'])} "
+                  f"buckets; overlapped, after, after, overlapped: every rank's weights "
+                  f"bitwise equal, and equal across the four runs; launches "
+                  f"{runs[0]['launches']} (= expected) in each on {card}", flush=True)
+            for r in runs:
+                print(f"phase slice ring overlap {what}: {fmt_overlap(r, 32 * n)}",
+                      flush=True)
+                p = r["profile"]
+                if p is not None:
+                    print(f"phase slice ring overlap {what}: profiled step "
+                          f"({'overlapped' if r['barriers'] else 'after backward'}), "
+                          f"rank 0: B6 device ms per launch "
+                          f"{[round(v, 4) for v in p['rs_ring_ms']]}, B7 "
+                          f"{[round(v, 4) for v in p['ag_ring_ms']]}; NCCL "
+                          f"{p['nccl_ms']:.3f} ms, B1/B3-B5 {p['exchange_ms']:.3f} ms, "
+                          f"forward and backward {p['compute_ms']:.3f} ms "
+                          f"({p['compute_kernels']} kernels)", flush=True)
     else:
         print("phase slice ring: the per-bucket exchange times and the NVLink bound "
               "need two or more cards; on one card B6 and B7 were held against their "
@@ -1237,6 +1459,33 @@ def reference_gpt_phase(hvd, tt, build_lm_step):
             "worst_mean_ratio": worst_ratio}
 
 
+def examples_phase(root, card):
+    """Phase examples: the ported MNIST example and the synthetic
+    benchmark, each a short run on the card as a user starts them."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK") and not k.startswith("HVD_TPU_")}
+    out = {}
+    for script, args, want in (
+            ("torch_port_mnist.py", ["--epochs", "1", "--num-samples", "4096"],
+             "final loss"),
+            ("torch_synthetic_benchmark.py", ["--num-iters", "1", "--num-warmup-batches",
+                                              "2", "--num-batches-per-iter", "5"],
+             "Total img/sec")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(root, "examples", script)] + args,
+                              cwd=root, env=env, capture_output=True, text=True,
+                              timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not any(want in line for line in lines):
+            fail(f"examples/{script} exited with {proc.returncode}: "
+                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        print(f"phase examples: examples/{script} {' '.join(args)}: "
+              f"{' | '.join(lines[-2:])} ({time.perf_counter() - t0:.0f} s with start-up; "
+              f"{card})", flush=True)
+        out[script] = lines
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
@@ -1355,6 +1604,11 @@ def main() -> None:
         if sorted(runs[wire]["buckets"]) != sorted(sizes):
             fail(f"{wire}: buckets {runs[wire]['buckets']} != planned {sizes}")
     log["slices"] = runs
+    overlap_phase(hvd, tresnet, build_dp_step, timed_throughput,
+                  {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                   "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                   "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring}, card, log)
+    torch.cuda.empty_cache()
 
     log["reference"] = [reference_phase(hvd, tresnet, build_dp_step, w)
                         for w in ("bf16", "int8")]
@@ -1382,6 +1636,8 @@ def main() -> None:
             warmup, timed, card)
     log["gpt"] = gpt_runs
     log["reference_gpt"] = reference_gpt_phase(hvd, tt, build_lm_step)
+    torch.cuda.empty_cache()
+    log["examples"] = examples_phase(root, card)
 
     entries = [("scale_cast", "scale_cast.cu", record, runs["bf16"])]
     entries += [(k, "quant.cu", qrecords[k], runs["int8"])

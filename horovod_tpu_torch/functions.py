@@ -1,17 +1,19 @@
-"""Broadcast model and optimizer state from one rank.
+"""Broadcast model and optimizer state, and Python objects.
 
 Counterpart of ``horovod_tpu/functions.py`` ``broadcast_parameters``
-(``:88``) and ``broadcast_optimizer_state`` (``:157``), in the shape of
-the reference's ``horovod/torch/functions.py``: parameters go as
-tensors, fused into one buffer per dtype; optimizer state as a pickled
-object.
+(``:88``), ``broadcast_optimizer_state`` (``:157``),
+``broadcast_object`` (``:169``) and ``allgather_object`` (``:212``), in
+the shape of the reference's ``horovod/torch/functions.py``: parameters
+go as tensors, fused into one buffer per dtype; optimizer state and
+objects as pickles (``torch.distributed``'s object collectives).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple, Union
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from . import runtime
 from .ops import collectives, fusion
@@ -57,3 +59,32 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     synced = runtime.broadcast_object(to_cpu(state), root_rank)
     # load_state_dict moves state tensors onto each parameter's device.
     optimizer.load_state_dict(synced)
+
+
+def _global_set(process_set, name: str) -> None:
+    if process_set is not None:
+        raise NotImplementedError(
+            f"{name}: process sets are not ported to horovod_tpu_torch yet "
+            "(ROADMAP Queue A item 5)"
+        )
+
+
+def broadcast_object(obj: Any, root_rank: int = 0, name: Optional[str] = None,
+                     process_set=None) -> Any:
+    """``root_rank``'s ``obj``, pickled, on every rank (reference
+    ``horovod/torch/functions.py:165``).  ``obj`` itself in a world of
+    one.  ``name`` is accepted for the reference's signature."""
+    _global_set(process_set, "broadcast_object")
+    return runtime.broadcast_object(obj, root_rank)
+
+
+def allgather_object(obj: Any, name: Optional[str] = None,
+                     process_set=None) -> List[Any]:
+    """Every rank's ``obj``, pickled, in rank order (reference
+    ``horovod/torch/functions.py:206``); ``[obj]`` in a world of one."""
+    _global_set(process_set, "allgather_object")
+    if runtime.size() == 1:
+        return [obj]
+    out = [None] * runtime.size()
+    dist.all_gather_object(out, obj)
+    return out

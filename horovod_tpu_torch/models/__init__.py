@@ -1,6 +1,13 @@
 """Models of the ported slices."""
 
-from .resnet import ResNet, ResNet50, load_jax_params  # noqa: F401
+from .mnist import MnistCNN, MnistMLP  # noqa: F401
+from .resnet import (  # noqa: F401
+    ResNet,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+    load_jax_params,
+)
 from .transformer import (  # noqa: F401
     Transformer,
     TransformerConfig,

@@ -1,7 +1,8 @@
 """ResNet v1.5 as a torch ``nn.Module`` with the JAX model's numerics.
 
 Counterpart of ``horovod_tpu/models/resnet.py`` (``ResNet`` ``:59``,
-``ResNet50`` ``:141``).  The public ``forward`` takes NHWC input like
+``space_to_depth`` ``:51``, ``ResNet50``, ``ResNet101`` and
+``ResNet152`` ``:141-143``).  The public ``forward`` takes NHWC input like
 the flax model; inside, tensors are NCHW views in channels-last memory.
 What is kept from the flax model, on purpose:
 
@@ -14,6 +15,9 @@ What is kept from the flax model, on purpose:
   normalisation computed in float32 and rounded to the model dtype.
 * Convolutions run in the model dtype (bf16 for ResNet-50) on float32
   master weights; the classifier runs in float32.
+* The ``space_to_depth`` stem (``:97-117``): the 7x7/2 stem conv folded
+  into a 4x4/1 conv over 2x2 blocks of the input padded by 3, the same
+  function with 4x the input channels; it refuses odd input sizes.
 * Parameter layouts follow torch (conv OIHW, linear (out, in));
   :func:`load_jax_params` carries the flax tree across.
 """
@@ -125,17 +129,34 @@ class BottleneckBlock(nn.Module):
         return F.relu(residual + y)
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC space-to-depth: (N, H, W, C) -> (N, H/b, W/b, C·b·b), the
+    channels of a block in (row, column, channel) order."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // block, w // block,
+                                               c * block * block)
+
+
 class ResNet(nn.Module):
-    """ResNet v1.5 (stride on the 3x3) with a 7x7/2 stem; NHWC input,
+    """ResNet v1.5 (stride on the 3x3) with a 7x7/2 stem (``stem="conv7"``)
+    or its space-to-depth fold (``stem="space_to_depth"``); NHWC input,
     float32 logits.  Weights are drawn from ``seed`` on the CPU, then
     moved to ``device``."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 *, seed: int = 0, device="cuda"):
+                 *, seed: int = 0, device="cuda", stem: str = "conv7"):
         super().__init__()
-        self.dtype = dtype
-        self.conv_init = Conv(3, num_filters, 7, 2, padding=3, dtype=dtype)
+        if stem not in ("conv7", "space_to_depth"):
+            raise ValueError(
+                f"unknown stem {stem!r}; expected 'conv7' or 'space_to_depth'"
+            )
+        self.dtype, self.stem = dtype, stem
+        if stem == "conv7":
+            self.conv_init = Conv(3, num_filters, 7, 2, padding=3, dtype=dtype)
+        else:
+            self.conv_init_s2d = Conv(12, num_filters, 4, 1, padding=0, dtype=dtype)
         self.bn_init = BatchNorm(num_filters, dtype=dtype)
         blocks = []
         cin = num_filters
@@ -157,8 +178,20 @@ class ResNet(nn.Module):
         self.to(device=device, memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW view
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = x.to(self.dtype)
+        if self.stem == "space_to_depth":
+            if x.shape[1] % 2 or x.shape[2] % 2:
+                raise ValueError(
+                    "space_to_depth stem needs even input H/W (got "
+                    f"{x.shape[1]}x{x.shape[2]}); use stem='conv7' for odd sizes"
+                )
+            # Output i of the 7x7/2 conv padded by 3 reads padded rows
+            # [2i, 2i+7): blocks [i, i+4) after the 2x2 fold.
+            x = space_to_depth(F.pad(x, (0, 0, 3, 3, 3, 3)), 2)
+            x = self.conv_init_s2d(x.permute(0, 3, 1, 2))  # NHWC -> NCHW view
+        else:
+            x = self.conv_init(x.permute(0, 3, 1, 2))
+        x = F.relu(self.bn_init(x))
         x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, 2)
         for block in self.blocks:
             x = block(x)
@@ -167,6 +200,8 @@ class ResNet(nn.Module):
 
 
 ResNet50 = partial(ResNet, stage_sizes=[3, 4, 6, 3])
+ResNet101 = partial(ResNet, stage_sizes=[3, 4, 23, 3])
+ResNet152 = partial(ResNet, stage_sizes=[3, 8, 36, 3])
 
 
 def load_jax_params(
@@ -191,7 +226,9 @@ def load_jax_params(
             put(f"{prefix}.var", s["var"])
 
     stats = batch_stats or {}
-    put("conv_init.weight", params["conv_init"]["kernel"], (3, 2, 0, 1))
+    for stem in ("conv_init", "conv_init_s2d"):
+        if stem in params:
+            put(f"{stem}.weight", params[stem]["kernel"], (3, 2, 0, 1))
     norm("bn_init", params["bn_init"], stats.get("bn_init"))
     i = 0
     while f"BottleneckBlock_{i}" in params:

@@ -2,14 +2,17 @@
 
 Counterpart of ``horovod_tpu/optim/distributed_optimizer.py``:
 ``DistributedOptimizer`` (``:615``, with the predivide split of
-``:648-657``), the scheduler path of ``_reduce_gradients`` and
+``:648-657``, ``groups`` and ``sparse_as_dense`` of ``:209-224`` and
+``:306-315``), the scheduler path of ``_reduce_gradients`` and
 ``TrainStep`` (``:815``, the semantics of ``:907-934``), with the
 quantized wire's per-bucket dispatch (``:368-398``, ``:504-524``) and
 its error-feedback residuals (``_ef_active`` ``:679-701``).  The API has
 the shape of ``horovod_tpu/interop/torch.py`` and the reference's
 ``horovod.torch``: the wrapper IS-A ``type(optimizer)``, takes
-``named_parameters``, and reduces the gradients in ``step()`` (or an
-explicit ``synchronize()``) before the wrapped optimizer applies them.
+``named_parameters``, reduces the gradients in ``step()`` (or an
+explicit ``synchronize()``) before the wrapped optimizer applies them,
+and has ``skip_synchronize()`` and ``set_backward_passes_per_step``
+(``interop/torch.py:656-686``).
 
 The reduction is the bucketed scheduler: gradients are compressed,
 planned into buckets in reverse-backward order (the readiness order the
@@ -18,21 +21,46 @@ and each bucket is allreduced as one flat buffer per dtype, with a bf16
 wire around it when ``HVD_TPU_SCHED_WIRE=bf16``, or exchanged as a
 quantized reduce-scatter + all-gather under ``HVD_TPU_SCHED_WIRE=int8``
 / ``fp8`` or ``Compression.int8`` / ``fp8`` (the compressor wins over
-the knob).  The collectives run after the backward, not overlapped with
-it.
+the knob).
+
+Overlap (``HVD_TPU_SCHED_BARRIERS=1`` with the scheduler on; off by
+default, see ``sched/plan.py`` ``SchedConfig``): from the second step,
+each bucket is launched from the backward, as soon as its last gradient
+has been accumulated and every earlier bucket of the schedule has been
+launched (``sched/hooks.py`` ``ScheduleLauncher``), so every rank
+issues the same collectives in the same order.  The hook only queues
+the bucket: it runs on the exchange worker thread (``sched/execute.py``
+``BucketChain``), on a card on the exchange stream, while the backward
+goes on.  The first step exchanges after its backward: its plan needs
+rank 0's observed order, a host collective, and every other host
+collective of the exchange (the ring's window, the peer-access check)
+is made there too, so none runs inside a hook.  ``step()`` /
+``synchronize()`` launch, in schedule order, the buckets whose hooks
+never fired (a parameter without a gradient sends zeros), wait for
+every bucket and copy the results into ``p.grad``.  With the barriers
+off, or ``HVD_TPU_SCHED=off``, the exchange runs after the backward.
+Either way each bucket computes the same bits.  A second backward
+before ``step()`` (more than ``backward_passes_per_step``) raises from
+its hooks, as the reference's does; ``zero_grad()`` first finishes and
+drops an exchange the backward launched.  The launch counters and
+``residuals`` are complete once ``step()`` has returned.
 
 Error feedback (``HVD_TPU_SCHED_WIRE_EF``, default on): when a quantized
 wire is requested at construction with the scheduler on, every
 parameter gets a float32 residual, zero at first; a quantized bucket
-sends ``g + r`` and keeps ``r ← (g + r) − dequant(quantize(g + r))``.
-The residuals are rank-local: they are not part of ``state_dict()`` and
-``broadcast_optimizer_state`` leaves them alone.
+sends ``g + r`` and keeps ``r ← (g + r) − dequant(quantize(g + r))``,
+written back when the bucket's result is used (``step()`` /
+``synchronize()``); a result dropped (``skip_synchronize()`` without
+``synchronize()``, ``zero_grad()``) leaves them as they were.  The residuals are rank-local: they
+are not part of ``state_dict()`` and ``broadcast_optimizer_state``
+leaves them alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,7 +72,7 @@ from ..ops import collectives, fusion
 from ..ops.collectives import Average, Sum
 from ..ops.quantized import quantized_allreduce
 from ..sched import execute
-from ..sched.hooks import GradOrder
+from ..sched.hooks import GradOrder, ScheduleLauncher
 from ..sched.plan import (
     QUANTIZED_WIRES,
     BucketSchedule,
@@ -52,6 +80,16 @@ from ..sched.plan import (
     build_schedule,
     dtype_name,
 )
+
+
+def densify(grad: torch.Tensor) -> torch.Tensor:
+    """A sparse COO gradient as a dense tensor: its values scatter-added
+    into zeros in index order (``horovod_tpu/ops/sparse.py`` ``densify``,
+    ``:94``)."""
+    if grad.sparse_dim() != 1:
+        return grad.to_dense()
+    out = torch.zeros(grad.shape, dtype=grad.dtype, device=grad.device)
+    return out.index_add_(0, grad._indices()[0], grad._values())
 
 
 class _DistributedOptimizer:
@@ -70,6 +108,8 @@ class _DistributedOptimizer:
         prescale_factor: float = 1.0,
         postscale_factor: float = 1.0,
         fusion_threshold_bytes: Optional[int] = None,
+        groups: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+        sparse_as_dense: bool = False,
     ):
         cfg = SchedConfig.from_env()
         self._quantized = getattr(compression, "quantized_wire", False)
@@ -93,22 +133,23 @@ class _DistributedOptimizer:
             # by f/size after.
             prescale_factor = prescale_factor / gradient_predivide_factor
             postscale_factor = postscale_factor * gradient_predivide_factor
-        self._k = int(backward_passes_per_step)
-        if self._k < 1:
-            raise ValueError("backward_passes_per_step must be >= 1")
         self._opt = optimizer
+        self.set_backward_passes_per_step(backward_passes_per_step)
         self._op = op
         self._compression = compression
+        self._quantized_req = quantized_req
         self._avg_agg = average_aggregated_gradients
         self._prescale = prescale_factor
         self._postscale = postscale_factor
         self._fusion_threshold = fusion_threshold_bytes
+        self._sparse_as_dense = sparse_as_dense
         self._params: List[torch.Tensor] = [
             p for group in optimizer.param_groups for p in group["params"]
             if p.requires_grad
         ]
         if named_parameters is not None:
             self._check_names(named_parameters)
+        self._pinned = self._group_indices(groups)
         # Error-feedback residuals, one float32 tensor per parameter.
         self._residuals: Optional[List[torch.Tensor]] = None
         if cfg.enabled and cfg.wire_ef and quantized_req:
@@ -117,13 +158,25 @@ class _DistributedOptimizer:
                 for p in self._params
             ]
         self._order = (
-            GradOrder(self._params)
-            if cfg.enabled and cfg.capture_order else None
+            GradOrder(self._params, self._grad_ready) if cfg.enabled else None
         )
         self._schedule_key = None
         self._schedule: Optional[BucketSchedule] = None
         self._calls = 0
         self._synchronized = False
+        self._should_synchronize = True
+        # The step's exchange: the chain and its launcher once a bucket
+        # may launch, each launched leaf's wire tensor and compression
+        # context, the residuals its quantized buckets computed, the
+        # leaves the k-th backward made ready, and the plan the next
+        # k-th backward launches from.
+        self._chain: Optional[execute.BucketChain] = None
+        self._launcher: Optional[ScheduleLauncher] = None
+        self._leaves: Dict[int, torch.Tensor] = {}
+        self._ctx: Dict[int, object] = {}
+        self._pending: List[tuple] = []
+        self._marked: set = set()
+        self._overlap_plan: Optional[BucketSchedule] = None
 
     def _check_names(self, named_parameters) -> None:
         """The reference's check: unique names covering every parameter
@@ -140,6 +193,29 @@ class _DistributedOptimizer:
                 f"named_parameters does not name {missing} of the "
                 "optimizer's parameters"
             )
+
+    def _group_indices(self, groups) -> Tuple[Tuple[int, ...], ...]:
+        """``groups`` (lists of parameters) as the plan's pinned groups of
+        parameter indices (the JAX package's ``groups`` of leaf indices)."""
+        if groups is None:
+            return ()
+        index = {id(p): i for i, p in enumerate(self._params)}
+        pinned, seen = [], set()
+        for group in groups:
+            idx = []
+            for p in group:
+                i = index.get(id(p))
+                if i is None:
+                    raise ValueError(
+                        "groups names a parameter the optimizer does not update"
+                    )
+                if i in seen:
+                    raise ValueError("groups names a parameter twice")
+                seen.add(i)
+                idx.append(i)
+            if idx:
+                pinned.append(tuple(idx))
+        return tuple(pinned)
 
     # Everything not overridden forwards to the wrapped optimizer
     # (param_groups, state, defaults, ...).
@@ -161,7 +237,35 @@ class _DistributedOptimizer:
         )
 
     def zero_grad(self, set_to_none: bool = True):
+        self._discard()
         return self._opt.zero_grad(set_to_none=set_to_none)
+
+    @property
+    def backward_passes_per_step(self) -> int:
+        return self._k
+
+    def set_backward_passes_per_step(self, k: int) -> None:
+        """Reduce and apply on every k-th ``step()`` only; the calls
+        between accumulate gradients locally."""
+        if int(k) < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
+        self._k = int(k)
+
+    def skip_synchronize(self):
+        """Context manager: the ``step()`` inside applies the gradients
+        without reducing them.  Pair it with an explicit
+        ``synchronize()`` before, e.g. to clip the reduced gradients
+        (reference ``torch/optimizer.py`` ``skip_synchronize``)."""
+
+        @contextlib.contextmanager
+        def ctx():
+            self._should_synchronize = False
+            try:
+                yield
+            finally:
+                self._should_synchronize = True
+
+        return ctx()
 
     @property
     def accumulating(self) -> bool:
@@ -180,9 +284,22 @@ class _DistributedOptimizer:
         """The exchange plan of the last reduction (None before it)."""
         return self._schedule
 
-    def _plan(self, sizes, dtypes, cfg: SchedConfig) -> BucketSchedule:
+    def _key(self, wire: Sequence[torch.Tensor], cfg: SchedConfig) -> tuple:
+        """What the plan is a function of: the leaves' wire sizes (one
+        byte per element under a quantized compressor, so buckets fill to
+        the intended wire-size threshold), their dtypes and the config."""
+        return (
+            tuple(w.numel() * (1 if self._quantized else w.element_size())
+                  for w in wire),
+            tuple(dtype_name(w.dtype) for w in wire),
+            cfg,
+        )
+
+    def _plan(self, key: tuple) -> BucketSchedule:
+        sizes, dtypes, cfg = key
         observed = self._order.consume() if self._order is not None else None
-        key = (tuple(sizes), tuple(dtypes), cfg)
+        if not cfg.capture_order:
+            observed = None
         if self._schedule is not None and key == self._schedule_key:
             return self._schedule
         if cfg.enabled:
@@ -192,68 +309,179 @@ class _DistributedOptimizer:
             order = runtime.broadcast_object(observed, root_rank=0)
             wire = self._compression.wire_format if self._quantized else None
             schedule = build_schedule(sizes, dtypes, cfg, order=order,
-                                      wire=wire)
+                                      pinned=self._pinned, wire=wire)
         else:
             # HVD_TPU_SCHED=off: in-order buckets on the dense wire.
             schedule = build_schedule(
                 sizes, dtypes,
                 dataclasses.replace(cfg, bucket_bytes=self._fusion_threshold),
-                order=range(len(sizes)), wire="off",
+                order=range(len(sizes)), pinned=self._pinned, wire="off",
             )
         self._schedule_key, self._schedule = key, schedule
         return schedule
 
-    def synchronize(self) -> None:
-        """Reduce every gradient across ranks, in place."""
-        grads = [
-            p.grad if p.grad is not None else torch.zeros_like(p)
-            for p in self._params
-        ]
-        compressed = [self._compression.compress(g) for g in grads]
-        wire = [c[0] for c in compressed]
+    def _config(self) -> SchedConfig:
         cfg = SchedConfig.from_env()
         if cfg.bucket_bytes is None and self._fusion_threshold is not None:
             cfg = dataclasses.replace(
                 cfg, bucket_bytes=self._fusion_threshold
             )
-        # One wire byte per element under a quantized compressor, so
-        # buckets fill to the intended wire-size threshold.
-        schedule = self._plan(
-            [w.numel() * (1 if self._quantized else w.element_size())
-             for w in wire],
-            [dtype_name(w.dtype) for w in wire],
-            cfg,
+        return cfg
+
+    def _grad_ready(self, idx: int) -> None:
+        """Post-accumulate-grad hook: on the k-th backward, mark ``idx``
+        ready (a second time raises) and, once the plan is known, launch
+        what may go."""
+        if self._synchronized or (self._calls + 1) % self._k:
+            return
+        if idx in self._marked:
+            raise RuntimeError(
+                "gradients were computed more than backward_passes_per_step "
+                "times before step(); increase backward_passes_per_step to "
+                "accumulate gradients locally, or call zero_grad() first"
+            )
+        self._marked.add(idx)
+        if self._launcher is None:
+            if self._overlap_plan is None:
+                return
+            self._open(self._overlap_plan, side=True)
+        self._launcher.ready(idx)
+
+    def _open(self, schedule: BucketSchedule, side: bool) -> None:
+        self._chain = execute.BucketChain(
+            schedule, self._reduce_bucket, self._params[0].device, side=side,
+        )
+        self._launcher = ScheduleLauncher(schedule.buckets, self._launch)
+
+    def _launch(self, k: int, from_hook: bool) -> None:
+        indices = self._chain.schedule.buckets[k].indices
+        self._chain.launch(
+            k, lambda: [self._wire_leaf(i) for i in indices], from_hook
         )
 
-        def dense(f):
-            if self._quantized and f.is_floating_point():
-                # Compression.int8/fp8 on a bucket the plan left "off"
-                # (or HVD_TPU_SCHED=off): quantized, without residuals.
-                g = f if self._prescale == 1.0 else f * self._prescale
-                g = quantized_allreduce(
-                    g, self._op, wire=self._compression.wire_format
-                )
-                return g if self._postscale == 1.0 else g * self._postscale
-            return collectives.allreduce_(
-                f, self._op, self._prescale, self._postscale
+    def _wire_leaf(self, i: int) -> torch.Tensor:
+        """Parameter ``i``'s gradient as it goes on the wire: zeros when
+        it has none, else times 1/k in place when averaging k accumulated
+        passes and densified when sparse; then compressed.  Made once per
+        step, where its bucket runs."""
+        w = self._leaves.get(i)
+        if w is not None:
+            return w
+        p = self._params[i]
+        g = p.grad
+        if g is None:
+            g = torch.zeros_like(p)
+        else:
+            if g.is_cuda and not g.is_sparse:  # read where the bucket runs
+                g.record_stream(torch.cuda.current_stream(g.device))
+            if self._k > 1 and self._avg_agg:
+                g.mul_(1.0 / self._k)
+            if g.is_sparse:
+                g = self._densify(g)
+        w, self._ctx[i] = self._compression.compress(g)
+        self._leaves[i] = w
+        return w
+
+    def _densify(self, g: torch.Tensor) -> torch.Tensor:
+        if self._sparse_as_dense:
+            return densify(g)
+        if self._quantized_req:
+            raise QuantizedWireError(
+                "the quantized wire does not take sparse gradients (the "
+                "quantizer lives inside the dense two-phase reduction); "
+                "use sparse_as_dense=True or a cast compressor"
             )
+        raise NotImplementedError(
+            "sparse gradients are exchanged by the allgather path of "
+            "ops/sparse.py, not yet ported (ROADMAP Queue A item 8); pass "
+            "sparse_as_dense=True"
+        )
 
-        bf16 = execute.bf16_wire(dense)
+    def _reduce_bucket(self, f: torch.Tensor, bucket) -> torch.Tensor:
+        """One bucket's flat buffer through its wire."""
+        if bucket.wire in QUANTIZED_WIRES:
+            return self._quantized_bucket(f, bucket)
+        if bucket.wire == "bf16":
+            return execute.bf16_wire(self._dense)(f)
+        return self._dense(f)
 
-        def reduce_bucket(f, bucket):
-            if bucket.wire in QUANTIZED_WIRES:
-                return self._quantized_bucket(f, bucket)
-            return bf16(f) if bucket.wire == "bf16" else dense(f)
+    def _dense(self, f: torch.Tensor) -> torch.Tensor:
+        if self._quantized and f.is_floating_point():
+            # Compression.int8/fp8 on a bucket the plan left "off" (or
+            # HVD_TPU_SCHED=off): quantized, without residuals.
+            g = f if self._prescale == 1.0 else f * self._prescale
+            g = quantized_allreduce(
+                g, self._op, wire=self._compression.wire_format
+            )
+            return g if self._postscale == 1.0 else g * self._postscale
+        return collectives.allreduce_(
+            f, self._op, self._prescale, self._postscale
+        )
 
-        reduced = execute.exchange(wire, schedule, reduce_bucket)
+    def synchronize(self) -> None:
+        """Reduce every gradient across ranks, in place: launch the
+        buckets not yet launched, in schedule order, and wait for all."""
+        n = len(self._params)
+        cfg = self._config()
         with torch.no_grad():
-            for p, t, (_, ctx) in zip(self._params, reduced, compressed):
-                out = self._compression.decompress(t, ctx)
-                if p.grad is None:
-                    p.grad = out.to(p.dtype).clone()
-                else:
-                    p.grad.copy_(out)
+            if self._launcher is None:
+                wire = [self._wire_leaf(i) for i in range(n)]
+                self._open(self._plan(self._key(wire, cfg)), side=False)
+            elif self._order is not None:
+                self._order.consume()  # the plan is fixed: drop the order
+            chain = self._chain
+            try:
+                chain.mark_backward_end()
+                self._launcher.flush()
+                reduced = chain.finish()
+                key = self._key([self._leaves[i] for i in range(n)], cfg)
+                grads, outs = [], []
+                for i, p in enumerate(self._params):
+                    out = self._compression.decompress(reduced[i], self._ctx[i])
+                    if p.grad is None or p.grad.is_sparse:
+                        p.grad = out.to(p.dtype).clone()
+                    else:
+                        grads.append(p.grad)
+                        outs.append(out)
+                if grads:
+                    torch._foreach_copy_(grads, outs)  # one call: host time
+                self._commit_residuals()
+            finally:
+                self._close()
         self._synchronized = True
+        # The next k-th backward launches from its hooks when the
+        # barriers are on and this plan still holds: a knob changed since
+        # it was made takes effect at the next step, planned after its
+        # backward.
+        self._overlap_plan = (
+            chain.schedule
+            if cfg.enabled and cfg.barriers and key == self._schedule_key
+            else None
+        )
+
+    def _close(self) -> None:
+        self._chain, self._launcher = None, None
+        self._leaves, self._ctx, self._pending = {}, {}, []
+        self._marked = set()
+
+    def _discard(self) -> None:
+        """Finish the buckets the backward launched, and launch the rest,
+        every rank alike; drop their results and the residuals they
+        computed."""
+        try:
+            if self._launcher is not None:
+                with torch.no_grad():
+                    self._launcher.flush()
+                    self._chain.finish()
+        finally:
+            self._close()
+
+    def _commit_residuals(self) -> None:
+        for indices, r_new, rmeta in self._pending:
+            if r_new.is_cuda:  # made on the exchange stream
+                r_new.record_stream(torch.cuda.current_stream(r_new.device))
+            torch._foreach_copy_([self._residuals[i] for i in indices],
+                                 fusion.unflatten_group([r_new], rmeta))
 
     def _quantized_bucket(self, f: torch.Tensor, bucket) -> torch.Tensor:
         """The quantized exchange of one bucket's flat buffer, threading
@@ -269,25 +497,39 @@ class _DistributedOptimizer:
             prescale_factor=self._prescale,
             postscale_factor=self._postscale, residual=res_flat,
         )
-        if r_new is not None:
-            for i, r in zip(bucket.indices,
-                            fusion.unflatten_group([r_new], rmeta)):
-                self._residuals[i].copy_(r)
+        if r_new is not None:  # written back once the result is used
+            self._pending.append((bucket.indices, r_new, rmeta))
         return out
 
     def step(self, closure=None):
         self._calls += 1
         if self.accumulating:
             return None  # no reduce, no apply
+        # An explicit synchronize() before step() (gradient clipping)
+        # already reduced; reducing again would re-sum the sums.
+        if not self._synchronized:
+            if self._should_synchronize:
+                self.synchronize()
+            else:
+                self._drain()
+        self._synchronized = False
+        return self._opt.step(closure)
+
+    def _drain(self) -> None:
+        """``step()`` under ``skip_synchronize()`` with no
+        ``synchronize()`` before it: the gradients are applied as they
+        are (times 1/k when averaging k passes, as the reference scales
+        them); buckets the backward launched are finished, every rank
+        alike, and their results dropped."""
+        if self._launcher is not None:
+            self._discard()  # every gradient was scaled where it launched
+            return
+        self._close()
         if self._k > 1 and self._avg_agg:
             with torch.no_grad():
                 for p in self._params:
                     if p.grad is not None:
                         p.grad.mul_(1.0 / self._k)
-        if not self._synchronized:
-            self.synchronize()
-        self._synchronized = False
-        return self._opt.step(closure)
 
 
 def DistributedOptimizer(

@@ -1,17 +1,38 @@
 """Execute stage: run the planned per-bucket collectives.
 
 Counterpart of the flat path of ``horovod_tpu/sched/execute.py``:
-``exchange`` (``:392``), ``quantized_exchange_flat`` (``:607``),
-``bf16_wire`` (``:665``) and ``record_wire_metrics`` (``:197``).
-Buckets run one after another in schedule order: the JAX package ties
-each bucket to the previous one with an optimization barrier so XLA
-keeps that order; eager PyTorch issues the collectives in program order
-on one stream.
+``exchange`` (``:392``) with the bucket chain of ``_chain`` (``:40-46``),
+``quantized_exchange_flat`` (``:607``), ``bf16_wire`` (``:665``) and
+``record_wire_metrics`` (``:197``).
+
+The JAX package ties each bucket to the previous one with an
+optimization barrier, so XLA issues the collectives in schedule order
+and overlaps bucket k's exchange with the backward that still produces
+bucket k+1's gradients.  Here a :class:`BucketChain` runs one step's
+buckets, each when the caller launches it (``sched/hooks.py``
+``ScheduleLauncher`` keeps the order).  Launched from the backward, a
+bucket runs on one exchange worker thread, in launch order, so the
+hook only queues it and the backward's own launches go on: the bucket's
+flatten, compression and dispatch Python runs beside them.  On a card
+it runs on the device's one exchange stream, which first waits for an
+event recorded on the launching stream (the backward's, where the
+gradients were written), then flattens the bucket, runs its kernels
+(B1, or B3-B7) and its NCCL calls; every kernel wrapper launches on the
+current stream, so they run there unchanged.  Buckets stay in launch
+order on that one stream, which is what the quantized ring's slot reuse
+rests on (``csrc/quant_ring.cu``).  ``finish`` waits for the worker and
+makes the current stream wait for the exchange stream.  Tensors that
+cross streams are recorded on the stream that uses them
+(``Tensor.record_stream``).  Launched after the backward, a bucket runs
+at once on the calling thread and the current stream.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+import contextlib
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +42,41 @@ from ..ops.collectives import Sum
 from ..ops.kernels import cast_buffer, scale_cast
 from ..ops.quantized import quantized_all_gather, quantized_reduce_scatter
 from .plan import Bucket, BucketSchedule, wire_bytes
+
+_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+_WORKER: Optional[Tuple[int, ThreadPoolExecutor]] = None
+_TRACED: Optional[List["BucketChain"]] = None
+
+
+def exchange_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The exchange stream of a card: one per device, made on first use."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = _STREAMS.get(index)
+    if stream is None:
+        stream = _STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
+
+
+def _worker() -> ThreadPoolExecutor:
+    """The process's one exchange worker thread (made anew after a fork)."""
+    global _WORKER
+    if _WORKER is None or _WORKER[0] != os.getpid():
+        _WORKER = (os.getpid(), ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="hvd-exchange"))
+    return _WORKER[1]
+
+
+@contextlib.contextmanager
+def traced():
+    """Within the block, every :class:`BucketChain` made is appended to
+    the yielded list, and on a card times each bucket on CUDA events
+    (:meth:`BucketChain.timeline`)."""
+    global _TRACED
+    saved, _TRACED = _TRACED, []
+    try:
+        yield _TRACED
+    finally:
+        _TRACED = saved
 
 
 def record_wire_metrics(schedule: BucketSchedule) -> None:
@@ -40,28 +96,135 @@ def record_wire_metrics(schedule: BucketSchedule) -> None:
         )
 
 
-def exchange(
-    wire: Sequence[torch.Tensor],
-    schedule: BucketSchedule,
-    reduce_flat: Callable[[torch.Tensor, Bucket], torch.Tensor],
-) -> List[torch.Tensor]:
-    """Run ``schedule`` over the ``wire`` leaves: per bucket, flatten into
-    one buffer per dtype, ``reduce_flat(flat, bucket)`` each, slice back
-    out.  Returns the reduced leaves in index order (views of the reduced
-    flat buffers)."""
-    reduced = list(wire)
-    for bucket in schedule.buckets:
-        flats, meta = fusion.flatten_group([wire[i] for i in bucket.indices])
-        outs = [reduce_flat(f, bucket) for f in flats]
-        for i, t in zip(bucket.indices, fusion.unflatten_group(outs, meta)):
-            reduced[i] = t
+def record_exchange_metrics(schedule: BucketSchedule) -> None:
+    """The ``sched.*`` counters and gauges of one exchanged schedule."""
     metrics.inc_counter("sched.plans")
     metrics.inc_counter("sched.buckets", len(schedule))
     metrics.inc_counter("sched.exchange_bytes", schedule.total_bytes)
     metrics.set_gauge("sched.buckets_per_step", len(schedule))
     metrics.set_gauge("sched.bytes_per_step", schedule.total_bytes)
     record_wire_metrics(schedule)
-    return reduced
+
+
+class BucketChain:
+    """One step's exchange of ``schedule``, bucket by bucket.
+
+    ``launch(k, leaves)`` runs bucket ``k`` over ``leaves()`` (its
+    members' wire tensors, in ``bucket.indices`` order, made where the
+    bucket runs): flatten into one buffer per dtype, ``reduce_flat(flat,
+    bucket)`` each, slice back.  With ``side`` every bucket runs on the
+    exchange worker thread and, on a CUDA ``device``, on the exchange
+    stream after the launching stream's work so far; else at once.
+    ``finish()`` waits for every launched bucket (raising the first
+    error), orders the current stream after them and returns every leaf
+    of the schedule reduced, in index order (views of the reduced flat
+    buffers).  ``log`` lists ``(position, from_hook)`` in launch order.
+    Made inside :func:`traced`, on a card, each bucket's start and end
+    are CUDA events on the stream it ran on (:meth:`timeline`)."""
+
+    def __init__(self, schedule: BucketSchedule,
+                 reduce_flat: Callable[[torch.Tensor, Bucket], torch.Tensor],
+                 device: Optional[torch.device] = None, *, side: bool = False):
+        self.schedule = schedule
+        self._reduce = reduce_flat
+        on_card = device is not None and device.type == "cuda"
+        self._side = side
+        self._stream = exchange_stream(device) if side and on_card else None
+        self._timing = _TRACED is not None and on_card
+        if _TRACED is not None:
+            _TRACED.append(self)
+        self.log: List[Tuple[int, bool]] = []
+        self._futures: list = []
+        self._reduced: Dict[int, torch.Tensor] = {}
+        self._events: Dict[int, Tuple] = {}
+        self._base = self._backward_end = None
+
+    def launch(self, k: int, leaves: Callable[[], Sequence[torch.Tensor]],
+               from_hook: bool = False) -> None:
+        self.log.append((k, from_hook))
+        if self._base is None:
+            self._base = self._event()
+        if not self._side:
+            self._run(k, leaves())
+            return
+        ready = None
+        if self._stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()  # the launching stream's work so far
+        self._futures.append(_worker().submit(self._run_side, k, leaves, ready))
+
+    @torch.no_grad()
+    def _run_side(self, k: int, leaves, ready) -> None:
+        stream = self._stream
+        if stream is None:
+            self._run(k, leaves())
+            return
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            ts = leaves()
+            for t in ts:
+                t.record_stream(stream)
+            self._run(k, ts)
+
+    def _run(self, k: int, leaves: Sequence[torch.Tensor]) -> None:
+        bucket = self.schedule.buckets[k]
+        start = self._event()
+        flats, meta = fusion.flatten_group(leaves)
+        outs = [self._reduce(f, bucket) for f in flats]
+        for i, t in zip(bucket.indices, fusion.unflatten_group(outs, meta)):
+            self._reduced[i] = t
+        if start is not None:
+            self._events[k] = (start, self._event())
+
+    def _event(self):
+        if not self._timing:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def mark_backward_end(self) -> None:
+        """Record, on the current stream, the end of the backward's
+        kernels: :meth:`timeline`'s zero."""
+        self._backward_end = self._event()
+        if self._base is None:
+            self._base = self._backward_end
+
+    def finish(self) -> List[torch.Tensor]:
+        futures, self._futures = self._futures, []
+        error = None
+        for f in futures:  # every one, so nothing runs on after a raise
+            try:
+                f.result()
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                error = error or e
+        if self._stream is not None:
+            main = torch.cuda.current_stream(self._stream.device)
+            main.wait_stream(self._stream)
+            for t in self._reduced.values():
+                t.record_stream(main)
+        if error is not None:
+            raise error
+        reduced, self._reduced = self._reduced, {}
+        record_exchange_metrics(self.schedule)
+        return [reduced[i] for i in range(len(reduced))]
+
+    def timeline(self) -> List[Tuple[float, float]]:
+        """Per bucket in schedule order, its exchange's (start, end) in ms
+        from the backward's end (negative: before it); empty outside
+        :func:`traced`, off a card or before :meth:`mark_backward_end`.
+        Waits for the events."""
+        zero = self._backward_end
+        if zero is None or len(self._events) != len(self.schedule):
+            return []
+        zero.synchronize()
+        at = self._base.elapsed_time  # every event is later than the base
+        out = []
+        for k in range(len(self.schedule)):
+            start, end = self._events[k]
+            end.synchronize()
+            out.append((at(start) - at(zero), at(end) - at(zero)))
+        return out
 
 
 def bf16_wire(reduce_dense: Callable[[torch.Tensor], torch.Tensor]):

@@ -46,13 +46,18 @@ def _canon_wire_choice(wire: str) -> str:
 class SchedConfig:
     """Knobs of the bucketed scheduler (``HVD_TPU_SCHED*``).
 
-    ``barriers`` is read for parity with the JAX package; eager
-    execution issues the buckets in schedule order either way."""
+    ``barriers`` (``HVD_TPU_SCHED_BARRIERS``) is the JAX package's
+    per-bucket sequencing that lets the exchange overlap the backward:
+    on, ``DistributedOptimizer`` launches each bucket from the backward
+    in schedule order (``sched/hooks.py``); off, after the backward.
+    Off by default here (on in the JAX package): on the H100 the
+    host-bound ResNet-50 step measured slower overlapped than after the
+    backward (``PERF.md`` §6)."""
 
     enabled: bool = True
     bucket_bytes: Optional[int] = None  # None -> fusion threshold knob
     look_ahead: int = 3
-    barriers: bool = True
+    barriers: bool = False
     capture_order: bool = True
     wire: str = "off"  # "off" | "bf16" | "int8" | "fp8"
     wire_ef: bool = True  # error-feedback residuals for quantized wires
@@ -68,7 +73,7 @@ class SchedConfig:
             enabled=raw not in ("off", "0", "false", "no"),
             bucket_bytes=None if bucket_bytes < 0 else bucket_bytes,
             look_ahead=env.get_int(env.SCHED_LOOK_AHEAD, 3),
-            barriers=env.get_bool(env.SCHED_BARRIERS, True),
+            barriers=env.get_bool(env.SCHED_BARRIERS, False),
             capture_order=env.get_bool(env.SCHED_CAPTURE_ORDER, True),
             wire=env.get_env(env.SCHED_WIRE, "off") or "off",
             wire_ef=env.get_bool(env.SCHED_WIRE_EF, True),

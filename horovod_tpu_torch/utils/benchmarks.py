@@ -11,6 +11,7 @@ and return the model and optimizer instead of parameter pytrees.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Tuple
 
@@ -59,6 +60,34 @@ def timed_throughput(step, batch, iters: int,
         float(timed[-1])
     seconds = time.perf_counter() - t0
     return seconds, losses + [float(t) for t in timed]
+
+
+def window_labels(wire: Optional[str], overlap_pairs: int = 0) -> Tuple[str, ...]:
+    """Labels of timing windows taken in turns: ``overlap_pairs`` pairs
+    on ``wire`` (default bf16) with each bucket's exchange launched from
+    the backward and after it (``wire/overlapped``, ``wire/after``,
+    ``wire/after``, ``wire/overlapped``, ...); else bf16 against the
+    plain wire (``bf16``, ``off``, ``off``, ``bf16``), framed by ``wire``
+    when one is given."""
+    if overlap_pairs:
+        return tuple(f"{wire or 'bf16'}/{m}" for _ in range(-(-overlap_pairs // 2))
+                     for m in ("overlapped", "after", "after", "overlapped"))
+    labels = ("bf16", "off", "off", "bf16")
+    return (wire,) + labels + (wire,) if wire else labels
+
+
+def select_window(label: str) -> None:
+    """Set the knobs of a window label (:func:`window_labels`): the wire
+    and ``HVD_TPU_SCHED_BARRIERS``; they take effect from the next step."""
+    wire, _, mode = label.partition("/")
+    os.environ["HVD_TPU_SCHED_WIRE"] = wire
+    os.environ["HVD_TPU_SCHED_BARRIERS"] = "0" if mode == "after" else "1"
+
+
+def quartiles(values) -> list:
+    """First quartile, median and third quartile (nearest rank)."""
+    q = sorted(values)
+    return [q[len(q) // 4], q[len(q) // 2], q[(3 * len(q)) // 4]]
 
 
 def build_lm_step(hvd, model: torch.nn.Module, *, packed: bool,

@@ -15,7 +15,7 @@ FUSION_THRESHOLD = "FUSION_THRESHOLD"  # bytes; reference default 64MB
 SCHED = "SCHED"  # on (default) | off
 SCHED_BUCKET_BYTES = "SCHED_BUCKET_BYTES"  # default: fusion threshold
 SCHED_LOOK_AHEAD = "SCHED_LOOK_AHEAD"  # bucket-close look-ahead, default 3
-SCHED_BARRIERS = "SCHED_BARRIERS"  # bucket issue-order sequencing, default on
+SCHED_BARRIERS = "SCHED_BARRIERS"  # exchange launched from the backward, default off
 SCHED_CAPTURE_ORDER = "SCHED_CAPTURE_ORDER"  # backward-order hooks, default on
 SCHED_WIRE = "SCHED_WIRE"  # off (default) | bf16 | int8 | fp8
 # Error-feedback residuals for the quantized wires (default on).

@@ -10,6 +10,13 @@ packages sum the convolutions and the fast BatchNorm variance
 output is even, so the max pool and the stride-2 3x3 convs pad (0, 1);
 the symmetric (1, 1) padding of ``nn.MaxPool2d``/``Conv2d(padding=1)``
 fails the same comparison.
+
+The ``space_to_depth`` stem is held the same way at the same size
+(the stem's fold is a reshape, bitwise against the JAX function; the
+4x4 conv sums in another order than flax's, within the same
+tolerance).  ResNet-101 and -152, and ResNet-50 with the folded stem,
+have exactly flax's parameter count (``jax.eval_shape`` of the flax
+init: no weights are made).
 """
 
 import jax
@@ -18,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from horovod_tpu.models import resnet as jresnet
 from horovod_tpu.models.resnet import ResNet as JaxResNet
 from horovod_tpu_torch.models import resnet as tresnet
 
@@ -29,12 +37,12 @@ RTOL, ATOL = 1e-4, 1e-4
 _FLAX = {}
 
 
-def _flax(dtype):
+def _flax(dtype, stem="conv7"):
     """(jitted train apply, jitted eval apply, variables), built once per
-    dtype: op-by-op flax init and apply would compile every op."""
-    if dtype not in _FLAX:
+    dtype and stem: op-by-op flax init and apply would compile every op."""
+    if (dtype, stem) not in _FLAX:
         model = JaxResNet(stage_sizes=[1, 1, 1, 1], num_filters=8,
-                          num_classes=10, dtype=dtype)
+                          num_classes=10, dtype=dtype, stem=stem)
         variables = jax.jit(lambda x: model.init(
             jax.random.PRNGKey(0), x, train=True
         ))(jnp.zeros((1, 32, 32, 3)))
@@ -42,17 +50,17 @@ def _flax(dtype):
             v, x, train=True, mutable=["batch_stats"]
         ))
         evaluate = jax.jit(lambda v, x: model.apply(v, x, train=False))
-        _FLAX[dtype] = (train, evaluate, variables)
-    return _FLAX[dtype]
+        _FLAX[dtype, stem] = (train, evaluate, variables)
+    return _FLAX[dtype, stem]
 
 
 def _numpy_tree(tree):
     return jax.tree.map(lambda a: np.asarray(a), tree)
 
 
-def _port(variables, dtype):
+def _port(variables, dtype, stem="conv7"):
     model = tresnet.ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
-                           dtype=dtype, device="cpu")
+                           dtype=dtype, device="cpu", stem=stem)
     sd = tresnet.load_jax_params(
         _numpy_tree(variables["params"]),
         _numpy_tree(variables["batch_stats"]),
@@ -143,3 +151,39 @@ def test_resnet50_layout():
     n = sum(p.numel() for p in model.parameters())
     assert n == 25_557_032  # flax ResNet50 at its published widths
     assert len(model.blocks) == 16
+
+
+def test_space_to_depth_stem_matches_flax():
+    x = _batch(3)
+    train, _, variables = _flax(jnp.float32, "space_to_depth")
+    lj, _ = train(variables, jnp.asarray(x))
+    model = _port(variables, torch.float32, "space_to_depth")
+    assert model.conv_init_s2d.weight.shape == (8, 12, 4, 4)
+    model.train()
+    lt = model(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(lt, np.asarray(lj), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="even input"):
+        model(torch.zeros(1, 33, 32, 3))
+
+
+def test_space_to_depth_fold_is_bitwise_with_jax():
+    x = np.random.default_rng(4).standard_normal((2, 6, 8, 3)).astype(np.float32)
+    want = np.asarray(jresnet.space_to_depth(jnp.asarray(x), 2))
+    np.testing.assert_array_equal(
+        tresnet.space_to_depth(torch.from_numpy(x), 2).numpy(), want)
+
+
+@pytest.mark.parametrize("depth,stem", [
+    (101, "conv7"), (152, "conv7"), (50, "space_to_depth"),
+])
+def test_parameter_count_matches_flax(depth, stem):
+    jmodel = getattr(jresnet, f"ResNet{depth}")(num_classes=1000, stem=stem)
+    shapes = jax.eval_shape(
+        lambda x: jmodel.init(jax.random.PRNGKey(0), x, train=True),
+        jax.ShapeDtypeStruct((1, 32, 32, 3), jnp.float32),
+    )
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes["params"]))
+    model = getattr(tresnet, f"ResNet{depth}")(num_classes=1000, stem=stem,
+                                               device="meta")
+    assert sum(p.numel() for p in model.parameters()) == want
+    assert len(model.blocks) == sum(jmodel.stage_sizes)

@@ -117,10 +117,17 @@ def test_config_from_env_matches_jax(monkeypatch):
     monkeypatch.setenv("HVD_TPU_SCHED_LOOK_AHEAD", "5")
     monkeypatch.setenv("HVD_TPU_SCHED_CAPTURE_ORDER", "0")
     monkeypatch.setenv("HVD_TPU_SCHED_WIRE_EF", "off")
-    j, t = jplan.SchedConfig.from_env(), tplan.SchedConfig.from_env()
-    for f in ("enabled", "bucket_bytes", "look_ahead", "barriers",
-              "capture_order", "wire", "wire_ef"):
-        assert getattr(j, f) == getattr(t, f), f
+    for barriers in ("1", "0"):
+        monkeypatch.setenv("HVD_TPU_SCHED_BARRIERS", barriers)
+        j, t = jplan.SchedConfig.from_env(), tplan.SchedConfig.from_env()
+        for f in ("enabled", "bucket_bytes", "look_ahead", "barriers",
+                  "capture_order", "wire", "wire_ef"):
+            assert getattr(j, f) == getattr(t, f), f
+    # Unset, the port exchanges after the backward (the JAX package
+    # sequences its buckets): the overlapped step measured slower.
+    monkeypatch.delenv("HVD_TPU_SCHED_BARRIERS")
+    assert jplan.SchedConfig.from_env().barriers
+    assert not tplan.SchedConfig.from_env().barriers
 
 
 def test_quantized_wire_is_not_ported():
@@ -144,7 +151,10 @@ def test_exchange_records_wire_metrics():
         wire="bf16",
     )
     tmetrics.reset("sched.")
-    out = texecute.exchange(leaves, sched, lambda f, b: f)
+    chain = texecute.BucketChain(sched, lambda f, b: f)
+    for k, b in enumerate(sched.buckets):
+        chain.launch(k, lambda b=b: [leaves[i] for i in b.indices])
+    out = chain.finish()
     for a, b in zip(out, leaves):
         assert torch.equal(a, b)
     assert tmetrics.get_counter("sched.buckets") == len(sched)

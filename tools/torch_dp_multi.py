@@ -21,7 +21,11 @@ residuals.  ``--backend`` sets ``HVD_TPU_QUANT_BACKEND`` (``phase``, or
 ``fused``, the default) and ``--fusion-threshold`` sets
 ``HVD_TPU_FUSION_THRESHOLD`` (bytes per bucket; at 33554432 every
 bucket of ResNet-50 fits the ring's 8 MiB packed payload at a world of
-four).  Then it checks that:
+four).  With ``--overlap-pairs N`` the windows are instead N pairs on
+the one wire (``--wire``, else bf16), each bucket's exchange launched
+from the backward and after it (``HVD_TPU_SCHED_BARRIERS`` on, off, off,
+on, ...), and rank 0 also prints each side's median and quartiles.
+Then it checks that:
 
 * every rank holds bitwise the same weights and statistics afterwards
   (on the quantized wire every rank applies the same all-gathered
@@ -64,7 +68,8 @@ def worker(args) -> None:
     from horovod_tpu_torch.ops import kernels, peer
     from horovod_tpu_torch.ops import quant_kernels as qk
     from horovod_tpu_torch.ops import ring_kernels as rk
-    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+    from horovod_tpu_torch.utils.benchmarks import (
+        build_dp_step, quartiles, select_window, window_labels)
 
     torch.set_num_threads(2)
     if args.backend:
@@ -85,12 +90,10 @@ def worker(args) -> None:
             model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
                              seed=args.rank, device=dev)
             shape, classes = (32, 224, 224, 3), 1000
-        wires = ("bf16", "off", "off", "bf16")
-        if args.wire:
-            wires = (args.wire,) + wires + (args.wire,)
+        wires = window_labels(args.wire, args.overlap_pairs)
         # The wire at construction decides whether the optimizer keeps
         # error-feedback residuals.
-        os.environ["HVD_TPU_SCHED_WIRE"] = wires[0]
+        os.environ["HVD_TPU_SCHED_WIRE"] = wires[0].split("/")[0]
         step, opt = build_dp_step(hvd, model)
         g = torch.Generator(device=dev).manual_seed(100 + args.rank)
         batch = (torch.rand(*shape, generator=g, device=dev),
@@ -100,8 +103,10 @@ def worker(args) -> None:
                     "B6": rk.rs_ring, "B7": rk.ag_ring}
         fused = (args.backend or "fused") == "fused"
 
-        def window(wire: str):
-            os.environ["HVD_TPU_SCHED_WIRE"] = wire
+        def window(label: str):
+            """One window of ``label`` (``window_labels``); its knobs take
+            effect from the warm-up step's end."""
+            select_window(label)
             float(step(batch))  # warm-up step; the host read fences it
             before = {k: c.launches for k, c in counters.items()}
             before["fallback"] = metrics.get_counter("quant.fused_fallback")
@@ -119,7 +124,8 @@ def worker(args) -> None:
             c = -(-v // (n * 512)) * 512
             return n > 1 and n * (c + 4 * (c // 512)) <= peer.CAP
 
-        def expected(wire: str) -> dict:
+        def expected(label: str) -> dict:
+            wire = label.split("/")[0]
             total = dict.fromkeys(list(counters) + ["fallback"], 0)
             for bucket in opt.schedule.buckets:
                 per = dict.fromkeys(total, 0)
@@ -166,6 +172,7 @@ def worker(args) -> None:
                     capture_output=True, text=True, timeout=60,
                 ).stdout.strip().splitlines()[0]
             imgs = shape[0] * args.nproc
+            spread = {w: quartiles(v) for w, v in timing.items()}
             print(json.dumps({
                 "world": args.nproc, "device": dev.type, "card": card,
                 "model": "tiny" if args.tiny else "resnet50",
@@ -174,7 +181,7 @@ def worker(args) -> None:
                 "residuals": opt.residuals is not None,
                 "quant_backend": args.backend or "fused",
                 "fusion_threshold": args.fusion_threshold,
-                "step_ms": timing,
+                "step_ms": timing, "step_ms_quartiles": spread,
                 "img_s": {w: [imgs / ms * 1e3 for ms in v] for w, v in timing.items()},
                 "losses": losses, "weights_equal_on_all_ranks": True,
             }), flush=True)
@@ -196,6 +203,8 @@ def launch(args) -> int:
             cmd += ["--backend", args.backend]
         if args.fusion_threshold:
             cmd += ["--fusion-threshold", str(args.fusion_threshold)]
+        if args.overlap_pairs:
+            cmd += ["--overlap-pairs", str(args.overlap_pairs)]
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
@@ -222,6 +231,9 @@ def main() -> None:
                     help="HVD_TPU_QUANT_BACKEND of the quantized windows (default fused)")
     ap.add_argument("--fusion-threshold", type=int,
                     help="HVD_TPU_FUSION_THRESHOLD, bytes per bucket")
+    ap.add_argument("--overlap-pairs", type=int, default=0,
+                    help="time this many pairs of windows with the exchange "
+                    "launched from the backward and after it")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)

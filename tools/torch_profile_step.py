@@ -21,7 +21,13 @@ per GPU, bf16 compute, world of one, ``build_dp_step``), then:
    kernels that take the most time.
 
 Each timing window also reports the host time of the gradient exchange
-(``DistributedOptimizer.synchronize``, which enqueues and returns).
+(``DistributedOptimizer.synchronize``, which enqueues and returns; with
+the exchange launched from the backward, only what is left after it).
+
+``--overlap`` times the profiled wire with each bucket's exchange
+launched from the backward and after it instead (``HVD_TPU_SCHED_BARRIERS``
+on, off, off, on, ..., ``--pairs`` pairs), prints each side's median and
+quartiles, and profiles both.
 
 Every line names the card and its power limit (``nvidia-smi``).
 """
@@ -73,6 +79,11 @@ def main() -> None:
                     help="steps per timing window")
     ap.add_argument("--wire", choices=["int8", "fp8"],
                     help="also time, and profile, this quantized wire")
+    ap.add_argument("--overlap", action="store_true",
+                    help="time and profile the exchange launched from the "
+                    "backward against after it, on the profiled wire")
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="with --overlap: pairs of timing windows")
     ap.add_argument("--out", help="also write the results here as JSON")
     args = ap.parse_args()
 
@@ -83,7 +94,8 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import ResNet50
-    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+    from horovod_tpu_torch.utils.benchmarks import (
+        build_dp_step, quartiles, select_window, window_labels)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -92,15 +104,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    wires = ("bf16", "off", "off", "bf16")
-    if args.wire:
-        wires = (args.wire,) + wires + (args.wire,)
     profiled = args.wire or "bf16"
+    wires = window_labels(args.wire, args.pairs if args.overlap else 0)
     hvd.init("cuda")
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device="cuda")
     # The wire at construction decides whether the optimizer keeps
     # error-feedback residuals.
-    os.environ["HVD_TPU_SCHED_WIRE"] = wires[0]
+    os.environ["HVD_TPU_SCHED_WIRE"] = wires[0].split("/")[0]
     step, opt = build_dp_step(hvd, model)
     sync_s = []
     synchronize = opt.synchronize
@@ -117,7 +127,7 @@ def main() -> None:
 
     def window(wire: str):
         """Step ms and the exchange's host ms per step over one window."""
-        os.environ["HVD_TPU_SCHED_WIRE"] = wire
+        select_window(wire)
         float(step(batch))  # a host read fences the previous work
         sync_s.clear()
         t0 = time.perf_counter()
@@ -141,15 +151,36 @@ def main() -> None:
               f"(mean {sum(ms) / len(ms):.3f}; batch 32); host ms of the "
               f"exchange (synchronize, enqueue only): "
               f"{[round(v, 3) for v in exchange[wire]]} on {card}", flush=True)
+    if args.overlap:
+        for wire, ms in timing.items():
+            print(f"step ms, wire={wire}: quartiles "
+                  f"{' '.join(f'{v:.3f}' for v in quartiles(ms))} over "
+                  f"{len(ms)} windows of {args.window} steps", flush=True)
 
-    os.environ["HVD_TPU_SCHED_WIRE"] = profiled
+    result = {"card": card, "timing_ms": timing, "steps": args.steps,
+              "wire": profiled, "exchange_host_ms": exchange, "profiles": {}}
+    for label in (wires[:2] if args.overlap else (profiled,)):
+        select_window(label)
+        float(step(batch))
+        result["profiles"][label] = profile_steps(step, batch, args.steps, label, card)
+    hvd.shutdown()
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+def profile_steps(step, batch, steps, label, card):
+    """``steps`` steps under ``torch.profiler``: device busy and idle
+    share per step, device time by group and the costliest kernels."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     float(step(batch))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(steps):
             loss = step(batch)
         float(loss)
         torch.cuda.synchronize()
@@ -160,8 +191,7 @@ def main() -> None:
         and str(e.device_type).endswith("CUDA")
         and e.time_range.end > e.time_range.start
     ]
-    result = {"card": card, "timing_ms": timing, "steps": args.steps,
-              "wire": profiled, "exchange_host_ms": exchange}
+    result = {}
     if not kernels:
         print(f"profiler: no device events; device time not measured on {card}")
     else:
@@ -172,29 +202,25 @@ def main() -> None:
             by_group[group_of(e.name)] = by_group.get(group_of(e.name), 0.0) + dt
             by_name[e.name] = by_name.get(e.name, 0.0) + dt
         total = sum(by_group.values())
-        print(f"profiled {args.steps} {profiled}-wire steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "
-              f"device busy {busy / args.steps / 1e3:.3f} ms/step, idle share "
-              f"{1 - busy / wall_us:.1%}, {len(kernels) / args.steps:.0f} kernels/step "
+        print(f"profiled {steps} {label} steps: wall {wall_us / steps / 1e3:.3f} ms/step, "
+              f"device busy {busy / steps / 1e3:.3f} ms/step, idle share "
+              f"{1 - busy / wall_us:.1%}, {len(kernels) / steps:.0f} kernels/step "
               f"on {card}", flush=True)
-        for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-            print(f"  {label:20s} {us / args.steps / 1e3:8.3f} ms/step "
+        for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+            print(f"  {group:20s} {us / steps / 1e3:8.3f} ms/step "
                   f"{us / total:6.1%}", flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
         for name, us in top:
-            print(f"  {us / args.steps / 1e3:8.3f} ms/step  {name[:110]}", flush=True)
+            print(f"  {us / steps / 1e3:8.3f} ms/step  {name[:110]}", flush=True)
         result.update(
-            wall_ms_per_step=wall_us / args.steps / 1e3,
-            busy_ms_per_step=busy / args.steps / 1e3,
+            wall_ms_per_step=wall_us / steps / 1e3,
+            busy_ms_per_step=busy / steps / 1e3,
             idle_share=1 - busy / wall_us,
-            kernels_per_step=len(kernels) / args.steps,
-            groups_ms_per_step={k: v / args.steps / 1e3 for k, v in by_group.items()},
-            top=[(n, v / args.steps / 1e3) for n, v in top],
+            kernels_per_step=len(kernels) / steps,
+            groups_ms_per_step={k: v / steps / 1e3 for k, v in by_group.items()},
+            top=[(n, v / steps / 1e3) for n, v in top],
         )
-    hvd.shutdown()
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
+    return result
 
 
 if __name__ == "__main__":
