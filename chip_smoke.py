@@ -34,7 +34,10 @@ exits non-zero):
    (this run's inputs and outputs over 3.35 TB/s: on one card the
    "peer" stores stay in its memory) and, as the yardstick, the B3 + B4
    (B3 + B5) kernels of the NCCL lowering for the same ranks; and B6's
-   and B7's per-block timelines (``ring_trace``).
+   and B7's per-block timelines (``ring_trace``).  B6 and B7 are also
+   captured into one CUDA graph on 2 and 4 virtual ranks and replayed
+   three times on fresh inputs, with an eager launch before and after,
+   each bitwise (the epoch words on the card carry across).
    Then B2, flash attention, each case on the route that serves its
    dtype and head dim, against its plain version at that route's key
    tile (``FLASH_TOL``): at the GPT slice's shape (B 16, T 1024, H 12,
@@ -67,6 +70,17 @@ exits non-zero):
    from the backward in the overlapped runs and none in the others;
    step ms, img/s and, from CUDA events, each bucket's exchange start
    and end against the end of the backward's kernels.
+   Then slice onestep: the same model at world one on bf16 and on int8,
+   eager (``HVD_TPU_ONESTEP=off``), captured as one CUDA graph (``on``)
+   and captured with ``HVD_TPU_SCHED_BARRIERS=1``, 2 warm-up + 5 steps
+   each from seed 0: weights and losses bitwise equal, exact launches
+   with the replays counted (inferred: a replay adds its capture's
+   counts; the bitwise equality shows it ran), one capture
+   (``xir.onestep.steps``) and no
+   exchange run from Python after it; then windows of 10 steps, captured
+   against eager (A/B/B/A) and captured with the barriers on against off
+   (A/B/B/A): step ms, img/s and peak memory.  Every other phase pins
+   ``HVD_TPU_ONESTEP=off``, so it runs as before.
 6. reference: a small float32 ResNet on the card against the CPU path
    (plain versions), three steps on the bf16 wire and three on int8, to
    stated tolerances.
@@ -88,7 +102,11 @@ exits non-zero):
    runs of phase 5 at this world on the int8 ring and on bf16 over
    NCCL: every rank's weights bitwise equal in each run and across the
    four, with B6's and B7's device time per launch beside the backward
-   and after it (``torch.profiler``, one step each of the int8 runs).
+   and after it (``torch.profiler``, one step each of the int8 runs);
+   then the step captured against eager on the int8 ring (B6 and B7 in
+   the graph) and on bf16 over NCCL, every rank bitwise with exact
+   launches, and its A/B/B/A windows.  On one shared card (gloo)
+   ``HVD_TPU_ONESTEP=on`` must refuse the step.
 8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
@@ -571,6 +589,58 @@ def ring_kernel_phase(rk, peer, qk, sizes, log):
           f"fp8, with zero, inf, NaN and subnormal blocks; max abs error {max_err}",
           flush=True)
 
+    # B6 and B7 captured into one CUDA graph at the largest bucket, after
+    # an eager launch of each: three replays on fresh inputs copied into
+    # the graph's static buffers, then one eager launch of each, every one
+    # bitwise.  Each replay takes a new epoch from the window's epoch
+    # words, and the eager launches after it go on from there.
+    v = max(sizes)
+    for n in (2, 4):
+        window = peer.PeerWindow.virtual(n)
+        try:
+            c = -(-v // (n * BLOCK)) * BLOCK
+
+            def fresh():
+                x = ring_input(n, n * c, BLOCK, g)
+                x[:, v:] = 0.0
+                return x
+
+            def held(what, x, shards, acc, deq, out):
+                racc, rdeq = rk.rs_ring_reference(x, "int8", BLOCK, True)
+                check("rs_ring", f"{what} n {n}", acc, racc)
+                check("rs_ring", f"{what} n {n} (dequant)", deq, rdeq)
+                check("ag_ring", f"{what} n {n}", out, rk.ag_ring_reference(shards, "int8", BLOCK))
+
+            x = fresh()
+            shards = x[:, :c].contiguous()
+            held("eager before the capture", x, shards,
+                 *rk.rs_ring(x, window, "int8", BLOCK, True),
+                 rk.ag_ring(shards, window, "int8", BLOCK))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                acc, deq = rk.rs_ring(x, window, "int8", BLOCK, True)
+                out = rk.ag_ring(shards, window, "int8", BLOCK)
+            for i in range(3):
+                new = fresh()
+                x.copy_(new)
+                shards.copy_(new[:, :c])
+                graph.replay()
+                held(f"replay {i + 1}", x, shards, acc, deq, out)
+            x = fresh()
+            shards = x[:, :c].contiguous()
+            held("eager after the replays", x, shards,
+                 *rk.rs_ring(x, window, "int8", BLOCK, True),
+                 rk.ag_ring(shards, window, "int8", BLOCK))
+            graph.reset()
+            del graph, acc, deq, out, x, shards
+        finally:
+            window.close()
+        torch.cuda.empty_cache()
+    print(f"phase kernel: B6 (with the dequant) and B7 captured into one CUDA graph on 2 "
+          f"and 4 virtual ranks at {v} elements: an eager launch, three replays on fresh "
+          f"inputs and an eager launch after them, each bitwise with the plain versions",
+          flush=True)
+
     # Times at world 4 on the largest bucket, every rank's blocks in one
     # launch; the bound is this launch's inputs and outputs over the
     # card's memory rate (the slots stay on the card).
@@ -761,8 +831,6 @@ def overlap_run(hvd, tresnet, build_dp_step, timed_throughput, counters, batch,
     with ``profile``, one step under the profiler (after the launch
     counts are read).  Returns the run's record with a digest of the
     final weights and buffers."""
-    import hashlib
-
     import torch
     from horovod_tpu_torch.sched import execute
 
@@ -779,9 +847,6 @@ def overlap_run(hvd, tresnet, build_dp_step, timed_throughput, counters, batch,
     timeline = chain.timeline()
     launches = {k: c.launches for k, c in counters.items()}
     prof = profile_step(step, batch) if profile else None
-    h = hashlib.sha256()
-    for t in model.state_dict().values():
-        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
     under = sum(max(0.0, min(end, 0.0) - start) for start, end in timeline)
     rec = {"barriers": barriers, "losses": losses, "seconds": seconds,
            "step_ms": seconds / timed * 1e3, "launches": launches,
@@ -789,11 +854,23 @@ def overlap_run(hvd, tresnet, build_dp_step, timed_throughput, counters, batch,
            "from_hooks": sum(1 for _, hook in chain.log if hook), "timeline": timeline,
            "ended_before": sum(1 for _, end in timeline if end < 0),
            "exchange_ms": sum(end - start for start, end in timeline),
-           "under_ms": under, "profile": prof, "digest": h.hexdigest()}
+           "under_ms": under, "profile": prof, "digest": state_digest(model)}
     del model, step, opt
     os.environ.pop("HVD_TPU_SCHED_BARRIERS")
     torch.cuda.empty_cache()
     return rec
+
+
+def state_digest(model) -> str:
+    """SHA-256 of the model's weights and buffers, bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def check_overlap(runs, what, world):
@@ -863,10 +940,154 @@ def overlap_phase(hvd, tresnet, build_dp_step, timed_throughput, counters, card,
     return out
 
 
+def onestep_run(hvd, tresnet, build_dp_step, timed_throughput, counters, batch,
+                onestep, barriers=False):
+    """One run of the ResNet-50 step from seed 0 with ``HVD_TPU_ONESTEP``
+    at ``onestep`` (``off``: eager; ``on``: ``CAPTURE_WARMUP`` eager steps
+    on a side stream, then one captured step replayed), ``WARMUP`` +
+    ``TIMED`` steps inside ``execute.traced()``.  Returns the losses, the
+    digest of the final weights and buffers, the launch counts (a replay's
+    included), the chains made (a captured run makes them in its warm-up
+    and its capture only), the buckets the last chain launched from the
+    backward, and ``xir.onestep.steps``."""
+    import torch
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.sched import execute
+
+    os.environ["HVD_TPU_ONESTEP"] = onestep
+    os.environ["HVD_TPU_SCHED_BARRIERS"] = "1" if barriers else "0"
+    dev = hvd.device()
+    model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device=dev)
+    step, opt = build_dp_step(hvd, model)
+    for c in counters.values():
+        c.launches = 0
+    metrics.reset("xir.")
+    with execute.traced() as chains:
+        _, losses = timed_throughput(step, batch, iters=TIMED, warmup=WARMUP)
+    rec = {"onestep": onestep, "barriers": barriers, "losses": losses,
+           "launches": {k: c.launches for k, c in counters.items()},
+           "buckets": [b.nbytes // 4 for b in opt.schedule.buckets],
+           "chains": len(chains), "from_hooks": sum(1 for _, h in chains[-1].log if h),
+           "captures": metrics.get_counter("xir.onestep.steps"),
+           "digest": state_digest(model)}
+    del model, step, opt, chains
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    os.environ.pop("HVD_TPU_SCHED_BARRIERS")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_onestep(runs, what, world):
+    """The eager run, the captured run and (where present) the captured
+    run with the barriers on: exact launches in each, one capture per
+    captured run and no chain after it, bitwise-equal weights and
+    losses."""
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
+
+    steps = WARMUP + TIMED
+    for r in runs:
+        nb = len(r["buckets"])
+        want = expected_launches(what, nb, steps, world)
+        if r["launches"] != want:
+            fail(f"onestep {what} world {world} ({r['onestep']}, barriers "
+                 f"{r['barriers']}): launches {r['launches']}; the schedule implies "
+                 f"{want} ({nb} buckets x {steps} steps, replays included)")
+        captured = r["onestep"] == "on"
+        chains = CAPTURE_WARMUP + 1 if captured else steps
+        if r["captures"] != int(captured) or r["chains"] != chains:
+            fail(f"onestep {what} world {world} ({r['onestep']}): {r['captures']} "
+                 f"captures and {r['chains']} exchanges run from Python, expected "
+                 f"{int(captured)} and {chains}")
+        if r["from_hooks"] != (nb if r["barriers"] else 0):
+            fail(f"onestep {what} world {world}: {r['from_hooks']} of {nb} buckets "
+                 f"launched from the backward with the barriers "
+                 f"{'on' if r['barriers'] else 'off'}")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"onestep {what} world {world}: non-finite losses {r['losses']}")
+    if len({r["digest"] for r in runs}) != 1 or len({tuple(r["losses"]) for r in runs}) != 1:
+        fail(f"onestep {what} world {world}: the captured and eager steps differ: "
+             f"digests {[r['digest'][:12] for r in runs]}, losses "
+             f"{[r['losses'] for r in runs]}")
+
+
+def onestep_windows(hvd, tresnet, build_dp_step, batch, labels, images):
+    """Timing windows of ``OVERLAP_TIMED`` steps on one fresh model, in
+    the order given (``benchmarks.timed_window``: a captured window's
+    warm-up steps and its capture run before its clock starts).  Per
+    window: step ms, img/s, and the peak of ``max_memory_allocated`` and
+    ``max_memory_reserved`` from its first step (the capture included)."""
+    import torch
+    from horovod_tpu_torch.utils.benchmarks import timed_window
+
+    dev = hvd.device()
+    model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device=dev)
+    step, _ = build_dp_step(hvd, model)
+    out = []
+    for label in labels:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, _ = timed_window(step, batch, label, OVERLAP_TIMED)
+        out.append({"label": label, "step_ms": seconds / OVERLAP_TIMED * 1e3,
+                    "img_s": images * OVERLAP_TIMED / seconds,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30})
+    del model, step
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    os.environ.pop("HVD_TPU_SCHED_BARRIERS")
+    torch.cuda.empty_cache()
+    return out
+
+
+def fmt_windows(windows) -> str:
+    return "; ".join(
+        f"{w['label'].split('/')[1]} {w['step_ms']:.2f} ms {w['img_s']:.1f} img/s peak "
+        f"{w['peak_gib']:.2f} GiB (reserved {w['peak_reserved_gib']:.2f})" for w in windows)
+
+
+# Windows of phase slice onestep: captured against eager (A/B/B/A), then
+# captured with the barriers on against off (A/B/B/A).
+ONESTEP_WINDOWS = ["captured", "eager", "eager", "captured", "captured+barriers",
+                   "captured", "captured", "captured+barriers"]
+
+
+def onestep_phase(hvd, tresnet, build_dp_step, timed_throughput, counters, card, log):
+    """Phase slice onestep: the full-width ResNet-50 at world one on the
+    bf16 and int8 wires, eager, captured as one CUDA graph, and captured
+    with the barriers on, each from seed 0: bitwise-equal weights and
+    losses, exact launches; then the timing windows."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = (torch.rand(32, 224, 224, 3, generator=g, device="cuda"),
+             torch.randint(0, 1000, (32,), generator=g, device="cuda"))
+    out = {}
+    for wire in ("bf16", "int8"):
+        os.environ["HVD_TPU_SCHED_WIRE"] = wire
+        hvd.init("cuda")
+        try:
+            runs = [onestep_run(hvd, tresnet, build_dp_step, timed_throughput, counters,
+                                batch, mode, barriers)
+                    for mode, barriers in (("off", False), ("on", False), ("on", True))]
+            check_onestep(runs, wire, 1)
+            windows = onestep_windows(hvd, tresnet, build_dp_step, batch,
+                                      [f"{wire}/{m}" for m in ONESTEP_WINDOWS], 32)
+        finally:
+            hvd.shutdown()
+        print(f"phase slice onestep {wire}: ResNet-50 224x224 batch 32 bf16, world 1, "
+              f"{len(runs[0]['buckets'])} buckets; eager, captured, captured with the "
+              f"barriers on: weights and losses bitwise equal, launches "
+              f"{runs[1]['launches']} (= expected; a replay's counts are inferred from its "
+              f"capture's, the bitwise equality shows it ran) in each, one capture "
+              f"(xir.onestep.steps 1); losses {[round(v, 5) for v in runs[0]['losses']]} "
+              f"on {card}", flush=True)
+        print(f"phase slice onestep {wire}: {fmt_windows(windows)} on {card}", flush=True)
+        out[wire] = {"runs": runs, "windows": windows}
+    log["onestep"] = out
+    return out
+
+
 def ring_worker(args) -> None:
     """One rank of the ring slice (phase 7), started by ``ring_slice_phase``."""
-    import hashlib
-
     import torch
     import torch.distributed as dist
 
@@ -884,6 +1105,7 @@ def ring_worker(args) -> None:
     torch.backends.cudnn.allow_tf32 = False
     os.environ["HVD_TPU_SCHED_WIRE"] = "int8"
     os.environ["HVD_TPU_FUSION_THRESHOLD"] = str(RING_THRESHOLD)
+    os.environ["HVD_TPU_ONESTEP"] = "off"  # each phase's own mode, eager unless set
     rank, n = args.ring_rank, args.ring_size
     hvd.init("cuda", init_method=f"file://{args.ring_store}", rank=rank, size=n,
              backend=args.ring_backend)
@@ -912,11 +1134,8 @@ def ring_worker(args) -> None:
         _, _, _, phase_losses, _, _ = run("phase", 1, 0)
         torch.cuda.empty_cache()
         model, opt, seconds, losses, launches, fallback = run("fused", WARMUP, TIMED)
-        h = hashlib.sha256()
-        for t in model.state_dict().values():
-            h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
         digests = [None] * n
-        dist.all_gather_object(digests, h.hexdigest())
+        dist.all_gather_object(digests, state_digest(model))
         buckets = [b.nbytes // 4 for b in opt.schedule.buckets]
         del model, opt
         torch.cuda.empty_cache()
@@ -941,6 +1160,47 @@ def ring_worker(args) -> None:
                     runs.append(r)
                 overlap[what] = runs
             os.environ["HVD_TPU_SCHED_WIRE"] = "int8"
+
+        # The step captured as one CUDA graph against the eager step, on
+        # the int8 ring (B6 and B7 inside the graph) and on bf16 over
+        # NCCL: every rank bitwise, exact launches, then the windows.  On
+        # one shared card (gloo) the step cannot be captured, and
+        # HVD_TPU_ONESTEP=on must raise rather than run it eagerly.
+        onestep = {}
+        if args.ring_backend == "nccl":
+            for what in ("int8", "bf16"):
+                os.environ["HVD_TPU_SCHED_WIRE"] = what
+                os.environ["HVD_TPU_QUANT_BACKEND"] = "fused"
+                runs = []
+                for mode in ("off", "on"):
+                    metrics.reset("quant.")
+                    r = onestep_run(hvd, tresnet, build_dp_step, timed_throughput,
+                                    counters, batch, mode)
+                    r["fallback"] = metrics.get_counter("quant.fused_fallback")
+                    r["digests"] = [None] * n
+                    dist.all_gather_object(r["digests"], r["digest"])
+                    runs.append(r)
+                windows = onestep_windows(hvd, tresnet, build_dp_step, batch,
+                                          [f"{what}/{m}" for m in ONESTEP_WINDOWS[:4]],
+                                          32 * n)
+                onestep[what] = {"runs": runs, "windows": windows}
+            os.environ["HVD_TPU_SCHED_WIRE"] = "int8"
+        else:
+            from horovod_tpu_torch.exceptions import HorovodTpuError
+
+            os.environ["HVD_TPU_ONESTEP"] = "on"
+            model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                                     device=dev)
+            step, _ = build_dp_step(hvd, model)
+            try:
+                step(batch)
+            except HorovodTpuError as e:
+                onestep["refused"] = str(e)
+            else:
+                raise SystemExit(f"rank {rank}: HVD_TPU_ONESTEP=on ran a gloo step")
+            finally:
+                os.environ["HVD_TPU_ONESTEP"] = "off"
+            del model, step
 
         # B6 and B7 bitwise against their plain versions in this world:
         # every rank makes every rank's rows from one seed and launches its
@@ -1026,7 +1286,7 @@ def ring_worker(args) -> None:
                            "seconds": seconds, "launches": launches,
                            "fallback": fallback, "digests": digests, "held": held,
                            "exchange_ms": exchange, "kernel_ms": kernel_ms,
-                           "overlap": overlap}, f)
+                           "overlap": overlap, "onestep": onestep}, f)
         if len(set(digests)) != 1:
             raise SystemExit(f"rank {rank}: ranks hold different weights: {digests}")
     finally:
@@ -1136,7 +1396,24 @@ def ring_slice_phase(card, count, log):
                           f"{p['nccl_ms']:.3f} ms, B1/B3-B5 {p['exchange_ms']:.3f} ms, "
                           f"forward and backward {p['compute_ms']:.3f} ms "
                           f"({p['compute_kernels']} kernels)", flush=True)
+        for what, rec_w in rec["onestep"].items():
+            runs = rec_w["runs"]
+            check_onestep(runs, what, n)
+            for r in runs:
+                if len(set(r["digests"])) != 1:
+                    fail(f"onestep {what} world {n}: ranks hold different weights")
+                if what == "int8" and r["fallback"]:
+                    fail(f"onestep int8 world {n}: {r['fallback']} collectives fell back")
+            print(f"phase slice ring onestep {what}: world {n}, {len(runs[0]['buckets'])} "
+                  f"buckets; eager and captured: every rank's weights bitwise equal, and "
+                  f"equal across the two; launches {runs[1]['launches']} (= expected; a "
+                  f"replay's counts are inferred from its capture's), one capture on {card}", flush=True)
+            print(f"phase slice ring onestep {what}: world {n}, rank 0: "
+                  f"{fmt_windows(rec_w['windows'])} (img/s of the world) on {card}",
+                  flush=True)
     else:
+        print(f"phase slice ring: HVD_TPU_ONESTEP=on refused the gloo step: "
+              f"{rec['onestep']['refused']}", flush=True)
         print("phase slice ring: the per-bucket exchange times and the NVLink bound "
               "need two or more cards; on one card B6 and B7 were held against their "
               "plain versions on virtual ranks (phase kernel)", flush=True)
@@ -1464,6 +1741,7 @@ def examples_phase(root, card):
     benchmark, each a short run on the card as a user starts them."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK") and not k.startswith("HVD_TPU_")}
+    env["HVD_TPU_ONESTEP"] = "off"
     out = {}
     for script, args, want in (
             ("torch_port_mnist.py", ["--epochs", "1", "--num-samples", "4096"],
@@ -1539,6 +1817,9 @@ def main() -> None:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
     log = {"card": card, "kind": kind, "kernel_cases": []}
+    # Every phase pins HVD_TPU_ONESTEP: eager (off) but for phase slice
+    # onestep and its counterpart in slice ring.
+    os.environ["HVD_TPU_ONESTEP"] = "off"
 
     # Phase 2: build every kernel of the path, one nvcc per source.
     t0 = time.perf_counter()
@@ -1605,6 +1886,11 @@ def main() -> None:
             fail(f"{wire}: buckets {runs[wire]['buckets']} != planned {sizes}")
     log["slices"] = runs
     overlap_phase(hvd, tresnet, build_dp_step, timed_throughput,
+                  {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                   "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                   "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring}, card, log)
+    torch.cuda.empty_cache()
+    onestep_phase(hvd, tresnet, build_dp_step, timed_throughput,
                   {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
                    "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
                    "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring}, card, log)

@@ -45,9 +45,15 @@
 // Synchronisation.  Each rank's window (ops/peer.py allocates it, CUDA
 // IPC maps it into the peers) holds two epoch-parity sets of n - 1
 // receive slots and one flag per (parity, slot, stripe).  Every launch
-// carries a new epoch; flags hold epochs, so nothing is ever reset.  A
-// sender's block fences its stores to system scope and then stores the
-// epoch into the flag of its stripe at the receiver with st.release.sys;
+// carries a new epoch; flags hold epochs, so nothing is ever reset.  The
+// epoch lives in device memory, one word per launched rank (ops/peer.py
+// allocates it with the window): a one-thread kernel queued before each
+// ring launch on the same stream advances it (bump_epochs), and every
+// block of the launch reads it at its start.  So a launch captured into
+// a CUDA graph takes a new epoch on every replay, and eager launches and
+// replays count on from one word.  A sender's block fences its stores
+// to system scope and then stores the epoch into the flag of its stripe
+// at the receiver with st.release.sys;
 // the receiver's block spins on ld.acquire.sys and reads the slot
 // through L2 (ld.cg).  There is no entry barrier (the TPU kernel's
 // barrier semaphore, :378-385): the previous launch already proves that
@@ -97,7 +103,7 @@ struct RingArgs {
   long long flags_off;        // byte offset of the flags in a window
   unsigned long long timeout_ns;
   int n, rank0, block;
-  unsigned epoch;
+  unsigned* epoch;            // the launched ranks' epoch words, rank0 + i at [i]
   float inv_qmax;
   unsigned long long* trace;  // trace_events timestamps per block, or null
   int trace_events;
@@ -123,8 +129,8 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
-__device__ __forceinline__ bool landed(const RingArgs& a, const unsigned* p) {
-  return static_cast<int>(load_acquire(p) - a.epoch) >= 0;
+__device__ __forceinline__ bool landed(const unsigned* p, unsigned epoch) {
+  return static_cast<int>(load_acquire(p) - epoch) >= 0;
 }
 
 __device__ __forceinline__ unsigned long long now_ns() {
@@ -135,21 +141,53 @@ __device__ __forceinline__ unsigned long long now_ns() {
 
 // Past the deadline: say which flag this block waited on, and trap.
 __device__ void trap_late(const RingArgs& a, const char* kernel, int rank, int hop,
-                          const unsigned* p) {
+                          unsigned epoch, const unsigned* p) {
   printf("%s: rank %d block %d timed out after %llu ns waiting for the slot of hop %d "
          "(epoch %u, flag holds %u)\n",
-         kernel, rank, static_cast<int>(blockIdx.x), a.timeout_ns, hop, a.epoch,
+         kernel, rank, static_cast<int>(blockIdx.x), a.timeout_ns, hop, epoch,
          load_acquire(p));
   __trap();
 }
 
+// Advances the epoch word of each of `ranks` launched ranks: queued
+// before every ring launch, on its stream.  0 is skipped (the flags start
+// at 0, so epoch 0 would read as landed); 2 follows 0xffffffff, so the
+// parity still alternates.  A separate kernel rather than the ring
+// kernel advancing its own word: that would have to wait until every
+// block of the launch had read it (a grid-wide count per rank); this
+// costs one more launch per collective, ~3 us on the card.
+__global__ void bump_epochs(unsigned* epoch, int ranks) {
+  const int i = static_cast<int>(threadIdx.x);
+  if (i < ranks) {
+    const unsigned e = epoch[i] + 1u;
+    epoch[i] = e == 0u ? 2u : e;
+  }
+}
+
+// Thread 0 reads this launch's epoch for rank `my` into shared memory
+// (the 16-byte kernels are at their register cap); an epoch of 0 means
+// no bump ran before the launch: trap.  Ends with a __syncthreads().
+__device__ __forceinline__ void read_epoch(const RingArgs& a, int my, const char* kernel,
+                                           unsigned* epoch_smem) {
+  if (threadIdx.x == 0) {
+    const unsigned e = a.epoch[my - a.rank0];
+    if (e == 0u) {
+      printf("%s: rank %d launched with epoch 0\n", kernel, my);
+      __trap();
+    }
+    *epoch_smem = e;
+  }
+  __syncthreads();
+}
+
 // After this block's stores into every peer: make them visible at
 // system scope once, then raise the n - 1 flags of this stripe at once.
-__device__ __forceinline__ void publish_all(const RingArgs& a, int my, int parity) {
+__device__ __forceinline__ void publish_all(const RingArgs& a, int my, unsigned epoch) {
   __threadfence_system();
   __syncthreads();
   const int t = threadIdx.x;
-  if (t >= 1 && t < a.n) store_release(flag(a, (my + t) % a.n, parity, t, blockIdx.x), a.epoch);
+  const int parity = static_cast<int>(epoch & 1u);
+  if (t >= 1 && t < a.n) store_release(flag(a, (my + t) % a.n, parity, t, blockIdx.x), epoch);
 }
 
 // The per-block timelines: thread 0 of each block stores %globaltimer at
@@ -332,12 +370,14 @@ int ring_path(const RingArgs& a, int rank0, int ranks, bool with_deq) {
 
 // Wait until every hop of this block's stripe has landed (thread 0, in
 // hop order).  Ends with a __syncthreads().
-__device__ void await_all(const RingArgs& a, int my, int parity, unsigned long long deadline) {
+__device__ void await_all(const RingArgs& a, int my, unsigned epoch,
+                          unsigned long long deadline) {
   if (threadIdx.x == 0) {
+    const int parity = static_cast<int>(epoch & 1u);
     for (int h = 1; h < a.n; ++h) {
       const unsigned* p = flag(a, my, parity, h, blockIdx.x);
-      while (!landed(a, p)) {
-        if (now_ns() > deadline) trap_late(a, "rs_ring", my, h, p);
+      while (!landed(p, epoch)) {
+        if (now_ns() > deadline) trap_late(a, "rs_ring", my, h, epoch, p);
         __nanosleep(32);
       }
       if (h == 1) trace_event(a, my, kRsFirstArrival);
@@ -423,20 +463,29 @@ __device__ __forceinline__ void sum_block(const RingArgs& a, int my, int parity,
 // held, later first stores); summing each hop as it lands (the hops
 // land within ~3 us of each other).
 //
-// B6 and B7 wait at no entry barrier; they need none.  Launch e stores
+// B6 and B7 wait at no entry barrier; they need none.  Launch e (the
+// e-th ring launch of this window, which reads epoch e: bump_epochs
+// before it on the same stream advanced the word from e - 1, and every
+// rank runs the same collectives, so every rank's word reads e) stores
 // into the peers' slots and flags of parity e & 1, which only launch
 // e - 2 used.  Launch e - 1 on this card, B6 or B7, ended after it had
 // taken every peer's arrivals of epoch e - 1, so every peer had started
 // launch e - 1 and had therefore ended launch e - 2, reads of those
 // slots included.  Launches 1 and 2 store into slots no launch has used.
+// This holds whether a launch was issued eagerly or replayed from a
+// CUDA graph: the bump and the launch are two nodes of the graph in
+// stream order, one word serves both, and the launches of a window stay
+// on one stream (the exchange stream, or the capturing one), in order.
 // A late peer is waited for in the arrival spins, up to the bound.
 template <int W, bool DEQ, int PATH>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rs_ring_kernel(const __grid_constant__ RingArgs a) {
   __shared__ unsigned long long deadline;
+  __shared__ unsigned epoch;
   const int n = a.n;
   const int my = a.rank0 + static_cast<int>(blockIdx.y);
-  const int parity = static_cast<int>(a.epoch & 1u);
+  read_epoch(a, my, "rs_ring", &epoch);
+  const int parity = static_cast<int>(epoch & 1u);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int block = a.block;
@@ -468,7 +517,7 @@ rs_ring_kernel(const __grid_constant__ RingArgs a) {
     if (t == 1) trace_event(a, my, kRsSent1);
   }
   trace_event(a, my, kRsSent);
-  publish_all(a, my, parity);
+  publish_all(a, my, epoch);
   trace_event(a, my, kRsPublished);
 
   uint4 q0 = make_uint4(0u, 0u, 0u, 0u);
@@ -489,7 +538,7 @@ rs_ring_kernel(const __grid_constant__ RingArgs a) {
   }
   trace_event(a, my, kRsOwn);
 
-  await_all(a, my, parity, deadline);
+  await_all(a, my, epoch, deadline);
   trace_event(a, my, kRsAllArrivals);
   for (long long b = b0; b < hi; b += kWarps) {
     if (PATH == kPath16) {
@@ -513,20 +562,21 @@ rs_ring_kernel(const __grid_constant__ RingArgs a) {
 // Wait until at least one arrival of this stripe not in `done` has
 // landed; returns every such arrival that has (bit h: slot h), on every
 // thread.  Ends with a __syncthreads().
-__device__ unsigned await_any(const RingArgs& a, int my, int parity, unsigned done,
+__device__ unsigned await_any(const RingArgs& a, int my, unsigned epoch, unsigned done,
                               unsigned long long deadline, unsigned* ready_smem) {
   if (threadIdx.x == 0) {
+    const int parity = static_cast<int>(epoch & 1u);
     unsigned ready = 0;
     for (;;) {
       for (int h = 1; h < a.n; ++h) {
-        if (!((done >> h) & 1u) && landed(a, flag(a, my, parity, h, blockIdx.x))) {
+        if (!((done >> h) & 1u) && landed(flag(a, my, parity, h, blockIdx.x), epoch)) {
           ready |= 1u << h;
         }
       }
       if (ready) break;
       if (now_ns() > deadline) {
         const int h = __ffs(~done & ~1u) - 1;
-        trap_late(a, "ag_ring", my, h, flag(a, my, parity, h, blockIdx.x));
+        trap_late(a, "ag_ring", my, h, epoch, flag(a, my, parity, h, blockIdx.x));
       }
       __nanosleep(32);
     }
@@ -603,10 +653,12 @@ template <int W, int PATH>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ag_ring_kernel(const __grid_constant__ RingArgs a) {
   __shared__ unsigned ready_smem;
+  __shared__ unsigned epoch;
   const int n = a.n;
   const int my = a.rank0 + static_cast<int>(blockIdx.y);
   const unsigned long long deadline = now_ns() + a.timeout_ns;
-  const int parity = static_cast<int>(a.epoch & 1u);
+  read_epoch(a, my, "ag_ring", &epoch);
+  const int parity = static_cast<int>(epoch & 1u);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int block = a.block;
@@ -634,14 +686,14 @@ ag_ring_kernel(const __grid_constant__ RingArgs a) {
     if (PATH == kPath16 && b != b0) dequant_store16<W>(own + b * block, block, lane, q, s);
   }
   trace_event(a, my, kSent);
-  publish_all(a, my, parity);
+  publish_all(a, my, epoch);
   trace_event(a, my, kPublished);
   if (PATH == kPath16 && b0 < hi) dequant_store16<W>(own + b0 * block, block, lane, q0, s0);
   trace_event(a, my, kOwn);
 
   const unsigned all = ((1u << n) - 1u) & ~1u;
   for (unsigned done = 0; done != all;) {
-    const unsigned ready = await_any(a, my, parity, done, deadline, &ready_smem);
+    const unsigned ready = await_any(a, my, epoch, done, deadline, &ready_smem);
     if (done == 0) trace_event(a, my, kFirstArrival);
     for (long long b = b0; b < hi; b += kWarps) {
       receive_block<W, PATH>(a, my, parity, ready, b, lane, a.out[my]);
@@ -678,18 +730,22 @@ int launch(const void* kernel, RingArgs& a, int ranks, void* stream) {
   if (g > need) g = need;
   if (g > kMaxStripes) g = kMaxStripes;
   if (g < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  bump_epochs<<<1, 32, 0, s>>>(a.epoch, ranks);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return static_cast<int>(e2);
   void* params[] = {&a};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       kernel, dim3(static_cast<unsigned>(g), static_cast<unsigned>(ranks)), dim3(kThreads),
-      params, 0, reinterpret_cast<cudaStream_t>(stream)));
+      params, 0, s));
 }
 
 // Fills `a` from the C arguments; returns a cudaError_t.
 int make_args(RingArgs& a, void* const* x, void* const* out, void* const* deq,
               void* const* win, int n, int rank0, int ranks, long long nb, int block,
-              float inv_qmax, unsigned epoch, long long slot_bytes, double timeout_s) {
+              float inv_qmax, void* epoch, long long slot_bytes, double timeout_s) {
   if (n < 2 || n > kMaxRanks || ranks < 1 || rank0 < 0 || rank0 + ranks > n || nb < 1 ||
-      block < 1 || epoch == 0 || timeout_s <= 0.0 ||
+      block < 1 || epoch == nullptr || timeout_s <= 0.0 ||
       nb * (block + 4) > slot_bytes || slot_bytes % kSlotAlign != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -711,7 +767,7 @@ int make_args(RingArgs& a, void* const* x, void* const* out, void* const* deq,
   a.n = n;
   a.rank0 = rank0;
   a.block = block;
-  a.epoch = epoch;
+  a.epoch = static_cast<unsigned*>(epoch);
   a.inv_qmax = inv_qmax;
   return 0;
 }
@@ -782,10 +838,13 @@ extern "C" int hvd_ring_close(void* ptr) { return static_cast<int>(cudaIpcCloseM
 
 // B6 for ranks rank0 .. rank0 + ranks - 1 of a world of n.  x, acc and
 // deq (deq may be null) are tables of n pointers of which those ranks'
-// are used; win holds every rank's window as mapped here.
+// are used; win holds every rank's window as mapped here; epoch points to
+// the launched ranks' epoch words in device memory, which the launch
+// advances (two kernels: bump_epochs, then the ring).  The tables are
+// copied into the kernel's arguments by value.
 extern "C" int hvd_rs_ring(void* const* x, void* const* acc, void* const* deq,
                            void* const* win, int n, int rank0, int ranks, long long nb,
-                           int block, int wire, float inv_qmax, unsigned epoch,
+                           int block, int wire, float inv_qmax, void* epoch,
                            long long slot_bytes, double timeout_s, void* stream) {
   RingArgs a;
   int e = make_args(a, x, acc, deq, win, n, rank0, ranks, nb, block, inv_qmax, epoch,
@@ -806,7 +865,7 @@ extern "C" int hvd_rs_ring(void* const* x, void* const* acc, void* const* deq,
 // B7, as hvd_rs_ring: x holds shards (nb, block), out (n, nb, block).
 extern "C" int hvd_ag_ring(void* const* x, void* const* out, void* const* win, int n,
                            int rank0, int ranks, long long nb, int block, int wire,
-                           float inv_qmax, unsigned epoch, long long slot_bytes,
+                           float inv_qmax, void* epoch, long long slot_bytes,
                            double timeout_s, void* stream) {
   RingArgs a;
   int e = make_args(a, x, out, nullptr, win, n, rank0, ranks, nb, block, inv_qmax, epoch,

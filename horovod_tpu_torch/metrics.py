@@ -7,7 +7,12 @@ names, so parity tests can compare them.  The data-parallel step emits
 ``sched.wire_bytes{wire=}``, ``sched.wire_bytes.<wire>`` and
 ``sched.compression_ratio`` (``sched/execute.py``); the quantized wire
 counts ``quant.fused_collectives`` and ``quant.fused_bytes``
-(``ops/quantized.py``) above a world of one.
+(``ops/quantized.py``) above a world of one.  They are recorded in
+Python, so a step captured into a CUDA graph records them once, at
+capture, as the JAX package records them once per trace; its replays
+record nothing.  ``TrainStep`` publishes ``sched.onestep.engaged{mode=}``
+(1 when the call ran the captured step) and counts
+``xir.onestep.steps`` once per capture.
 """
 
 from __future__ import annotations

@@ -24,7 +24,11 @@ Layout ``[B, T, H, D]`` throughout; q, k and v may be strided views of
 one qkv tensor.  On a CPU tensor every entry point computes
 :func:`flash_forward_reference` instead.  ``flash_forward.launches``
 counts every B2 launch, ``flash_forward_wgmma.launches`` and
-``flash_forward_mma.launches`` each route's.
+``flash_forward_mma.launches`` each route's, as the device runs them: a
+launch recorded into a CUDA graph is not counted at capture, and is
+counted once on each replay (``TrainStep``,
+``optim/distributed_optimizer.py``, over the wrappers in
+``ops.LAUNCH_COUNTED``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, counted
 
 NEG_INF = -1e30
 # Key tile of each route: p is rounded to bf16 against the running
@@ -271,9 +275,8 @@ def flash_forward(
                                                 segments)
 
 
-flash_forward.launches = 0
-flash_forward_wgmma.launches = 0
-flash_forward_mma.launches = 0
+for _fn in (flash_forward, flash_forward_wgmma, flash_forward_mma):
+    counted(_fn)
 
 
 def flash_backward_chunked(

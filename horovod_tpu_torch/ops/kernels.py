@@ -10,7 +10,11 @@ stream.
 bfloat16 or float16; the scale is rounded to float32 first, as the JAX
 kernel keeps it.  On a CPU tensor the wrapper computes the plain version
 (:func:`scale_cast_reference`); on a CUDA tensor it launches the kernel
-or raises.
+or raises.  ``scale_cast.launches`` counts kernel launches as the device
+runs them: a launch recorded into a CUDA graph is not counted at
+capture, and is counted once on each replay (``TrainStep``,
+``optim/distributed_optimizer.py``, over the wrappers in
+``ops.LAUNCH_COUNTED``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import build
+from . import build, counted
 
 # dtype codes of csrc/scale_cast.cu
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -104,7 +108,7 @@ def scale_cast(
     return out
 
 
-scale_cast.launches = 0
+counted(scale_cast)
 
 
 class _ScaleBuffer(torch.autograd.Function):

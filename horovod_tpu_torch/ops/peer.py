@@ -21,9 +21,15 @@ which launch every rank's blocks in one grid.  A refused IPC call raises
 with the CUDA error.  :meth:`close` (``runtime.shutdown()`` calls it)
 closes the mappings and frees the windows.
 
-Every launch takes the next epoch (:meth:`next_epoch`); the kernels'
-flags hold epochs, so nothing is reset between launches, and every rank
-counts the same epochs because every rank runs the same collectives.
+Every launch takes the next epoch; the kernels' flags hold epochs, so
+nothing is reset between launches, and every rank counts the same
+epochs because every rank runs the same collectives.  The epoch lives on
+the card, one 32-bit word per launched rank (``epochs``, zero at first,
+made with the window and freed by :meth:`close`), and each launch
+advances it there before the ring kernel reads it (``csrc/quant_ring.cu``
+``bump_epochs``): a launch captured into a CUDA graph takes a new epoch
+on every replay, and eager launches go on from where the replays left
+it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from .. import runtime
 from . import build
 
 # Largest per-rank packed payload, n·(c + 4·c/block) bytes, the ring
@@ -51,7 +58,7 @@ def library() -> ctypes.CDLL:
     if lib.hvd_rs_ring.argtypes is None:
         vp, pp, i, ll = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                          ctypes.c_int, ctypes.c_longlong)
-        u, f, d = ctypes.c_uint, ctypes.c_float, ctypes.c_double
+        f, d = ctypes.c_float, ctypes.c_double
         lib.hvd_ring_error_string.argtypes = [i]
         lib.hvd_ring_error_string.restype = ctypes.c_char_p
         lib.hvd_ring_window_bytes.argtypes = [i, ll]
@@ -64,9 +71,9 @@ def library() -> ctypes.CDLL:
         lib.hvd_ring_export.argtypes = [vp, ctypes.c_char_p]
         lib.hvd_ring_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(vp)]
         lib.hvd_ring_close.argtypes = [vp]
-        lib.hvd_rs_ring.argtypes = [pp, pp, pp, pp, i, i, i, ll, i, i, f, u, ll,
+        lib.hvd_rs_ring.argtypes = [pp, pp, pp, pp, i, i, i, ll, i, i, f, vp, ll,
                                     d, vp]
-        lib.hvd_ag_ring.argtypes = [pp, pp, pp, i, i, i, ll, i, i, f, u, ll, d,
+        lib.hvd_ag_ring.argtypes = [pp, pp, pp, i, i, i, ll, i, i, f, vp, ll, d,
                                     vp]
         # B6's and B7's per-block timeline buffers, for chip_smoke.py.
         for fn in (lib.hvd_rs_ring_trace, lib.hvd_ag_ring_trace):
@@ -98,7 +105,9 @@ class PeerWindow:
 
     ``bases[r]`` is rank r's window (this process's own, or a peer's
     mapped through IPC); ``ranks`` are the ranks this process launches
-    (its own rank in a world, all n for virtual ranks)."""
+    (its own rank in a world, all n for virtual ranks); ``epochs`` is the
+    address of their epoch words on the card, ``ranks[i]``'s at byte
+    4·i."""
 
     def __init__(self, device: torch.device, n: int, ranks: List[int],
                  bases: List[int], slot: int, owned: List[int],
@@ -108,10 +117,11 @@ class PeerWindow:
         self.ranks = ranks
         self.bases = bases
         self.slot_bytes = slot
-        self.epoch = 0
         self._owned = owned
         self._opened = opened
         self._group_barrier = group_barrier
+        with torch.cuda.device(device):
+            self.epochs = _alloc(library(), 4 * len(ranks))
 
     @classmethod
     def virtual(cls, n: int, device: Optional[torch.device] = None) -> "PeerWindow":
@@ -126,12 +136,12 @@ class PeerWindow:
             with torch.cuda.device(device):
                 for _ in range(n):
                     owned.append(_alloc(lib, lib.hvd_ring_window_bytes(n, slot)))
+            return cls(device, n, list(range(n)), list(owned), slot, owned, [], False)
         except RuntimeError:
             with torch.cuda.device(device):
                 for p in owned:
                     lib.hvd_ring_free(p)
             raise
-        return cls(device, n, list(range(n)), list(owned), slot, owned, [], False)
 
     @classmethod
     def world(cls, rt) -> "PeerWindow":
@@ -140,6 +150,7 @@ class PeerWindow:
         Collective: every rank calls it at the same point."""
         n, rank, device = rt.size, rt.rank, rt.device
         _check_size(n)
+        runtime.refuse_in_capture("the peer window's IPC handle exchange")
         lib = library()
         slot = slot_bytes(n)
         handle = ctypes.create_string_buffer(lib.hvd_ring_handle_size())
@@ -160,21 +171,17 @@ class PeerWindow:
                           f"cudaIpcOpenMemHandle of rank {r}'s window on rank {rank}")
                     opened.append(ptr.value)
                     bases.append(ptr.value)
+                return cls(device, n, [rank], bases, slot, [own], opened, True)
             except BaseException:
                 for p in opened:
                     lib.hvd_ring_close(p)
                 lib.hvd_ring_free(own)
                 raise
-        return cls(device, n, [rank], bases, slot, [own], opened, True)
-
-    def next_epoch(self) -> int:
-        self.epoch += 1
-        return self.epoch
 
     def close(self) -> None:
         """Close the peers' mappings, wait for every rank to have done so,
-        then free this process's windows.  Idempotent."""
-        if not self._owned and not self._opened:
+        then free this process's windows and epoch words.  Idempotent."""
+        if not self._owned and not self._opened and not self.epochs:
             return
         lib = library()
         with torch.cuda.device(self.device):
@@ -184,9 +191,9 @@ class PeerWindow:
             self._opened = []
             if self._group_barrier and dist.is_initialized():
                 dist.barrier()
-            for p in self._owned:
+            for p in self._owned + [self.epochs]:
                 check(lib, lib.hvd_ring_free(p), "cudaFree")
-            self._owned = []
+            self._owned, self.epochs = [], 0
 
 
 def _check_size(n: int) -> None:

@@ -26,7 +26,10 @@ is quantized as a zero block, where the JAX guard would divide by 0.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA
 tensor it launches its kernel or raises.  ``<wrapper>.launches`` counts
-kernel launches.
+kernel launches as the device runs them: a launch recorded into a CUDA
+graph is not counted at capture, and is counted once on each replay
+(``TrainStep``, ``optim/distributed_optimizer.py``, over the wrappers in
+``ops.LAUNCH_COUNTED``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, counted
 from .collectives import f32_reciprocal
 
 # wire name -> (storage dtype, qmax); codes shared with csrc/quant.cu.
@@ -216,6 +219,5 @@ def dequant_rows(p: torch.Tensor, wire: str) -> torch.Tensor:
     return out
 
 
-quant_packed.launches = 0
-dequant_accum.launches = 0
-dequant_rows.launches = 0
+for _fn in (quant_packed, dequant_accum, dequant_rows):
+    counted(_fn)

@@ -15,7 +15,11 @@ order of ``window.ranks``: one row in a world of processes, all ``n``
 for a window of virtual ranks on one card.  On a CPU tensor it computes
 its plain version, which takes every rank's row at once; on a CUDA
 tensor it launches its kernel or raises.  ``<wrapper>.launches`` counts
-kernel launches (one per launch, whatever the number of ranks in it).
+kernel launches (one per launch, whatever the number of ranks in it) as
+the device runs them: a launch recorded into a CUDA graph is not counted
+at capture, and is counted once on each replay (``TrainStep``,
+``optim/distributed_optimizer.py``, over the wrappers in
+``ops.LAUNCH_COUNTED``).
 
 The plain versions use B3's quantization and B4's rounding
 (``quant_kernels.py``): every product and every sum rounded to
@@ -32,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import runtime
-from . import peer
+from . import counted, peer
 from .collectives import f32_reciprocal
 from .quant_kernels import WIRE_FORMATS, _WIRE_CODE, quant_math_reference
 
@@ -126,7 +130,9 @@ def _tables(window, rows):
     ranks, one row each, or None) with each row's address at its rank's
     index, the rest null.  The tables are made once per window and each
     call writes its own tensors' addresses into them: the C entry copies
-    them into the kernel's arguments before it returns."""
+    them into the kernel's arguments (``RingArgs``) by value before it
+    returns, so a launch captured into a CUDA graph keeps the addresses
+    of its own call whatever later calls write here."""
     cached = getattr(window, "_launch_tables", None)
     if cached is None:
         n = window.n
@@ -182,7 +188,7 @@ def rs_ring(x: torch.Tensor, window, wire: str, block: int, want_deq: bool = Fal
         rc = lib.hvd_rs_ring(
             xs, accs, deqs, wins, n, window.ranks[0], ranks, nb, block,
             _WIRE_CODE[wire], _INV_QMAX[wire],
-            window.next_epoch(), window.slot_bytes,
+            window.epochs, window.slot_bytes,
             spin_timeout_s() if timeout_s is None else timeout_s,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -212,7 +218,7 @@ def ag_ring(shards: torch.Tensor, window, wire: str, block: int,
         rc = lib.hvd_ag_ring(
             xs, outs, wins, n, window.ranks[0], ranks, nb, block,
             _WIRE_CODE[wire], _INV_QMAX[wire],
-            window.next_epoch(), window.slot_bytes,
+            window.epochs, window.slot_bytes,
             spin_timeout_s() if timeout_s is None else timeout_s,
             torch.cuda.current_stream(shards.device).cuda_stream,
         )
@@ -220,5 +226,5 @@ def ag_ring(shards: torch.Tensor, window, wire: str, block: int,
     return out
 
 
-rs_ring.launches = 0
-ag_ring.launches = 0
+counted(rs_ring)
+counted(ag_ring)

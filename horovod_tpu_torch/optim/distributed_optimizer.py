@@ -65,10 +65,12 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from .. import runtime
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from .. import metrics, runtime
 from ..compression import Compression, Compressor
-from ..exceptions import QuantizedWireError
-from ..ops import collectives, fusion
+from ..exceptions import HorovodTpuError, QuantizedWireError
+from ..ops import LAUNCH_COUNTED, collectives, fusion
 from ..ops.collectives import Average, Sum
 from ..ops.quantized import quantized_allreduce
 from ..sched import execute
@@ -80,6 +82,8 @@ from ..sched.plan import (
     build_schedule,
     dtype_name,
 )
+from ..utils import env
+from ..xir.interp import onestep_engaged, onestep_mode
 
 
 def densify(grad: torch.Tensor) -> torch.Tensor:
@@ -569,6 +573,113 @@ def _pmean_(tensors: List[torch.Tensor]) -> None:
         t.copy_(r)
 
 
+# Eager steps a TrainStep runs, on a side stream, before it captures:
+# the first makes the plan (rank 0's observed order, broadcast), the
+# ring's peer window and peer check, the NCCL communicators and SGD's
+# momentum buffers; the second runs as every later step does (from the
+# backward's hooks under HVD_TPU_SCHED_BARRIERS=1, momentum in use).
+CAPTURE_WARMUP = 2
+
+# The side stream of the warm-up steps, one per card for the process:
+# PyTorch keeps a cuBLAS workspace per (handle, stream) for good, so a
+# new stream per warm-up would leave ~64 MiB more behind each time.
+_WARMUP_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = _WARMUP_STREAMS.get(index)
+    if stream is None:
+        stream = _WARMUP_STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
+
+
+def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
+                    optimizer_capturable: bool = True) -> Optional[str]:
+    """Why a data-parallel step on a card cannot be captured as one CUDA
+    graph, from static facts alone (None: it can).  ``backend`` is the
+    process group's (None without a runtime: no collective runs);
+    ``backward_passes`` the optimizer's ``backward_passes_per_step``;
+    ``sparse`` whether the model has a sparse-gradient module;
+    ``optimizer_capturable`` False when a parameter group of the
+    optimizer has ``capturable=False`` (Adam, AdamW: their step count is
+    read on the host)."""
+    if backend is not None and backend != "nccl":
+        return (f"its process group is {backend}, not NCCL: each collective "
+                "waits on the host")
+    if backward_passes != 1:
+        return (f"backward_passes_per_step is {backward_passes}: the steps "
+                "that only accumulate differ from the ones that apply")
+    if sparse:
+        return "the model has a sparse-gradient module (sparse=True)"
+    if not optimizer_capturable:
+        return ("the optimizer was built with capturable=False: its update "
+                "reads its step count on the host")
+    return None
+
+
+class _Captured:
+    """One step captured as a CUDA graph: its static inputs, its loss,
+    and the kernel launches it records, per wrapper of
+    ``ops.LAUNCH_COUNTED`` (added to their counters on every replay: the
+    replay's counts are inferred from the capture's, not counted at a
+    launch)."""
+
+    def __init__(self, graph, static: list, loss: torch.Tensor, launches: dict):
+        self.graph = graph
+        self.static = static
+        self.loss = loss
+        self.launches = launches
+
+    def replay(self, leaves: list) -> torch.Tensor:
+        for s, t in zip(self.static, leaves):
+            if torch.is_tensor(s):
+                s.copy_(t)
+        self.graph.replay()
+        for fn, n in self.launches.items():
+            fn.launches += n
+        return self.loss.clone()  # a later replay overwrites self.loss
+
+
+def _signature(leaves: list) -> tuple:
+    return tuple((tuple(t.shape), t.dtype, t.device) if torch.is_tensor(t) else t
+                 for t in leaves)
+
+
+def _frozen(value):
+    """A hashable stand-in for a hyperparameter: a tensor on the card by
+    its storage (a replay reads its value there), one on the host by its
+    value too (the update reads it at capture), a container item by
+    item."""
+    if torch.is_tensor(value):
+        host = _frozen(value.tolist()) if value.device.type == "cpu" else None
+        return ("tensor", value.data_ptr(), value.device, host)
+    if isinstance(value, (list, tuple)):
+        return tuple(_frozen(v) for v in value)
+    if isinstance(value, dict):
+        return tuple((k, _frozen(v)) for k, v in sorted(value.items()))
+    try:
+        hash(value)
+    except TypeError:
+        return repr(value)
+    return value
+
+
+def host_state(optimizer) -> tuple:
+    """What a captured step holds fixed besides the batch and the
+    scheduler's knobs, and the eager step reads anew on every call: each
+    parameter group's size and hyperparameters (SGD's ``lr``, ``momentum``
+    and ``weight_decay`` are Python numbers, baked into the update's
+    kernels at capture) and the quantized wire's knobs
+    (``HVD_TPU_QUANT_BACKEND``, ``HVD_TPU_QUANT_BLOCK``, read per
+    collective).  A change of any drops the captured step."""
+    groups = tuple(
+        (len(g["params"]),) + tuple((k, _frozen(v)) for k, v in sorted(g.items())
+                                    if k != "params")
+        for g in optimizer.param_groups)
+    return groups, env.get_env(env.QUANT_BACKEND), env.get_env(env.QUANT_BLOCK)
+
+
 class TrainStep:
     """One data-parallel training step on this rank's batch:
     forward + backward, gradient exchange and optimizer update
@@ -580,15 +691,134 @@ class TrainStep:
     ``loss_fn(model, batch) -> loss``.  ``step(batch)`` returns the
     averaged loss as a detached tensor.  Gradients are cleared after
     each step that applied an update, so with
-    ``backward_passes_per_step=k`` they accumulate over k calls."""
+    ``backward_passes_per_step=k`` they accumulate over k calls.
+
+    On a card the whole step is captured as one CUDA graph when
+    ``HVD_TPU_ONESTEP`` engages it (``xir/interp.py``; the counterpart of
+    the JAX package's whole-step emission, ``TrainStep`` ``:1034-1063``):
+    after ``CAPTURE_WARMUP`` eager steps on a side stream, one step is
+    captured (forward, backward, every bucket's exchange, the update and
+    the cross-rank means) and every later call copies the batch into the
+    graph's inputs, replays it (one ``cudaGraphLaunch``) and returns a
+    copy of its loss, bitwise what the eager step computes.  A change of
+    the batch's shapes or dtypes, of the scheduler's knobs
+    (``HVD_TPU_SCHED_WIRE``, ``HVD_TPU_SCHED_BARRIERS``, ...), of the
+    optimizer's hyperparameters or the quantized wire's knobs
+    (:func:`host_state`: a learning-rate schedule's new ``lr``) or of the
+    mode drops the graph and its memory; the next calls warm up and
+    capture anew, as the JAX package retraces.  So a key that changes at
+    every step (a per-step schedule) runs every step eagerly, on the
+    warm-up stream, and never captures.  ``auto`` captures a step
+    of two or more units (buckets, plus the update) that
+    :func:`capture_blocker` lets through and runs any other eagerly;
+    ``on`` raises for a step it blocks; ``off`` runs eagerly.  On the CPU
+    every mode runs eagerly (no graphs there).  A capture that fails
+    raises: nothing falls back to the eager step.  Python state is
+    frozen at the capture: the ``sched.*`` metrics count once per
+    capture (``xir.onestep.steps`` too), the kernels' launch counters
+    once per replay, and ``p.grad`` stays None after each step, as the
+    eager step leaves it."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Callable[[torch.nn.Module, object], torch.Tensor]):
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self._captured: Optional[_Captured] = None
+        self._key = None
+        self._warm = 0
 
     def __call__(self, batch) -> torch.Tensor:
+        mode = onestep_mode()
+        device = self._device()
+        if mode == "off" or device.type != "cuda":
+            self.drop()
+            return self._eager(batch, mode)
+        reason = self.blocker()
+        if reason is not None:
+            if mode == "on":
+                raise HorovodTpuError(
+                    f"HVD_TPU_ONESTEP=on: this step cannot be captured as one "
+                    f"CUDA graph: {reason} (ROADMAP Queue A item A12a)"
+                )
+            self.drop()
+            return self._eager(batch, mode)
+        leaves, spec = tree_flatten(batch)
+        key = (mode, SchedConfig.from_env(), spec, _signature(leaves),
+               host_state(self.optimizer))
+        if key != self._key:
+            self.drop()
+            self._key = key
+        if self._captured is None:
+            if self._warm < CAPTURE_WARMUP:
+                self._warm += 1
+                return self._side_stream_step(batch, mode, device)
+            if not onestep_engaged(self._units()):
+                return self._eager(batch, mode)
+            self._capture(leaves, spec)
+            if runtime.is_initialized():  # shutdown() drops it first
+                runtime.get_runtime().captured_steps.add(self)
+        metrics.set_gauge("sched.onestep.engaged", 1.0, {"mode": mode})
+        return self._captured.replay(leaves)
+
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def blocker(self) -> Optional[str]:
+        """:func:`capture_blocker` of this step's model and optimizer."""
+        rt = runtime.get_runtime() if runtime.is_initialized() else None
+        sparse = any(isinstance(m, (torch.nn.Embedding, torch.nn.EmbeddingBag))
+                     and m.sparse for m in self.model.modules())
+        return capture_blocker(
+            rt.backend if rt is not None else None,
+            getattr(self.optimizer, "backward_passes_per_step", 1), sparse,
+            all(g.get("capturable", True) for g in self.optimizer.param_groups))
+
+    def drop(self) -> None:
+        """Drop the captured step and give its memory pool back to the
+        card (an in-flight replay finishes first: ``empty_cache`` frees
+        through ``cudaFree``, which waits for the device); the next call
+        on a card warms up and captures anew.  ``shutdown()`` drops every
+        captured step before it leaves the process group."""
+        captured, self._captured, self._key, self._warm = self._captured, None, None, 0
+        if captured is not None:
+            captured.graph.reset()
+            del captured  # its static inputs and loss live in the pool
+            torch.cuda.empty_cache()
+
+    def _units(self) -> int:
+        schedule = getattr(self.optimizer, "schedule", None)
+        return (len(schedule) if schedule is not None else 0) + 1
+
+    def _side_stream_step(self, batch, mode: str, device) -> torch.Tensor:
+        main = torch.cuda.current_stream(device)
+        side = _warmup_stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss = self._eager(batch, mode)
+        main.wait_stream(side)
+        loss.record_stream(main)
+        return loss
+
+    def _capture(self, leaves: list, spec) -> None:
+        static = [t.clone() if torch.is_tensor(t) else t for t in leaves]
+        before = {fn: fn.launches for fn in LAUNCH_COUNTED}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                loss = self._step(tree_unflatten(static, spec))
+            launches = {fn: fn.launches - before.get(fn, 0) for fn in LAUNCH_COUNTED}
+        finally:  # the capture launched nothing on the device
+            for fn in LAUNCH_COUNTED:
+                fn.launches = before.get(fn, 0)
+        metrics.inc_counter("xir.onestep.steps")
+        self._captured = _Captured(graph, static, loss, launches)
+
+    def _eager(self, batch, mode: str) -> torch.Tensor:
+        metrics.set_gauge("sched.onestep.engaged", 0.0, {"mode": mode})
+        return self._step(batch)
+
+    def _step(self, batch) -> torch.Tensor:
         self.model.train()
         loss = self.loss_fn(self.model, batch)
         loss.backward()

@@ -24,6 +24,7 @@ import datetime
 import os
 import socket
 import threading
+import weakref
 from typing import Any, List, Optional, Union
 
 import torch
@@ -65,8 +66,14 @@ class Runtime:
         # released by shutdown().
         self.peers_reach: Optional[bool] = None
         self.peer_window = None
+        # The TrainSteps holding a captured CUDA graph, dropped at
+        # shutdown: a graph that captured NCCL operations keeps its
+        # communicator alive, and destroying the group waits for it.
+        self.captured_steps: "weakref.WeakSet" = weakref.WeakSet()
 
     def shutdown(self) -> None:
+        for step in list(self.captured_steps):
+            step.drop()
         if self.peer_window is not None:
             self.peer_window.close()
             self.peer_window = None
@@ -220,11 +227,28 @@ def device() -> torch.device:
     return get_runtime().device
 
 
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def refuse_in_capture(what: str) -> None:
+    """Raise if a CUDA graph is being captured: ``what`` waits on the host
+    (a host collective), which a graph cannot hold."""
+    if capturing():
+        raise RuntimeError(
+            f"{what} waits on the host and cannot run while a CUDA graph is "
+            "captured; TrainStep's eager warm-up steps make it before the "
+            "capture (HVD_TPU_ONESTEP, ROADMAP Queue A item A12a)"
+        )
+
+
 def broadcast_object(obj: Any, root_rank: int = 0) -> Any:
     """Pickle ``obj`` on ``root_rank`` and return it on every rank."""
     rt = get_runtime()
     if rt.size == 1:
         return obj
+    refuse_in_capture("broadcast_object")
     box = [obj]
     dist.broadcast_object_list(
         box, src=root_rank,

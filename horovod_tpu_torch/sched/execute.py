@@ -25,6 +25,19 @@ makes the current stream wait for the exchange stream.  Tensors that
 cross streams are recorded on the stream that uses them
 (``Tensor.record_stream``).  Launched after the backward, a bucket runs
 at once on the calling thread and the current stream.
+
+While a CUDA graph is being captured (``TrainStep`` under
+``HVD_TPU_ONESTEP``), a bucket launched from the backward runs at once
+on the hook's own thread, not the worker's: the capture records what
+the capturing thread issues.  It still runs on the exchange stream,
+forked from the capturing stream by the event the launch records and
+joined by :meth:`BucketChain.finish`, so the graph holds the fork and the
+join, and a replay overlaps each bucket with the backward on the device
+with no host work.  ``record_stream`` works there too: PyTorch's
+allocator keeps a block used on two streams out of reuse until the
+capture has ended, so no later node of the graph overwrites it.  Such a
+chain keeps its launch ``log`` but records no timing events (a graph's
+events cannot be timed from the host).
 """
 
 from __future__ import annotations
@@ -120,7 +133,9 @@ class BucketChain:
     of the schedule reduced, in index order (views of the reduced flat
     buffers).  ``log`` lists ``(position, from_hook)`` in launch order.
     Made inside :func:`traced`, on a card, each bucket's start and end
-    are CUDA events on the stream it ran on (:meth:`timeline`)."""
+    are CUDA events on the stream it ran on (:meth:`timeline`), except
+    in a chain made during a CUDA graph's capture, whose side buckets run
+    on the launching thread (module docstring)."""
 
     def __init__(self, schedule: BucketSchedule,
                  reduce_flat: Callable[[torch.Tensor, Bucket], torch.Tensor],
@@ -130,7 +145,8 @@ class BucketChain:
         on_card = device is not None and device.type == "cuda"
         self._side = side
         self._stream = exchange_stream(device) if side and on_card else None
-        self._timing = _TRACED is not None and on_card
+        self._capturing = on_card and runtime.capturing()
+        self._timing = _TRACED is not None and on_card and not self._capturing
         if _TRACED is not None:
             _TRACED.append(self)
         self.log: List[Tuple[int, bool]] = []
@@ -151,6 +167,9 @@ class BucketChain:
         if self._stream is not None:
             ready = torch.cuda.Event()
             ready.record()  # the launching stream's work so far
+        if self._capturing:
+            self._run_side(k, leaves, ready)
+            return
         self._futures.append(_worker().submit(self._run_side, k, leaves, ready))
 
     @torch.no_grad()
@@ -212,8 +231,9 @@ class BucketChain:
     def timeline(self) -> List[Tuple[float, float]]:
         """Per bucket in schedule order, its exchange's (start, end) in ms
         from the backward's end (negative: before it); empty outside
-        :func:`traced`, off a card or before :meth:`mark_backward_end`.
-        Waits for the events."""
+        :func:`traced`, off a card, for a chain made during a CUDA graph's
+        capture or before :meth:`mark_backward_end`.  Waits for the
+        events."""
         zero = self._backward_end
         if zero is None or len(self._events) != len(self.schedule):
             return []

@@ -17,6 +17,12 @@ bucket goes when every member's gradient is ready and every earlier
 bucket of the schedule has gone, so every rank issues the same
 collectives in the same order, as the JAX package's optimization
 barriers make XLA do.
+
+Both keep Python state only and read no tensor: in a step captured as a
+CUDA graph (``TrainStep``) they fire at the capture alone, and what they
+launch is recorded into the graph.  The host collectives of an exchange
+(the plan's broadcast, the ring's window) refuse to run under a capture
+(``runtime.refuse_in_capture``); the eager steps before it make them.
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..compression import Compression
+from ..optim.distributed_optimizer import CAPTURE_WARMUP
 
 
 def _loss_fn(model, batch):
@@ -62,26 +63,59 @@ def timed_throughput(step, batch, iters: int,
     return seconds, losses + [float(t) for t in timed]
 
 
-def window_labels(wire: Optional[str], overlap_pairs: int = 0) -> Tuple[str, ...]:
-    """Labels of timing windows taken in turns: ``overlap_pairs`` pairs
-    on ``wire`` (default bf16) with each bucket's exchange launched from
-    the backward and after it (``wire/overlapped``, ``wire/after``,
-    ``wire/after``, ``wire/overlapped``, ...); else bf16 against the
+def window_labels(wire: Optional[str], overlap_pairs: int = 0,
+                  onestep_pairs: int = 0) -> Tuple[str, ...]:
+    """Labels of timing windows taken in turns: ``onestep_pairs`` pairs
+    on ``wire`` (default bf16) with the step captured as one CUDA graph
+    and run eagerly (``wire/captured``, ``wire/eager``, ``wire/eager``,
+    ``wire/captured``, ...); else ``overlap_pairs`` pairs with each
+    bucket's exchange launched from the backward and after it
+    (``wire/overlapped``, ``wire/after``, ...); else bf16 against the
     plain wire (``bf16``, ``off``, ``off``, ``bf16``), framed by ``wire``
     when one is given."""
-    if overlap_pairs:
-        return tuple(f"{wire or 'bf16'}/{m}" for _ in range(-(-overlap_pairs // 2))
-                     for m in ("overlapped", "after", "after", "overlapped"))
+    pairs, modes = ((onestep_pairs, ("captured", "eager")) if onestep_pairs
+                    else (overlap_pairs, ("overlapped", "after")))
+    if pairs:
+        return tuple(f"{wire or 'bf16'}/{m}" for _ in range(-(-pairs // 2))
+                     for m in (modes[0], modes[1], modes[1], modes[0]))
     labels = ("bf16", "off", "off", "bf16")
     return (wire,) + labels + (wire,) if wire else labels
 
 
 def select_window(label: str) -> None:
-    """Set the knobs of a window label (:func:`window_labels`): the wire
-    and ``HVD_TPU_SCHED_BARRIERS``; they take effect from the next step."""
+    """Set the knobs of a window label (:func:`window_labels`): the wire,
+    ``HVD_TPU_SCHED_BARRIERS`` (off in the captured and eager windows, as
+    by default, unless the label ends in ``+barriers``; else on unless
+    ``after``) and ``HVD_TPU_ONESTEP`` (``on`` in the captured windows,
+    else ``off``); they take effect from the next step."""
     wire, _, mode = label.partition("/")
+    mode, _, extra = mode.partition("+")
     os.environ["HVD_TPU_SCHED_WIRE"] = wire
-    os.environ["HVD_TPU_SCHED_BARRIERS"] = "0" if mode == "after" else "1"
+    os.environ["HVD_TPU_SCHED_BARRIERS"] = (
+        "0" if mode in ("after", "captured", "eager") and extra != "barriers"
+        else "1")
+    os.environ["HVD_TPU_ONESTEP"] = "on" if mode == "captured" else "off"
+
+
+def timed_window(step, batch, label: str, steps: int,
+                 before=None) -> Tuple[float, float]:
+    """One timing window of ``label``: its knobs set
+    (:func:`select_window`), one warm-up step (a captured window's
+    ``CAPTURE_WARMUP`` eager steps and its capture too), ``before()``
+    when given, then ``steps`` timed steps fenced by a host read of the
+    last loss.  Returns (seconds of the timed steps, the last loss)."""
+    select_window(label)
+    captured = label.partition("/")[2].startswith("captured")
+    for _ in range(1 + (CAPTURE_WARMUP if captured else 0)):
+        float(step(batch))  # a host read fences the previous work
+    if before is not None:
+        before()
+    t0 = time.perf_counter()
+    loss = None
+    for _ in range(steps):
+        loss = step(batch)
+    last = float(loss)
+    return time.perf_counter() - t0, last
 
 
 def quartiles(values) -> list:

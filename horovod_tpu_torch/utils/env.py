@@ -24,6 +24,9 @@ QUANT_BLOCK = "QUANT_BLOCK"  # elements per quantization block, default 512
 # Quantized-wire backend: phase | fused (default; the ring kernels on the
 # card, see ops/quantized.py).
 QUANT_BACKEND = "QUANT_BACKEND"
+# Whole-step capture: off | on | auto (default), the JAX package's
+# whole-step emission knob (see xir/interp.py).
+ONESTEP = "ONESTEP"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 

@@ -23,7 +23,10 @@ maxima's exp go in another order; float32 to 1e-5 on out and lse.
 B6 and B7, the quantized rings, run the device functions of B3 and B4
 and sum in the plain version's order: bitwise, on n virtual ranks of
 one card, and in worlds of two processes (two cards over NVLink, or two
-ranks sharing one card).
+ranks sharing one card); captured into a CUDA graph and replayed too.
+The step captured as one CUDA graph (``HVD_TPU_ONESTEP``) is held
+bitwise against the eager step on a narrow ResNet, and ``on`` must
+raise where a step cannot be captured.
 """
 
 import ctypes
@@ -624,7 +627,8 @@ def test_ring_wrappers_reject_what_the_kernels_do_not_take():
         big = torch.ones(2, 2 * 512 * 9000, device="cuda")  # past the slots
         with pytest.raises(ValueError):
             rk.rs_ring(big, win, "int8", 512)
-        # A launch the C entry refuses (epoch 0) raises and is not counted.
+        # A launch the C entry refuses (no epoch words: null) raises and is
+        # not counted.
         lib = peer.library()
         before = rk.rs_ring.launches
         with pytest.raises(RuntimeError, match="cudaError"):
@@ -788,3 +792,320 @@ def test_ring_waits_for_a_late_peer(tmp_path):
     for stage in ("WAITED", "AG WAITED"):
         waited = float(re.search(rf"^{stage} 0 (\S+)", outs[0], re.M).group(1))
         assert waited > 10.0, outs[0]
+
+
+# ------------------------------------------------- the step as one graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_rings_captured_and_replayed_bitwise(n):
+    """B6 (with the dequant) and B7 captured into one CUDA graph on n
+    virtual ranks, after an eager launch of each; three replays on fresh
+    inputs copied into the graph's static buffers, then an eager launch
+    of each, every one bitwise with the plain versions.  A replay takes a
+    new epoch from the window's epoch words on the card; with a frozen
+    epoch the second replay would read the first one's flags as landed."""
+    _cuda()
+    win = peer.PeerWindow.virtual(n)
+    try:
+        block, c = 512, 512 * 67
+        xs = [_ring_input(n, n * c, block, 50 + i) for i in range(5)]
+
+        def held(what, x, shards, acc, deq, out):
+            want_acc, want_deq = rk.rs_ring_reference(x, "int8", block, True)
+            assert torch.equal(_int_bits(acc), _int_bits(want_acc)), what
+            assert torch.equal(_int_bits(deq), _int_bits(want_deq)), what
+            want_out = rk.ag_ring_reference(shards, "int8", block)
+            assert torch.equal(_int_bits(out), _int_bits(want_out)), what
+
+        x = xs[0].clone()
+        shards = x[:, :c].contiguous()
+        held("eager before", x, shards, *rk.rs_ring(x, win, "int8", block, True),
+             rk.ag_ring(shards, win, "int8", block))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            acc, deq = rk.rs_ring(x, win, "int8", block, True)
+            out = rk.ag_ring(shards, win, "int8", block)
+        for i in (1, 2, 3):
+            x.copy_(xs[i])
+            shards.copy_(xs[i][:, :c])
+            graph.replay()
+            torch.cuda.synchronize()
+            held(f"replay {i}", x, shards, acc, deq, out)
+        x = xs[4]
+        shards = x[:, :c].contiguous()
+        held("eager after", x, shards, *rk.rs_ring(x, win, "int8", block, True),
+             rk.ag_ring(shards, win, "int8", block))
+        graph.reset()
+    finally:
+        win.close()
+
+
+def _small_run(onestep, steps=5, before_step=None):
+    """``steps`` steps of a narrow float32 ResNet at world one on the card
+    (``build_dp_step``, one batch per step, each new), with
+    ``HVD_TPU_ONESTEP`` at ``onestep`` and ``before_step(i, opt)`` called
+    before step i when given: the losses, the final weights and buffers,
+    the residuals, the kernels' launches, the captures and whether every
+    ``p.grad`` was None after each step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    os.environ["HVD_TPU_ONESTEP"] = onestep
+    metrics.reset("xir.")
+    counters = (kernels.scale_cast, qk.quant_packed, qk.dequant_accum, qk.dequant_rows)
+    before = [c.launches for c in counters]
+    hvd.init("cuda")
+    try:
+        model = ResNet([1, 1, 1, 1], num_classes=10, num_filters=8, dtype=torch.float32,
+                       seed=3, device="cuda")
+        step, opt = build_dp_step(hvd, model)
+        g = torch.Generator(device="cuda").manual_seed(4)
+        losses, no_grads = [], True
+        for i in range(steps):
+            if before_step is not None:
+                before_step(i, opt)
+            batch = (torch.randn(4, 32, 32, 3, generator=g, device="cuda"),
+                     torch.randint(0, 10, (4,), generator=g, device="cuda"))
+            losses.append(step(batch))
+            no_grads &= all(p.grad is None for p in model.parameters())
+        torch.cuda.synchronize()
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        residuals = [r.clone() for r in opt.residuals or []]
+        return {"losses": torch.stack(losses), "state": state, "residuals": residuals,
+                "launches": [c.launches - b for c, b in zip(counters, before)],
+                "captures": metrics.get_counter("xir.onestep.steps"),
+                "no_grads": no_grads}
+    finally:
+        hvd.shutdown()
+        os.environ.pop("HVD_TPU_ONESTEP")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("barriers", ["0", "1"])
+@pytest.mark.parametrize("wire", ["bf16", "int8"])
+def test_captured_step_is_bitwise_with_eager(monkeypatch, wire, barriers):
+    """Five steps of a narrow ResNet, eager and captured as one CUDA
+    graph (two eager warm-up steps, the capture, two more replays, each
+    step on a new batch), from one seed: bitwise-equal losses, weights,
+    BatchNorm statistics and error-feedback residuals (written in place,
+    so every replay carries them on), the same kernel launches (the
+    replays' counted), one capture, and no ``p.grad`` left after a step
+    in either mode.  cuDNN is held to its deterministic algorithms, so
+    two eager runs are bitwise too."""
+    _cuda()
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", wire)
+    monkeypatch.setenv("HVD_TPU_SCHED_BARRIERS", barriers)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    eager, captured = _small_run("off"), _small_run("on")
+    assert torch.equal(_int_bits(captured["losses"]), _int_bits(eager["losses"]))
+    for k, v in eager["state"].items():
+        got = captured["state"][k]
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           v.reshape(-1).view(torch.uint8)), k
+    assert len(captured["residuals"]) == len(eager["residuals"])
+    assert bool(eager["residuals"]) == (wire == "int8")
+    for r, want in zip(captured["residuals"], eager["residuals"]):
+        assert torch.equal(_int_bits(r), _int_bits(want))
+    if wire == "int8":
+        assert any(bool(r.abs().sum() > 0) for r in captured["residuals"])
+    assert captured["launches"] == eager["launches"] and sum(eager["launches"]) > 0
+    assert (eager["captures"], captured["captures"]) == (0, 1)
+    assert eager["no_grads"] and captured["no_grads"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["bf16", "int8"])
+def test_captured_step_follows_a_changed_learning_rate(monkeypatch, wire):
+    """Ten steps of the narrow ResNet, eager and under ``on``: after the
+    capture and a replay, the learning rate changes through
+    ``param_groups`` (as a schedule changes it), and at step 8
+    ``HVD_TPU_QUANT_BLOCK`` goes from 512 to 256.  Each change drops the
+    graph and the next calls warm up and capture anew, so the losses,
+    weights, statistics and residuals stay bitwise with the eager
+    step's, which reads both anew on every call; a graph kept across
+    the change would go on at the old rate, or the old block."""
+    _cuda()
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", wire)
+    monkeypatch.delenv("HVD_TPU_QUANT_BLOCK", raising=False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def before_step(i, opt):
+        if i == 4:
+            for group in opt.param_groups:
+                group["lr"] *= 0.1
+        if i == 8:
+            os.environ["HVD_TPU_QUANT_BLOCK"] = "256"
+
+    runs = []
+    for mode in ("off", "on"):
+        try:
+            runs.append(_small_run(mode, steps=10, before_step=before_step))
+        finally:
+            os.environ.pop("HVD_TPU_QUANT_BLOCK", None)
+    eager, captured = runs
+    assert torch.equal(_int_bits(captured["losses"]), _int_bits(eager["losses"]))
+    for k, v in eager["state"].items():
+        got = captured["state"][k]
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           v.reshape(-1).view(torch.uint8)), k
+    for r, want in zip(captured["residuals"], eager["residuals"]):
+        assert torch.equal(_int_bits(r), _int_bits(want))
+    assert captured["launches"] == eager["launches"]
+    assert (eager["captures"], captured["captures"]) == (0, 2)
+
+
+@pytest.mark.cuda
+def test_onestep_on_refuses_a_step_it_cannot_capture(monkeypatch):
+    """Under ``HVD_TPU_ONESTEP=on`` on the card, a step that cannot be
+    captured raises, naming why, before it runs: two backward passes per
+    step, a sparse-gradient module, a gloo process group.  Under
+    ``auto`` the gloo step runs eagerly (nothing captured)."""
+    import horovod_tpu_torch as hvd
+    import torch.nn.functional as F
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.exceptions import HorovodTpuError
+    from horovod_tpu_torch.models import ResNet
+
+    _cuda()
+    monkeypatch.setenv("HVD_TPU_ONESTEP", "on")
+    batch = (torch.randn(2, 32, 32, 3, device="cuda"), torch.randint(0, 10, (2,), device="cuda"))
+
+    def loss_fn(m, b):
+        return F.cross_entropy(m(b[0]), b[1])
+
+    def resnet():
+        return ResNet([1, 1, 1, 1], num_classes=10, num_filters=8, dtype=torch.float32,
+                      seed=3, device="cuda")
+
+    hvd.init("cuda")
+    try:
+        model = resnet()
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1),
+                                       backward_passes_per_step=2)
+        with pytest.raises(HorovodTpuError, match="backward_passes_per_step is 2.*A12a"):
+            hvd.TrainStep(model, opt, loss_fn)(batch)
+        emb = torch.nn.Sequential(torch.nn.Embedding(10, 4, sparse=True)).cuda()
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(emb.parameters(), lr=0.1),
+                                       sparse_as_dense=True)
+        with pytest.raises(HorovodTpuError, match="sparse"):
+            hvd.TrainStep(emb, opt, lambda m, b: m(b[1]).sum())(batch)
+    finally:
+        hvd.shutdown()
+    hvd.init("cuda", backend="gloo")
+    try:
+        model = resnet()
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1))
+        step = hvd.TrainStep(model, opt, loss_fn)
+        with pytest.raises(HorovodTpuError, match="gloo"):
+            step(batch)
+        monkeypatch.setenv("HVD_TPU_ONESTEP", "auto")
+        metrics.reset("xir.")
+        assert all(torch.isfinite(step(batch)) for _ in range(4))
+        assert metrics.get_counter("xir.onestep.steps") == 0
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_dropping_the_captured_step_releases_its_memory(monkeypatch):
+    """Five rounds of warm-up, capture, a replay and a drop (each round
+    on another wire, so each captures anew): the memory allocated at rest
+    after a drop does not grow from one round to the next, and the drop
+    gives the graph's pool back to the card: reserved memory after it is
+    no more than before the capture."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    _cuda()
+    monkeypatch.setenv("HVD_TPU_ONESTEP", "on")
+    hvd.init("cuda")
+    try:
+        model = ResNet([1, 1, 1, 1], num_classes=10, num_filters=8, dtype=torch.float32,
+                       seed=3, device="cuda")
+        step, _ = build_dp_step(hvd, model)
+        batch = (torch.randn(4, 32, 32, 3, device="cuda"),
+                 torch.randint(0, 10, (4,), device="cuda"))
+        at_rest, reserved = [], []
+        for i in range(5):
+            monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "bf16" if i % 2 else "off")
+            for _ in range(CAPTURE_WARMUP):
+                float(step(batch))
+            before_capture = torch.cuda.memory_reserved()
+            for _ in range(2):
+                loss = step(batch)
+            assert torch.isfinite(loss) and step._captured is not None
+            del loss
+            step.drop()
+            torch.cuda.synchronize()
+            at_rest.append(torch.cuda.memory_allocated())
+            reserved.append((torch.cuda.memory_reserved(), before_capture))
+        assert max(at_rest[1:]) <= at_rest[1], at_rest
+        assert all(after <= before for after, before in reserved), reserved
+    finally:
+        hvd.shutdown()
+
+
+_SHUTDOWN = textwrap.dedent("""
+    import sys
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    rank, store = int(sys.argv[1]), sys.argv[2]
+    hvd.init("cuda", init_method="file://" + store, rank=rank, size=2, timeout_s=100)
+    model = ResNet([1, 1, 1, 1], num_classes=10, num_filters=8, dtype=torch.float32,
+                   seed=rank, device=hvd.device())
+    step, _ = build_dp_step(hvd, model)
+    batch = (torch.randn(4, 32, 32, 3, device=hvd.device()),
+             torch.randint(0, 10, (4,), device=hvd.device()))
+    for _ in range(CAPTURE_WARMUP + 3):
+        loss = float(step(batch))
+    assert step._captured is not None
+    hvd.shutdown()  # the captured step is still alive here
+    assert step._captured is None
+    print("SHUTDOWN OK", rank, loss, flush=True)
+""")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int8", "bf16"])
+def test_shutdown_returns_with_a_captured_step_alive(tmp_path, wire):
+    """Two ranks on two cards (NCCL), each with a captured step still
+    alive (on the int8 wire B6 and B7 in the graph, on bf16 NCCL), leave
+    the process group through ``hvd.shutdown()`` within the time limit:
+    a graph that captured NCCL operations holds its communicator, so
+    ``shutdown()`` drops every captured step first."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, HVD_TPU_ONESTEP="on",
+               HVD_TPU_SCHED_WIRE=wire, HVD_TPU_QUANT_BACKEND="fused")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, "-c", _SHUTDOWN, str(r),
+                               str(tmp_path / "store")],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"SHUTDOWN OK {r}" in out, out

@@ -377,7 +377,7 @@ def test_ring_launch_passes_the_process_groups_timeout(monkeypatch, which):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
     window = types.SimpleNamespace(n=2, ranks=[0, 1], bases=[0, 0],
-                                   slot_bytes=1 << 20, next_epoch=lambda: 1)
+                                   slot_bytes=1 << 20, epochs=64)
     fn = getattr(rk, which)
     x = torch.ones(2, 2 * 64 if which == "rs_ring" else 64)
     thvd.init("cpu", timeout_s=41.0)
@@ -419,7 +419,7 @@ def test_cached_pointer_tables_carry_each_calls_tensors(monkeypatch, which, rank
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
     window = types.SimpleNamespace(n=2, ranks=ranks, bases=[4096, 8192],
-                                   slot_bytes=1 << 20, next_epoch=lambda: 1)
+                                   slot_bytes=1 << 20, epochs=64)
     fn = getattr(rk, which)
     cols = 2 * 64 if which == "rs_ring" else 64
     calls = [torch.ones(len(ranks), cols), torch.zeros(len(ranks), cols)]

@@ -25,6 +25,10 @@ four).  With ``--overlap-pairs N`` the windows are instead N pairs on
 the one wire (``--wire``, else bf16), each bucket's exchange launched
 from the backward and after it (``HVD_TPU_SCHED_BARRIERS`` on, off, off,
 on, ...), and rank 0 also prints each side's median and quartiles.
+With ``--onestep-pairs N`` they are N pairs with the step captured as one
+CUDA graph and run eagerly (``HVD_TPU_ONESTEP`` on, off, off, on, ...;
+the barriers off); a captured window's warm-up steps and its capture
+are left out of its timing.
 Then it checks that:
 
 * every rank holds bitwise the same weights and statistics afterwards
@@ -52,7 +56,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,7 +72,7 @@ def worker(args) -> None:
     from horovod_tpu_torch.ops import quant_kernels as qk
     from horovod_tpu_torch.ops import ring_kernels as rk
     from horovod_tpu_torch.utils.benchmarks import (
-        build_dp_step, quartiles, select_window, window_labels)
+        build_dp_step, quartiles, timed_window, window_labels)
 
     torch.set_num_threads(2)
     if args.backend:
@@ -90,7 +93,7 @@ def worker(args) -> None:
             model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
                              seed=args.rank, device=dev)
             shape, classes = (32, 224, 224, 3), 1000
-        wires = window_labels(args.wire, args.overlap_pairs)
+        wires = window_labels(args.wire, args.overlap_pairs, args.onestep_pairs)
         # The wire at construction decides whether the optimizer keeps
         # error-feedback residuals.
         os.environ["HVD_TPU_SCHED_WIRE"] = wires[0].split("/")[0]
@@ -104,16 +107,16 @@ def worker(args) -> None:
         fused = (args.backend or "fused") == "fused"
 
         def window(label: str):
-            """One window of ``label`` (``window_labels``); its knobs take
-            effect from the warm-up step's end."""
-            select_window(label)
-            float(step(batch))  # warm-up step; the host read fences it
-            before = {k: c.launches for k, c in counters.items()}
-            before["fallback"] = metrics.get_counter("quant.fused_fallback")
-            t0 = time.perf_counter()
-            losses = [step(batch) for _ in range(args.steps)]
-            last = float(losses[-1])
-            ms = (time.perf_counter() - t0) / args.steps * 1e3
+            """One window of ``label`` (``window_labels``): step ms, the
+            timed steps' launches and the last loss."""
+            before = {}
+
+            def snapshot():
+                before.update({k: c.launches for k, c in counters.items()})
+                before["fallback"] = metrics.get_counter("quant.fused_fallback")
+
+            seconds, last = timed_window(step, batch, label, args.steps, snapshot)
+            ms = seconds / args.steps * 1e3
             counts = {k: c.launches - before[k] for k, c in counters.items()}
             counts["fallback"] = (metrics.get_counter("quant.fused_fallback")
                                   - before["fallback"])
@@ -205,6 +208,8 @@ def launch(args) -> int:
             cmd += ["--fusion-threshold", str(args.fusion_threshold)]
         if args.overlap_pairs:
             cmd += ["--overlap-pairs", str(args.overlap_pairs)]
+        if args.onestep_pairs:
+            cmd += ["--onestep-pairs", str(args.onestep_pairs)]
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
@@ -234,6 +239,9 @@ def main() -> None:
     ap.add_argument("--overlap-pairs", type=int, default=0,
                     help="time this many pairs of windows with the exchange "
                     "launched from the backward and after it")
+    ap.add_argument("--onestep-pairs", type=int, default=0,
+                    help="time this many pairs of windows with the step "
+                    "captured as one CUDA graph and run eagerly")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)

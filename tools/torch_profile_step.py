@@ -27,13 +27,26 @@ the exchange launched from the backward, only what is left after it).
 ``--overlap`` times the profiled wire with each bucket's exchange
 launched from the backward and after it instead (``HVD_TPU_SCHED_BARRIERS``
 on, off, off, on, ..., ``--pairs`` pairs), prints each side's median and
-quartiles, and profiles both.
+quartiles, and profiles both.  ``--onestep`` does the same with the step
+captured as one CUDA graph and run eagerly (``HVD_TPU_ONESTEP`` on, off,
+off, on, ...); a captured window's warm-up steps and its capture are left
+out of its timing, and it has no exchange host time (the replay runs no
+``synchronize``).
+
+``--last-batch B`` instead times epochs of ``--window`` steps at batch 32
+and one at batch B (the short last batch a loader gives with
+``drop_last=False``) on the profiled wire, ``HVD_TPU_ONESTEP`` ``auto``
+against ``off`` in ``--pairs`` pairs of epochs: ms per step over each
+epoch and its peak of allocated and reserved memory.  Each change of
+batch shape drops a captured step, so every ``auto`` epoch warms up and
+captures anew; nothing is profiled.
 
 Every line names the card and its power limit (``nvidia-smi``).
 """
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -82,8 +95,14 @@ def main() -> None:
     ap.add_argument("--overlap", action="store_true",
                     help="time and profile the exchange launched from the "
                     "backward against after it, on the profiled wire")
+    ap.add_argument("--onestep", action="store_true",
+                    help="time and profile the step captured as one CUDA graph "
+                    "against run eagerly, on the profiled wire")
     ap.add_argument("--pairs", type=int, default=2,
-                    help="with --overlap: pairs of timing windows")
+                    help="with --overlap or --onestep: pairs of timing windows")
+    ap.add_argument("--last-batch", type=int,
+                    help="instead time epochs of --window steps and one short "
+                    "step of this batch, HVD_TPU_ONESTEP auto against off")
     ap.add_argument("--out", help="also write the results here as JSON")
     args = ap.parse_args()
 
@@ -94,8 +113,9 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
     from horovod_tpu_torch.utils.benchmarks import (
-        build_dp_step, quartiles, select_window, window_labels)
+        build_dp_step, quartiles, select_window, timed_window, window_labels)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -105,7 +125,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     profiled = args.wire or "bf16"
-    wires = window_labels(args.wire, args.pairs if args.overlap else 0)
+    ab = args.overlap or args.onestep
+    wires = window_labels(args.wire, args.pairs if args.overlap else 0,
+                          args.pairs if args.onestep else 0)
     hvd.init("cuda")
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device="cuda")
     # The wire at construction decides whether the optimizer keeps
@@ -125,18 +147,20 @@ def main() -> None:
     batch = (torch.rand(32, 224, 224, 3, generator=g, device="cuda"),
              torch.randint(0, 1000, (32,), generator=g, device="cuda"))
 
+    if args.last_batch:
+        result = {"card": card, "wire": profiled, "window": args.window,
+                  "last_batch": args.last_batch,
+                  "epochs": last_batch_epochs(step, batch, profiled, args, card)}
+        hvd.shutdown()
+        write(args.out, result)
+        return
+
     def window(wire: str):
-        """Step ms and the exchange's host ms per step over one window."""
-        select_window(wire)
-        float(step(batch))  # a host read fences the previous work
-        sync_s.clear()
-        t0 = time.perf_counter()
-        loss = None
-        for _ in range(args.window):
-            loss = step(batch)
-        float(loss)
-        ms = (time.perf_counter() - t0) / args.window * 1e3
-        return ms, sum(sync_s) / len(sync_s) * 1e3
+        """Step ms and the exchange's host ms per step over one window
+        (None where no step ran ``synchronize``: a replayed graph)."""
+        seconds, _ = timed_window(step, batch, wire, args.window, sync_s.clear)
+        ms = seconds / args.window * 1e3
+        return ms, (sum(sync_s) / len(sync_s) * 1e3 if sync_s else None)
 
     for wire in sorted(set(wires)):  # warm every path
         window(wire)
@@ -150,8 +174,9 @@ def main() -> None:
         print(f"step ms, wire={wire}: {[round(v, 3) for v in ms]} "
               f"(mean {sum(ms) / len(ms):.3f}; batch 32); host ms of the "
               f"exchange (synchronize, enqueue only): "
-              f"{[round(v, 3) for v in exchange[wire]]} on {card}", flush=True)
-    if args.overlap:
+              f"{[v if v is None else round(v, 3) for v in exchange[wire]]} on {card}",
+              flush=True)
+    if ab:
         for wire, ms in timing.items():
             print(f"step ms, wire={wire}: quartiles "
                   f"{' '.join(f'{v:.3f}' for v in quartiles(ms))} over "
@@ -159,15 +184,58 @@ def main() -> None:
 
     result = {"card": card, "timing_ms": timing, "steps": args.steps,
               "wire": profiled, "exchange_host_ms": exchange, "profiles": {}}
-    for label in (wires[:2] if args.overlap else (profiled,)):
+    for label in (wires[:2] if ab else (profiled,)):
         select_window(label)
-        float(step(batch))
+        for _ in range(1 + (CAPTURE_WARMUP if label.endswith("/captured") else 0)):
+            float(step(batch))
         result["profiles"][label] = profile_steps(step, batch, args.steps, label, card)
     hvd.shutdown()
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    write(args.out, result)
+
+
+def write(path, result) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             json.dump(result, f, indent=1)
+
+
+def last_batch_epochs(step, batch, wire, args, card):
+    """Epochs of ``args.window`` steps at the full batch and one at
+    ``args.last_batch``, ``HVD_TPU_ONESTEP`` auto and off in turns (two
+    untimed epochs first, one of each): per mode, each epoch's ms per
+    step, peak allocated and peak reserved GiB."""
+    import torch
+    from horovod_tpu_torch.utils.benchmarks import quartiles
+
+    short = tuple(t[:args.last_batch] for t in batch)
+    os.environ["HVD_TPU_SCHED_WIRE"] = wire
+    os.environ["HVD_TPU_SCHED_BARRIERS"] = "0"
+    turns = [m for _ in range(-(-args.pairs // 2)) for m in ("auto", "off", "off", "auto")]
+    out = {"auto": [], "off": []}
+    for i, mode in enumerate(["auto", "off"] + turns):
+        os.environ["HVD_TPU_ONESTEP"] = mode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(args.window):
+            step(batch)
+        loss = float(step(short))
+        seconds = time.perf_counter() - t0
+        if i >= 2 and math.isfinite(loss):
+            out[mode].append({"step_ms": seconds / (args.window + 1) * 1e3,
+                              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30})
+        elif not math.isfinite(loss):
+            sys.exit(f"non-finite loss {loss} in an epoch under {mode}")
+    for mode, epochs in out.items():
+        print(f"epochs of {args.window} x batch {batch[0].shape[0]} + 1 x batch "
+              f"{args.last_batch}, {wire}, HVD_TPU_ONESTEP={mode}: step ms quartiles "
+              f"{' '.join(f'{v:.3f}' for v in quartiles([e['step_ms'] for e in epochs]))}, "
+              f"peak allocated {max(e['peak_gib'] for e in epochs):.2f} GiB, peak reserved "
+              f"{max(e['peak_reserved_gib'] for e in epochs):.2f} GiB over {len(epochs)} "
+              f"epochs on {card}", flush=True)
+    return out
 
 
 def profile_steps(step, batch, steps, label, card):
