@@ -84,6 +84,18 @@ exits non-zero):
 6. reference: a small float32 ResNet on the card against the CPU path
    (plain versions), three steps on the bf16 wire and three on int8, to
    stated tolerances.
+   Then slice eager: ``init`` on NCCL (world of one) and every op of
+   the eager API (``ops/eager.py``) once (``eager_checks``): allreduce
+   with every ReduceOp but Adasum on float32, bf16 and int32, grouped
+   allreduce (fused and not), allgather, allgather_v, broadcast,
+   reducescatter, even and uneven alltoall, barrier, join, an async
+   allreduce polled until done, and the gradients of allreduce and
+   allgather, each bitwise with what the rank computes itself on the
+   CPU from seed 0's dyadic inputs; B1 launched exactly twice by a bf16
+   allreduce with a pre- and a postscale, and bitwise with its plain
+   version; a bf16 ``allreduce_`` with both scales captured into a CUDA
+   graph and replayed three times bitwise with eager, ``poll`` refused
+   under capture; one line per group with its host ms per call.
 7. slice ring: the same model in a world of processes on the int8 wire
    with error feedback, ``HVD_TPU_QUANT_BACKEND=fused`` and
    ``HVD_TPU_FUSION_THRESHOLD=33554432`` (32 MiB: four buckets, each
@@ -106,7 +118,8 @@ exits non-zero):
    then the step captured against eager on the int8 ring (B6 and B7 in
    the graph) and on bf16 over NCCL, every rank bitwise with exact
    launches, and its A/B/B/A windows.  On one shared card (gloo)
-   ``HVD_TPU_ONESTEP=on`` must refuse the step.
+   ``HVD_TPU_ONESTEP=on`` must refuse the step.  Every rank first runs
+   the slice eager checks at this world (the capture only on NCCL).
 8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
@@ -1086,6 +1099,244 @@ def onestep_phase(hvd, tresnet, build_dp_step, timed_throughput, counters, card,
     return out
 
 
+def eager_checks(n: int) -> dict:
+    """Every op of the eager API (``horovod_tpu_torch.ops.eager``) once on
+    this rank's tensors, in an initialized world of ``n`` ranks, each
+    held bitwise against what this rank computes itself on the CPU: the
+    inputs of every rank come from one numpy generator (seed 0), dyadic
+    (multiples of 1/4 in [-2, 2]) or small integers, so every sum,
+    product and scale is exact or rounds once.  Checked: allreduce with
+    every ReduceOp but Adasum on float32, bf16 and int32; a bf16
+    Average with a pre- and a postscale (kernel B1 launched exactly
+    twice, and B1 bitwise with its plain version); grouped allreduce,
+    fused and under ``HVD_TPU_DISABLE_GROUP_FUSION``; allgather,
+    allgather_v with ragged rows, broadcast from rank n-1,
+    reducescatter (Sum, Average), even and uneven alltoall with the
+    received splits; barrier; an async allreduce polled until done; the
+    gradients of allreduce and allgather; join, with rank 0 joining
+    0.2 s late (it must be the answer; not timed).  On NCCL, a synchronous bf16
+    ``allreduce_`` with both scales captured into a CUDA graph and
+    replayed three times on fresh values, bitwise with eager, and
+    ``poll`` refused under capture.  Returns the host ms per call of
+    each group (a host clock around its calls, each fenced by a
+    synchronize) and the backend; raises at the first mismatch."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import kernels
+
+    rank, dev = hvd.rank(), hvd.device()
+    backend = hvd.runtime.get_runtime().backend
+    rng = np.random.default_rng(0)
+
+    def dyadic(*shape):
+        return torch.from_numpy((rng.integers(-8, 9, (n,) + shape) / 4).astype(np.float32))
+
+    xs = {torch.float32: dyadic(64, 8), torch.bfloat16: dyadic(64, 8).to(torch.bfloat16),
+          torch.int32: torch.from_numpy(rng.integers(-50, 51, (n, 64, 8)).astype(np.int32))}
+    y = dyadic(40)
+    w, wg = dyadic(64, 8), dyadic(64 * n, 8)
+    ragged = [dyadic(r + 1, 3)[0] for r in range(n)]
+    splits = rng.integers(0, 5, (n, n))
+    sent = [dyadic(int(splits[r].sum()), 3)[0] for r in range(n)]
+
+    def mine(t):
+        return t[rank].to(dev, copy=True)
+
+    def check(what, got, want):
+        got, want = got.detach().cpu(), want.cpu()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"rank {rank}: eager {what}: {got.dtype} {tuple(got.shape)}, "
+                               f"want {want.dtype} {tuple(want.shape)}")
+        if want.is_floating_point():
+            got, want = bits(got), bits(want)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"rank {rank}: eager {what} differs from the expected values")
+
+    def f32(v):
+        return float(np.float32(v))
+
+    def total(x):
+        return x.double().sum(0).to(x.dtype)
+
+    def average(x, post=1.0):
+        return (total(x).float() * f32(post / n)).to(x.dtype)
+
+    times = {}
+
+    def group(name, fn):
+        calls = []
+
+        def call(f, *args, **kwargs):
+            out = f(*args, **kwargs)
+            if torch.is_tensor(out) and out.is_cuda:
+                torch.cuda.synchronize()
+            calls.append(1)
+            return out
+
+        t0 = time.perf_counter()
+        fn(call)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3 / max(1, len(calls))
+
+    def allreduce(call):
+        for dt, x in xs.items():
+            want = {hvd.Sum: total(x), hvd.Average: average(x), hvd.Min: x.amin(0),
+                    hvd.Max: x.amax(0), hvd.Product: x.double().prod(0).to(dt)}
+            for op, expect in want.items():
+                check(f"allreduce op {op} {dt}", call(hvd.allreduce, mine(x), op=op), expect)
+            z = mine(x)
+            check(f"allreduce_ {dt}", call(hvd.allreduce_, z, op=hvd.Max), want[hvd.Max])
+            check(f"allreduce_ in place {dt}", z, want[hvd.Max])
+
+    def scaled(call):
+        x = xs[torch.bfloat16]
+        half = (x.float() * 0.5).to(torch.bfloat16)
+        kernels.scale_cast.launches = 0
+        got = call(hvd.allreduce, mine(x), op=hvd.Average, prescale_factor=0.5,
+                   postscale_factor=3.0)
+        if dev.type == "cuda" and kernels.scale_cast.launches != 2:
+            raise RuntimeError(f"rank {rank}: a bf16 allreduce with a pre- and a postscale "
+                               f"launched B1 {kernels.scale_cast.launches} times, not 2")
+        check("allreduce bf16 pre/postscale", got, average(half, 3.0))
+        for scale, dt in ((0.5, torch.bfloat16), (f32(3.0 / n), torch.bfloat16),
+                          (1.0 / 3.0, torch.float32)):
+            check(f"B1 against its plain version, scale {scale}",
+                  kernels.scale_cast(mine(x), scale, dt),
+                  kernels.scale_cast_reference(x[rank], scale, dt))
+
+    def grouped(call):
+        tensors = [xs[torch.float32], xs[torch.bfloat16], xs[torch.int32], y]
+        for fuse in ("0", "1"):
+            os.environ["HVD_TPU_DISABLE_GROUP_FUSION"] = fuse
+            try:
+                outs = call(hvd.grouped_allreduce, [mine(t) for t in tensors])
+            finally:
+                os.environ.pop("HVD_TPU_DISABLE_GROUP_FUSION")
+            for t, got in zip(tensors, outs):
+                check(f"grouped allreduce (unfused {fuse}) {t.dtype}", got, average(t))
+
+    def gathers(call):
+        for dt, x in xs.items():
+            check(f"allgather {dt}", call(hvd.allgather, mine(x)), x.reshape(-1, 8))
+            check(f"broadcast {dt}", call(hvd.broadcast, mine(x), n - 1), x[n - 1])
+            z = mine(x)
+            call(hvd.broadcast_, z, n - 1)
+            check(f"broadcast_ {dt}", z, x[n - 1])
+        check("allgather_v", call(hvd.allgather_v, ragged[rank].to(dev, copy=True)), torch.cat(ragged))
+
+    def reducescatter(call):
+        c = 64 // n
+        for dt, x in xs.items():
+            check(f"reducescatter Sum {dt}", call(hvd.reducescatter, mine(x)),
+                  total(x)[rank * c:(rank + 1) * c])
+            check(f"reducescatter Average {dt}",
+                  call(hvd.reducescatter, mine(x), op=hvd.Average),
+                  average(x)[rank * c:(rank + 1) * c])
+
+    def alltoall(call):
+        c = 64 // n
+        for dt, x in xs.items():
+            check(f"alltoall {dt}", call(hvd.alltoall, mine(x)),
+                  torch.cat([x[j, rank * c:(rank + 1) * c] for j in range(n)]))
+        out, recv = call(hvd.alltoall, sent[rank].to(dev, copy=True), splits=splits[rank].tolist())
+        offs = np.concatenate([np.zeros((n, 1), np.int64), np.cumsum(splits, 1)], 1)
+        check("uneven alltoall", out,
+              torch.cat([sent[j][offs[j, rank]:offs[j, rank + 1]] for j in range(n)]))
+        check("uneven alltoall's received splits", recv, torch.from_numpy(splits[:, rank]))
+
+    def barrier(call):
+        call(hvd.barrier)
+
+    def handles(call):
+        x = xs[torch.float32]
+        h = call(hvd.allreduce_async, mine(x), op=hvd.Sum)
+        while not hvd.poll(h):
+            time.sleep(1e-4)
+        check("allreduce_async", hvd.synchronize(h), total(x))
+
+    def grads(call):
+        x = mine(xs[torch.float32]).requires_grad_()
+        (call(hvd.allreduce, x, op=hvd.Sum) * mine(w)).sum().backward()
+        check("allreduce's gradient", x.grad, total(w))
+        x.grad = None
+        (call(hvd.allgather, x) * mine(wg)).sum().backward()
+        check("allgather's gradient", x.grad, average(wg)[rank * 64:(rank + 1) * 64])
+
+    hvd.allreduce(torch.zeros(1, device=dev))  # untimed: makes the communicators
+    for name, fn in (("allreduce", allreduce), ("bf16 pre/postscale", scaled),
+                     ("grouped", grouped), ("allgather, allgather_v, broadcast", gathers),
+                     ("reducescatter", reducescatter), ("alltoall", alltoall),
+                     ("barrier", barrier), ("async", handles), ("gradients", grads)):
+        group(name, fn)
+    if rank == 0:
+        time.sleep(0.2)
+    last = hvd.join()
+    if last != 0:
+        raise RuntimeError(f"rank {rank}: join returned {last}; rank 0 joined last")
+    record = {"backend": backend, "world": n, "host_ms": times, "captured": None}
+    if backend == "nccl":
+        record["captured"] = eager_capture(xs[torch.bfloat16], average)
+    return record
+
+
+def eager_capture(x, average) -> dict:
+    """A bf16 ``allreduce_`` with a pre- and a postscale of a static
+    tensor captured into a CUDA graph, then replayed three times on
+    fresh values (``x`` scaled by 1, 2, 4, rank r's row), each bitwise
+    with the eager op; ``poll`` must refuse under capture.  Returns B1's
+    launches per replay (inferred from the capture's)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import kernels
+
+    rank, dev = hvd.rank(), hvd.device()
+    static = x[rank].to(dev)
+    kw = {"op": hvd.Average, "prescale_factor": 0.5, "postscale_factor": 3.0}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hvd.allreduce_(static.clone(), **kw)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.scale_cast.launches
+    with torch.cuda.graph(graph):
+        hvd.allreduce_(static, **kw)
+    launches = kernels.scale_cast.launches - before
+    if launches != 2:
+        raise RuntimeError(f"rank {rank}: the captured allreduce_ recorded {launches} B1 "
+                           "launches, not 2")
+    handle = hvd.allreduce_async(static.clone())
+    hvd.synchronize(handle)
+    refused = None
+    probe = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(probe):
+        try:
+            hvd.poll(handle)
+        except RuntimeError as e:
+            refused = str(e)
+        torch.zeros(1, device=dev).add_(1)  # a graph with one node
+    probe.reset()
+    if refused is None:
+        raise RuntimeError(f"rank {rank}: poll ran under capture")
+    for k in range(3):
+        fresh = x * (2 ** k)
+        static.copy_(fresh[rank])
+        graph.replay()
+        eager = hvd.allreduce(fresh[rank].to(dev), **kw)
+        torch.cuda.synchronize()
+        half = (fresh.float() * 0.5).to(torch.bfloat16)
+        want = average(half, 3.0)
+        for what, got in (("replay", static), ("eager", eager)):
+            if not torch.equal(bits(got.cpu()), bits(want)):
+                raise RuntimeError(f"rank {rank}: captured allreduce_ ({what} {k}) differs "
+                                   "from the expected values")
+    graph.reset()
+    return {"b1_launches_in_graph": launches, "replays": 3, "poll_refused": refused}
+
+
 def ring_worker(args) -> None:
     """One rank of the ring slice (phase 7), started by ``ring_slice_phase``."""
     import torch
@@ -1109,6 +1360,7 @@ def ring_worker(args) -> None:
     rank, n = args.ring_rank, args.ring_size
     hvd.init("cuda", init_method=f"file://{args.ring_store}", rank=rank, size=n,
              backend=args.ring_backend)
+    eager = eager_checks(n)  # raises at the first mismatch
     counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
                 "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
                 "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring}
@@ -1286,11 +1538,45 @@ def ring_worker(args) -> None:
                            "seconds": seconds, "launches": launches,
                            "fallback": fallback, "digests": digests, "held": held,
                            "exchange_ms": exchange, "kernel_ms": kernel_ms,
-                           "overlap": overlap, "onestep": onestep}, f)
+                           "overlap": overlap, "onestep": onestep, "eager": eager}, f)
         if len(set(digests)) != 1:
             raise SystemExit(f"rank {rank}: ranks hold different weights: {digests}")
     finally:
         hvd.shutdown()
+
+
+def print_eager(rec, card) -> None:
+    """The lines of a slice eager run (:func:`eager_checks`)."""
+    where = f"world {rec['world']} ({rec['backend']})"
+    print(f"phase slice eager: {where}: every op of the eager API bitwise with the "
+          f"expected values on every rank; B1 launched exactly twice by a bf16 allreduce "
+          f"with a pre- and a postscale, and bitwise with its plain version", flush=True)
+    for name, ms in rec["host_ms"].items():
+        print(f"phase slice eager: {where}: {name}: {ms:.3f} ms per call (host clock, "
+              f"each call synchronized) on {card}", flush=True)
+    cap = rec["captured"]
+    if cap is None:
+        print(f"phase slice eager: {where}: no capture (a gloo collective waits on the "
+              f"host)", flush=True)
+    else:
+        print(f"phase slice eager: {where}: a bf16 allreduce_ with both scales captured "
+              f"({cap['b1_launches_in_graph']} B1 launches in the graph) and replayed "
+              f"{cap['replays']} times on fresh values, bitwise with eager; poll under "
+              f"capture refused: {cap['poll_refused']}", flush=True)
+
+
+def eager_phase(hvd, card, log):
+    """Phase slice eager at world one on NCCL (this process): every op of
+    the eager API, and a captured allreduce_ (:func:`eager_checks`)."""
+    hvd.init("cuda")
+    try:
+        rec = eager_checks(1)
+    except RuntimeError as e:
+        fail(str(e))
+    finally:
+        hvd.shutdown()
+    print_eager(rec, card)
+    log["eager"] = rec
 
 
 def ring_slice_phase(card, count, log):
@@ -1348,6 +1634,7 @@ def ring_slice_phase(card, count, log):
           f"(world) on {card}; {wall:.0f} s with start-up", flush=True)
     print(f"phase slice ring: B6 (with and without the dequant) and B7 bitwise with their plain "
           f"versions on every rank at world {n}: {rec['held']}", flush=True)
+    print_eager(rec["eager"], card)
     if rec["exchange_ms"]:
         c = rec["kernel_ms"]["chunk"]
         packed = c // BLOCK * (BLOCK + 4)
@@ -1899,6 +2186,7 @@ def main() -> None:
     log["reference"] = [reference_phase(hvd, tresnet, build_dp_step, w)
                         for w in ("bf16", "int8")]
     torch.cuda.empty_cache()
+    eager_phase(hvd, card, log)
     ring_run = ring_slice_phase(card, count, log)
 
     # Phase 7: the GPT slice, dense then packed rows; every count is set

@@ -12,8 +12,22 @@ wires (``Compression.int8``/``fp8``),
 152) and their benchmark step, the MNIST models, and the GPT
 transformer with flash attention and its language-model step
 (``models.transformer``, ``ops.flash``,
-``utils.benchmarks.build_lm_step``).  Importing it imports neither JAX
-nor ``horovod_tpu``.
+``utils.benchmarks.build_lm_step``).
+
+The eager collectives (``ops.eager``), each rank passing its own
+tensor: ``allreduce`` with every ``ReduceOp`` but ``Adasum`` (``Average``,
+``Sum``, ``Min``, ``Max``, ``Product``), ``grouped_allreduce``,
+``allgather``, ``allgather_v``, ``broadcast``, ``reducescatter``,
+``alltoall`` (even or uneven splits), ``barrier`` and ``join``; the
+in-place ``allreduce_``, ``grouped_allreduce_`` and ``broadcast_``; the
+``*_async`` forms (and ``allreduce_async_``, ``grouped_allreduce_async_``,
+``broadcast_async_``), each returning a ``Handle`` for ``synchronize``
+and ``poll``.  Allreduce, grouped allreduce, allgather, broadcast and
+alltoall are differentiable.  A ``process_set`` raises
+``NotImplementedError`` (ROADMAP Queue A entry A2), as does
+``op=Adasum`` (A8).
+
+Importing it imports neither JAX nor ``horovod_tpu``.
 """
 
 from .compression import Compression
@@ -23,14 +37,38 @@ from .functions import (
     broadcast_optimizer_state,
     broadcast_parameters,
 )
-from .ops.collectives import (
+from .ops.eager import (
+    Adasum,
     Average,
+    Handle,
+    Max,
+    Min,
+    Product,
     ReduceOp,
     Sum,
+    allgather,
+    allgather_async,
+    allgather_v,
     allreduce,
     allreduce_,
+    allreduce_async,
+    allreduce_async_,
+    alltoall,
+    alltoall_async,
+    barrier,
     broadcast,
     broadcast_,
+    broadcast_async,
+    broadcast_async_,
+    grouped_allreduce,
+    grouped_allreduce_,
+    grouped_allreduce_async,
+    grouped_allreduce_async_,
+    join,
+    poll,
+    reducescatter,
+    reducescatter_async,
+    synchronize,
 )
 from .optim.distributed_optimizer import DistributedOptimizer, TrainStep
 from .runtime import (
@@ -48,10 +86,15 @@ from .runtime import (
 from .version import __version__
 
 __all__ = [
-    "Average", "Compression", "DistributedOptimizer", "ReduceOp", "Sum",
-    "TrainStep", "__version__", "allgather_object", "allreduce",
-    "allreduce_", "broadcast", "broadcast_", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters",
-    "cross_rank", "cross_size", "device", "init", "is_initialized",
-    "local_rank", "local_size", "rank", "shutdown", "size",
+    "Adasum", "Average", "Compression", "DistributedOptimizer", "Handle", "Max",
+    "Min", "Product", "ReduceOp", "Sum", "TrainStep", "__version__",
+    "allgather", "allgather_async", "allgather_object", "allgather_v",
+    "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
+    "alltoall", "alltoall_async", "barrier", "broadcast", "broadcast_",
+    "broadcast_async", "broadcast_async_", "broadcast_object",
+    "broadcast_optimizer_state", "broadcast_parameters", "cross_rank",
+    "cross_size", "device", "grouped_allreduce", "grouped_allreduce_",
+    "grouped_allreduce_async", "grouped_allreduce_async_", "init",
+    "is_initialized", "join", "local_rank", "local_size", "poll", "rank",
+    "reducescatter", "reducescatter_async", "shutdown", "size", "synchronize",
 ]

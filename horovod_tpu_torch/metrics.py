@@ -7,7 +7,9 @@ names, so parity tests can compare them.  The data-parallel step emits
 ``sched.wire_bytes{wire=}``, ``sched.wire_bytes.<wire>`` and
 ``sched.compression_ratio`` (``sched/execute.py``); the quantized wire
 counts ``quant.fused_collectives`` and ``quant.fused_bytes``
-(``ops/quantized.py``) above a world of one.  They are recorded in
+(``ops/quantized.py``) above a world of one; each eager collective
+counts ``collective.<op>.dispatches`` and ``collective.<op>.bytes``
+(``ops/eager.py``).  They are recorded in
 Python, so a step captured into a CUDA graph records them once, at
 capture, as the JAX package records them once per trace; its replays
 record nothing.  ``TrainStep`` publishes ``sched.onestep.engaged{mode=}``

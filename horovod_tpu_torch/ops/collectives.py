@@ -1,18 +1,29 @@
 """Collectives over the global process group.
 
-Counterpart of ``horovod_tpu/ops/traced.py`` for the global set:
-``_scale`` (``:94-105``), ``allreduce`` (``:313-357``) and broadcast.
-Where the JAX package emits XLA collectives inside the compiled step,
-these are eager ``torch.distributed`` calls (NCCL on the card, gloo on
-the CPU).
+Counterpart of ``horovod_tpu/ops/traced.py`` for the global set: the
+reduce ops (``:49-63``), ``_scale`` (``:94-105``), ``allreduce_`` over
+every op but Adasum (``:313-400``), ``allgather`` (``:439``),
+``broadcast_`` (``:479``), ``reducescatter`` (``:526-566``), ``alltoall``
+(``:569-600``), ``barrier`` (``:603``) and ``join_average``
+(``:610-633``).  Where the JAX package emits XLA collectives inside the
+compiled step, these are ``torch.distributed`` calls on this rank's
+tensor (NCCL on the card, gloo on the CPU).  Each may be started with
+``async_op=True``, which returns a :class:`Pending` in place of the
+result; ``ops/eager.py`` builds the eager API's handles on it.
 
 Average is SUM followed by a postscale of ``1/size``, as the reference
 rewrites it (``operations.cc:1396-1399``) and the JAX package keeps it:
 ``ReduceOp.AVG`` is never used, since gloo refuses it for a world above
-one and it would round differently from ``_scale``.
+one and it would round differently from ``_scale``.  Product gathers
+every rank's tensor and multiplies the rows in rank order, in float32
+for f16/bf16, as ``jnp.prod`` does on the JAX package's gather
+(``traced.py:384-393``): ``ReduceOp.PRODUCT`` would multiply in the
+ring's order.
 """
 
 from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,10 +36,51 @@ from . import kernels
 class ReduceOp:
     AVERAGE = 0
     SUM = 1
+    ADASUM = 2
+    MIN = 3
+    MAX = 4
+    PRODUCT = 5
 
 
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
+Adasum = ReduceOp.ADASUM
+Min = ReduceOp.MIN
+Max = ReduceOp.MAX
+Product = ReduceOp.PRODUCT
+
+_DIST_OPS = {Sum: dist.ReduceOp.SUM, Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX}
+# The newer names of all_gather_into_tensor and reduce_scatter_tensor,
+# where this torch has them (the older ones warn there).
+_all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+
+
+class Pending:
+    """A collective in flight: the ``torch.distributed`` works it started
+    and ``finish``, which makes the result from their outputs once they
+    are done.  ``is_completed()`` polls the works; ``wait()`` waits for
+    them (on NCCL the current stream waits, not the host) and returns
+    ``finish()``."""
+
+    def __init__(self, works: Sequence, finish: Callable):
+        self.works = [w for w in works if w is not None]
+        self.finish = finish
+
+    def is_completed(self) -> bool:
+        return all(w.is_completed() for w in self.works)
+
+    def wait(self):
+        for w in self.works:
+            w.wait()
+        return self.finish()
+
+
+def _run(works: Sequence, finish: Callable, async_op: bool):
+    """The result, or with ``async_op`` the :class:`Pending` that makes it
+    (a synchronous call's works are None: it is done)."""
+    pending = Pending(works, finish)
+    return pending if async_op else pending.wait()
 
 
 def f32_reciprocal(n: float) -> float:
@@ -52,40 +104,136 @@ def _scale(x: torch.Tensor, factor: float) -> torch.Tensor:
     return x * factor
 
 
+def _product(rows: torch.Tensor) -> torch.Tensor:
+    """The product of ``rows`` along dim 0, in rank order; f16/bf16 in
+    float32, rounded once."""
+    acc = rows[0].float() if rows.dtype in (torch.float16, torch.bfloat16) else rows[0]
+    for row in rows[1:]:
+        acc = acc * row
+    return acc.to(rows.dtype)
+
+
 def allreduce_(
     x: torch.Tensor,
     op: int = Average,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
-) -> torch.Tensor:
+    async_op: bool = False,
+):
     """Allreduce over the world; may reduce ``x`` in place.  Returns the
-    result, which is ``x`` itself unless a scale produced a new tensor."""
-    if op not in (Average, Sum):
-        raise ValueError("allreduce supports op=Average or op=Sum")
+    result, which is ``x`` itself unless a scale or the op (Product)
+    produced a new tensor."""
+    if op == Adasum:
+        raise NotImplementedError(
+            "op=Adasum is not ported to horovod_tpu_torch yet (ROADMAP Queue A "
+            "entry A8)"
+        )
+    if op not in (Average, Sum, Min, Max, Product):
+        raise ValueError(f"unknown reduce op {op}")
     size = runtime.size()
     x = _scale(x, prescale_factor)
     if op == Average:
         postscale_factor = postscale_factor / size
-    dist.all_reduce(x, op=dist.ReduceOp.SUM)
-    return _scale(x, postscale_factor)
+        op = Sum
+    if op == Product:
+        rows = x.new_empty((size * x.numel(),))
+        work = _all_gather(rows, x.reshape(-1), async_op=async_op)
+        return _run([work], lambda: _scale(_product(rows.view((size,) + tuple(x.shape))),
+                                           postscale_factor), async_op)
+    work = dist.all_reduce(x, op=_DIST_OPS[op], async_op=async_op)
+    return _run([work], lambda: _scale(x, postscale_factor), async_op)
 
 
-def allreduce(
+def allgather(x: torch.Tensor, async_op: bool = False):
+    """Every rank's ``x`` (one shape on every rank) concatenated along
+    dim 0 in rank order."""
+    if x.dim() == 0:
+        raise ValueError("allgather takes a tensor of at least one dimension")
+    out = x.new_empty((runtime.size() * x.shape[0],) + tuple(x.shape[1:]))
+    work = _all_gather(out, x.contiguous(), async_op=async_op)
+    return _run([work], lambda: out, async_op)
+
+
+def broadcast_(x: torch.Tensor, root_rank: int = 0, async_op: bool = False):
+    """Overwrite ``x`` with ``root_rank``'s value, in place."""
+    work = None
+    if runtime.size() > 1:
+        work = dist.broadcast(x, src=root_rank, async_op=async_op)
+    return _run([work], lambda: x, async_op)
+
+
+def reducescatter(
     x: torch.Tensor,
-    op: int = Average,
+    op: int = Sum,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
-) -> torch.Tensor:
-    """Out-of-place :func:`allreduce_`: ``x`` is left as it was."""
-    return allreduce_(x.clone(), op, prescale_factor, postscale_factor)
+    async_op: bool = False,
+):
+    """Sum (or Average) every rank's ``x`` and keep this rank's
+    ``1/size`` of it along dim 0, which the world's size must divide."""
+    size = runtime.size()
+    rows = x.shape[0] if x.dim() else 0
+    if x.dim() == 0 or rows % size != 0:
+        raise ValueError(
+            f"reducescatter dim 0 ({rows}) must be divisible by set size {size}"
+        )
+    if op not in (Average, Sum):
+        raise ValueError("reducescatter supports SUM/AVERAGE")
+    x = _scale(x, prescale_factor)
+    if op == Average:
+        postscale_factor = postscale_factor / size
+    out = x.new_empty((rows // size,) + tuple(x.shape[1:]))
+    work = _reduce_scatter(out, x.contiguous(), op=dist.ReduceOp.SUM, async_op=async_op)
+    return _run([work], lambda: _scale(out, postscale_factor), async_op)
 
 
-def broadcast_(x: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    """Overwrite ``x`` with ``root_rank``'s value, in place."""
-    if runtime.size() > 1:
-        dist.broadcast(x, src=root_rank)
-    return x
+def alltoall(
+    x: torch.Tensor,
+    send_splits: Optional[List[int]] = None,
+    recv_splits: Optional[List[int]] = None,
+    async_op: bool = False,
+):
+    """Rank i's j-th chunk of ``x`` (along dim 0) becomes rank j's i-th
+    chunk.  Without splits the chunks are equal, so the world's size
+    must divide dim 0; with them, ``send_splits[j]`` rows go to rank j
+    and ``recv_splits[j]`` rows come from it (every rank's
+    ``recv_splits`` the column of the others' ``send_splits``, which
+    ``ops/eager.py`` exchanges first)."""
+    if send_splits is None:
+        size = runtime.size()
+        rows = x.shape[0] if x.dim() else 0
+        if x.dim() == 0 or rows % size != 0:
+            raise ValueError(
+                f"alltoall dim 0 ({rows}) must be divisible by set size {size}"
+            )
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    else:
+        out = x.new_empty((sum(recv_splits),) + tuple(x.shape[1:]))
+    work = dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv_splits,
+                                  input_split_sizes=send_splits, async_op=async_op)
+    return _run([work], lambda: out, async_op)
 
 
-def broadcast(x: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    return broadcast_(x.clone(), root_rank)
+def barrier(device: Optional[torch.device] = None) -> torch.Tensor:
+    """A synchronization token: a Sum allreduce of a zero int32 scalar,
+    which depends on every rank.  Nothing waits for it here (``ops/eager.py``
+    ``barrier`` waits on the host)."""
+    token = torch.zeros((), dtype=torch.int32,
+                        device=runtime.device() if device is None else device)
+    dist.all_reduce(token, op=dist.ReduceOp.SUM)
+    return token
+
+
+def join_average(x: torch.Tensor, active) -> torch.Tensor:
+    """``x`` averaged over the ranks whose ``active`` is true (a joined
+    rank keeps stepping with a padding batch and contributes nothing);
+    zero when no rank is active.  The sum is divided by the count of
+    active ranks, in ``x``'s dtype (an integer ``x`` divides to
+    float32)."""
+    active_f = torch.as_tensor(active, dtype=torch.float32, device=x.device).reshape(())
+    n_active = active_f.clone()
+    dist.all_reduce(n_active, op=dist.ReduceOp.SUM)
+    contrib = torch.where(active_f > 0, x, torch.zeros_like(x))
+    dist.all_reduce(contrib, op=dist.ReduceOp.SUM)
+    denom = torch.clamp(n_active, min=1.0).to(contrib.dtype)
+    return contrib / denom

@@ -1,0 +1,602 @@
+"""Eager collective API: each rank passes its own tensor.
+
+Counterpart of ``horovod_tpu/ops/eager.py`` in the reference's call
+shape (``horovod/torch/mpi_ops.py``): every rank calls the op with its
+own tensor and gets its own result, which is row r of what the JAX
+eager op returns on the stacked per-rank inputs (its multi-process
+"local rows" form, ``_stacked`` ``:270-304``).  The collectives are
+``ops/collectives.py``'s (NCCL on the card, gloo on the CPU); this
+module adds what the JAX eager layer adds around them:
+
+- handles: each ``*_async`` op returns a :class:`Handle` over
+  ``torch.distributed``'s async work (``synchronize``/``poll``,
+  ``:37-74``); the ``*_async_`` forms write the result into their input
+  when it is waited for, as ``interop/torch.py`` ``TorchHandle`` does;
+- the ops of ``:389-817``: ``allreduce`` over every op but Adasum,
+  ``grouped_allreduce`` (one fused buffer per dtype, or one op per
+  tensor under ``HVD_TPU_DISABLE_GROUP_FUSION``), ``allgather``,
+  ``allgather_v`` (first dims may differ: the row counts are gathered
+  first), ``broadcast``, ``reducescatter``, ``alltoall`` (uneven splits:
+  the counts are exchanged first), ``barrier`` and ``join``;
+- the counters ``collective.<op>.dispatches`` and ``collective.<op>.bytes``
+  (``_record`` ``:81-93``; this rank's bytes, where the JAX package's
+  single controller counts the stacked array's);
+- the opt-in consistency check (``HVD_TPU_CONSISTENCY_CHECK``,
+  ``:136-241``) on its pure-Python record;
+- the gradients of ``interop/_grads.py:57-168``: allreduce, allgather,
+  broadcast, alltoall and grouped allreduce are differentiable when
+  their input requires grad (``interop/torch.py:92-197``).
+
+A synchronous op may run inside a captured CUDA graph on NCCL.  What
+waits on the host refuses there (``runtime.refuse_in_capture``): an
+async op, ``synchronize``, ``poll``, ``barrier``, ``join``, the
+consistency check, and the count exchanges of ``allgather_v`` and of an
+uneven ``alltoall``.  Process sets wait for ROADMAP Queue A entry A2 and
+Adasum for A8: both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+from .. import functions, metrics, runtime
+from ..exceptions import HorovodTpuError
+from ..utils import env
+from . import collectives, fusion
+from .collectives import (  # re-exported
+    Adasum,
+    Average,
+    Max,
+    Min,
+    Pending,
+    Product,
+    ReduceOp,
+    Sum,
+)
+
+# The consistency check's request types and error response type (the
+# JAX package's ``native.REQUEST_*`` and ``RESPONSE_ERROR``), and its
+# dtype ids (``eager.py`` ``_WIRE_DTYPES``).
+_REQUEST = {"ALLREDUCE": 0, "ALLGATHER": 1, "BROADCAST": 2, "ALLTOALL": 5,
+            "REDUCESCATTER": 6}
+_RESPONSE_ERROR = 8
+_WIRE_DTYPES = [
+    "float32", "float64", "float16", "bfloat16", "int32", "int64",
+    "int16", "int8", "uint8", "uint16", "uint32", "uint64", "bool",
+]
+
+
+class Handle:
+    """An eager collective in flight (reference ``HandleManager``,
+    ``torch/handle_manager.{h,cc}``).  ``done()`` polls its works;
+    ``wait()`` waits for them and returns the result (written into the
+    input first for the ``*_async_`` forms), kept for later waits."""
+
+    __slots__ = ("_pending", "name", "_target", "_result", "_done")
+
+    def __init__(self, pending: Pending, name: Optional[str] = None, target=None):
+        self._pending = pending
+        self.name = name
+        self._target = target
+        self._result = None
+        self._done = False
+
+    def done(self) -> bool:
+        runtime.refuse_in_capture("poll")
+        return self._done or self._pending.is_completed()
+
+    def wait(self):
+        runtime.refuse_in_capture("synchronize")
+        if not self._done:
+            out = self._pending.wait()
+            if self._target is not None:
+                out = _write_back(self._target, out)
+            self._result, self._done = out, True
+        return self._result
+
+
+def synchronize(handle: Handle):
+    """Wait for ``handle``'s collective and return its result (reference
+    ``torch/mpi_ops.py:865``)."""
+    return handle.wait()
+
+
+def poll(handle: Handle) -> bool:
+    """Whether ``handle``'s collective is done, without waiting (reference
+    ``torch/mpi_ops.py:849``)."""
+    return handle.done()
+
+
+def _write_back(target, out):
+    """Copy ``out`` into ``target`` (a tensor, or a list of them) where it
+    is not already there; returns ``target``."""
+    with torch.no_grad():
+        if isinstance(target, list):
+            for t, o in zip(target, out):
+                if o is not t:
+                    t.copy_(o)
+        elif out is not target:
+            target.copy_(out)
+    return target
+
+
+def _start(name: str):
+    """Refuse an async op under capture: its handle waits on the host."""
+    runtime.refuse_in_capture(f"{name} (an async handle)")
+
+
+def _global_set(process_set, name: str) -> None:
+    if process_set is not None:
+        raise NotImplementedError(
+            f"{name}: process sets are not ported to horovod_tpu_torch yet "
+            "(ROADMAP Queue A entry A2)"
+        )
+
+
+def _reduce_op(average: Optional[bool], op: Optional[int]) -> int:
+    """``average``/``op`` as the reference takes them: exclusive, Average
+    by default."""
+    if average is not None and op is not None:
+        raise ValueError("specify either average or op, not both")
+    if op is None:
+        op = Average if (average is None or average) else Sum
+    return op
+
+
+def _nbytes(xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _record(name: Optional[str], op: str, nbytes: int) -> None:
+    key = op.lower()
+    metrics.inc_counter(f"collective.{key}.dispatches")
+    metrics.inc_counter(f"collective.{key}.bytes", int(nbytes))
+
+
+def _consistency_check(op: str, x: torch.Tensor, name: Optional[str],
+                       root: int = -1, extra: str = "") -> None:
+    """Under ``HVD_TPU_CONSISTENCY_CHECK``, gather every rank's request
+    (type, dtype, shape, name, root); rank 0 validates them and
+    broadcasts one response, and a mismatch raises
+    ``HorovodTpuError`` on every rank (the reference controller's
+    validation, ``controller.cc`` ``ConstructResponse``)."""
+    if not env.get_bool(env.CONSISTENCY_CHECK):
+        return
+    rt = runtime.get_runtime()
+    if rt.size <= 1:
+        return
+    runtime.refuse_in_capture("the collective consistency check")
+    dt = str(x.dtype).replace("torch.", "")
+    wire_name = f"{name or ''}|ps=world|{extra}"
+    records = functions.allgather_object({
+        "rank": rt.rank, "type": _REQUEST[op],
+        "dtype": _WIRE_DTYPES.index(dt) if dt in _WIRE_DTYPES else 255,
+        "root": root, "dims": list(x.shape), "name": wire_name,
+    })
+
+    def sig(r):
+        return (r["type"], r["dtype"], tuple(r["dims"]), r["name"], r["root"])
+
+    response = None
+    if rt.rank == 0:
+        base, error = records[0], ""
+        for r in records[1:]:
+            if sig(r) != sig(base):
+                error = (f"process {r['rank']} submitted {sig(r)} but process "
+                         f"{base['rank']} submitted {sig(base)} (reference "
+                         "controller.cc mismatched-collective error)")
+                break
+        response = {"type": _RESPONSE_ERROR if error else _REQUEST[op],
+                    "names": [] if error else [wire_name], "error": error,
+                    "sizes": list(x.shape)}
+    response = runtime.broadcast_object(response, 0)
+    if response["type"] == _RESPONSE_ERROR:
+        raise HorovodTpuError(f"collective consistency check failed: {response['error']}")
+
+
+def _wants_grad(x) -> bool:
+    return torch.is_tensor(x) and x.requires_grad and torch.is_grad_enabled()
+
+
+# ------------------------------------------------------------ the ops
+
+
+def _allreduce(x, op, pre, post, name, async_op=False, inplace=False):
+    _record(name, "ALLREDUCE", _nbytes([x]))
+    _consistency_check("ALLREDUCE", x, name)
+    return collectives.allreduce_(x if inplace else x.clone(), op, pre, post,
+                                  async_op=async_op)
+
+
+def _grouped(xs, op, pre, post, name, async_op=False):
+    """One allreduce per dtype over a fused buffer (``fusion.flatten_group``),
+    or one per tensor, in order, under ``HVD_TPU_DISABLE_GROUP_FUSION``;
+    a :class:`Pending` for all of them when ``async_op``."""
+    if env.get_bool(env.DISABLE_GROUP_FUSION):
+        parts = [_allreduce(x, op, pre, post, f"{name}.{i}" if name else None, True)
+                 for i, x in enumerate(xs)]
+        pending = Pending([w for p in parts for w in p.works],
+                          lambda: [p.finish() for p in parts])
+    else:
+        _record(name, "GROUPED_ALLREDUCE", _nbytes(xs))
+        flats, meta = fusion.flatten_group(xs)
+        parts = [collectives.allreduce_(f, op, pre, post, async_op=True) for f in flats]
+        pending = Pending([w for p in parts for w in p.works],
+                          lambda: fusion.unflatten_group([p.finish() for p in parts], meta))
+    return pending if async_op else pending.wait()
+
+
+def _allgather(x, name, async_op=False):
+    _record(name, "ALLGATHER", _nbytes([x]))
+    _consistency_check("ALLGATHER", x, name)
+    return collectives.allgather(x, async_op)
+
+
+def _broadcast(x, root_rank, name, async_op=False, inplace=False):
+    _record(name, "BROADCAST", _nbytes([x]))
+    _consistency_check("BROADCAST", x, name, root=int(root_rank))
+    return collectives.broadcast_(x if inplace else x.clone(), root_rank, async_op)
+
+
+def _reducescatter(x, op, pre, post, name, async_op=False):
+    _record(name, "REDUCESCATTER", _nbytes([x]))
+    _consistency_check("REDUCESCATTER", x, name)
+    return collectives.reducescatter(x, op, pre, post, async_op)
+
+
+def _send_splits(splits, x: torch.Tensor) -> List[int]:
+    n = runtime.size()
+    send = [int(s) for s in (splits.tolist() if torch.is_tensor(splits) else splits)]
+    if len(send) != n:
+        raise HorovodTpuError(
+            f"splits must have one entry per rank ({n}); got {len(send)}")
+    if min(send) < 0 or sum(send) != (x.shape[0] if x.dim() else 0):
+        raise HorovodTpuError("each rank's splits must sum to its row count")
+    return send
+
+
+def _alltoall(x, splits, name, async_op=False):
+    """Even or, with ``splits`` (this rank's send counts, one per rank),
+    uneven; the uneven form exchanges the counts first (each rank's
+    receive counts are the others' send counts to it) and returns
+    ``(output, received_splits)``."""
+    _record(name, "ALLTOALL", _nbytes([x]))
+    _consistency_check("ALLTOALL", x, name, extra="" if splits is None else "splits")
+    if splits is None:
+        return collectives.alltoall(x, async_op=async_op)
+    send = _send_splits(splits, x)
+    runtime.refuse_in_capture("alltoall's split-count exchange")
+    counts = torch.tensor(send, dtype=torch.int64, device=x.device)
+    got = torch.empty_like(counts)
+    dist.all_to_all_single(got, counts)
+    recv = got.tolist()
+    out = collectives.alltoall(x, send, recv, async_op)
+    received = torch.tensor(recv, dtype=torch.int64)
+    if async_op:
+        return Pending(out.works, lambda: (out.finish(), received))
+    return out, received
+
+
+# ------------------------------------------------------------ gradients
+
+
+class _AllreduceFn(torch.autograd.Function):
+    """``_grads.allreduce_grad``: the gradient is an allreduce with the
+    same op and scale factors."""
+
+    @staticmethod
+    def forward(ctx, x, op, pre, post, name):
+        ctx.meta = (op, pre, post)
+        return _allreduce(x, op, pre, post, name)
+
+    @staticmethod
+    def backward(ctx, dy):
+        op, pre, post = ctx.meta
+        return _allreduce(dy.contiguous(), op, pre, post, None), None, None, None, None
+
+
+class _AllgatherFn(torch.autograd.Function):
+    """``_grads.allgather_grad``: the Average allreduce of the gradient,
+    this rank's rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, name):
+        ctx.rows = x.shape[0]
+        return _allgather(x, name)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = _allreduce(dy.contiguous(), Average, 1.0, 1.0, None)
+        r, d = runtime.rank(), ctx.rows
+        return g[r * d:(r + 1) * d], None
+
+
+class _BroadcastFn(torch.autograd.Function):
+    """``_grads.broadcast_grad``: the Average allreduce of the gradient on
+    the root, zero elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, root_rank, name):
+        ctx.root = root_rank
+        return _broadcast(x, root_rank, name)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = _allreduce(dy.contiguous(), Average, 1.0, 1.0, None)
+        return (g if runtime.rank() == ctx.root else torch.zeros_like(g)), None, None
+
+
+class _AlltoallFn(torch.autograd.Function):
+    """``_grads.alltoall_grad``: the reverse alltoall, each received chunk
+    sent back to its sender (equal splits are their own reverse)."""
+
+    @staticmethod
+    def forward(ctx, x, splits, name):
+        out = _alltoall(x, splits, name)
+        if splits is None:
+            ctx.splits = None
+            return out
+        y, recv = out
+        ctx.splits = (_send_splits(splits, x), recv.tolist())
+        ctx.mark_non_differentiable(recv)
+        return y, recv
+
+    @staticmethod
+    def backward(ctx, dy, *unused):
+        dy = dy.contiguous()
+        if ctx.splits is None:
+            return collectives.alltoall(dy), None, None
+        send, recv = ctx.splits
+        return collectives.alltoall(dy, recv, send), None, None
+
+
+class _GroupedAllreduceFn(torch.autograd.Function):
+    """Reference ``HorovodGroupedAllreduce`` (``torch/mpi_ops.py:383``):
+    one grouped allreduce each way, with the same op and scale factors."""
+
+    @staticmethod
+    def forward(ctx, op, pre, post, name, *xs):
+        ctx.meta = (op, pre, post)
+        return tuple(_grouped(list(xs), op, pre, post, name))
+
+    @staticmethod
+    def backward(ctx, *dys):
+        op, pre, post = ctx.meta
+        gs = _grouped([d.contiguous() for d in dys], op, pre, post, None)
+        return (None, None, None, None) + tuple(gs)
+
+
+# ------------------------------------------------------------ the API
+
+
+def allreduce(x: torch.Tensor, average: Optional[bool] = None, op: Optional[int] = None,
+              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+              process_set=None, name: Optional[str] = None) -> torch.Tensor:
+    """Every rank's ``x`` reduced by ``op`` (Average, Sum, Min, Max,
+    Product; ``average`` and ``op`` are exclusive, Average by default),
+    ``x`` scaled by ``prescale_factor`` first and the result by
+    ``postscale_factor`` (in float32 for f16/bf16: kernel B1 on the
+    card).  Differentiable: the gradient is the same allreduce."""
+    op = _reduce_op(average, op)
+    _global_set(process_set, "allreduce")
+    if _wants_grad(x):
+        return _AllreduceFn.apply(x, op, prescale_factor, postscale_factor, name)
+    return _allreduce(x, op, prescale_factor, postscale_factor, name)
+
+
+def allreduce_(x: torch.Tensor, average: Optional[bool] = None, op: Optional[int] = None,
+               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+               process_set=None, name: Optional[str] = None) -> torch.Tensor:
+    """:func:`allreduce` written into ``x``; returns ``x``."""
+    op = _reduce_op(average, op)
+    _global_set(process_set, "allreduce_")
+    if _wants_grad(x):
+        return _write_back(x, allreduce(x, op=op, prescale_factor=prescale_factor,
+                                        postscale_factor=postscale_factor, name=name))
+    return _write_back(x, _allreduce(x, op, prescale_factor, postscale_factor, name,
+                                     inplace=True))
+
+
+def allreduce_async(x: torch.Tensor, average: Optional[bool] = None,
+                    op: Optional[int] = None, prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0, process_set=None,
+                    name: Optional[str] = None) -> Handle:
+    op = _reduce_op(average, op)
+    _global_set(process_set, "allreduce_async")
+    _start("allreduce_async")
+    return Handle(_allreduce(x, op, prescale_factor, postscale_factor, name, True), name)
+
+
+def allreduce_async_(x: torch.Tensor, average: Optional[bool] = None,
+                     op: Optional[int] = None, prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0, process_set=None,
+                     name: Optional[str] = None) -> Handle:
+    op = _reduce_op(average, op)
+    _global_set(process_set, "allreduce_async_")
+    _start("allreduce_async_")
+    return Handle(_allreduce(x, op, prescale_factor, postscale_factor, name, True,
+                             inplace=True), name, target=x)
+
+
+def grouped_allreduce(xs: Sequence[torch.Tensor], average: Optional[bool] = None,
+                      op: Optional[int] = None, prescale_factor: float = 1.0,
+                      postscale_factor: float = 1.0, process_set=None,
+                      name: Optional[str] = None) -> List[torch.Tensor]:
+    """:func:`allreduce` of each tensor of ``xs``, as one collective per
+    dtype over a fused buffer (one per tensor, in order, under
+    ``HVD_TPU_DISABLE_GROUP_FUSION``).  Differentiable."""
+    op = _reduce_op(average, op)
+    _global_set(process_set, "grouped_allreduce")
+    xs = list(xs)
+    if any(_wants_grad(x) for x in xs):
+        return list(_GroupedAllreduceFn.apply(op, prescale_factor, postscale_factor,
+                                              name, *xs))
+    return _grouped(xs, op, prescale_factor, postscale_factor, name)
+
+
+def grouped_allreduce_(xs: Sequence[torch.Tensor], average: Optional[bool] = None,
+                       op: Optional[int] = None, prescale_factor: float = 1.0,
+                       postscale_factor: float = 1.0, process_set=None,
+                       name: Optional[str] = None) -> List[torch.Tensor]:
+    """:func:`grouped_allreduce` written into ``xs``; returns them."""
+    xs = list(xs)
+    return _write_back(xs, grouped_allreduce(xs, average, op, prescale_factor,
+                                             postscale_factor, process_set, name))
+
+
+def grouped_allreduce_async(xs: Sequence[torch.Tensor], average: Optional[bool] = None,
+                            op: Optional[int] = None, prescale_factor: float = 1.0,
+                            postscale_factor: float = 1.0, process_set=None,
+                            name: Optional[str] = None) -> Handle:
+    op = _reduce_op(average, op)
+    _global_set(process_set, "grouped_allreduce_async")
+    _start("grouped_allreduce_async")
+    return Handle(_grouped(list(xs), op, prescale_factor, postscale_factor, name, True),
+                  name)
+
+
+def grouped_allreduce_async_(xs: Sequence[torch.Tensor], average: Optional[bool] = None,
+                             op: Optional[int] = None, prescale_factor: float = 1.0,
+                             postscale_factor: float = 1.0, process_set=None,
+                             name: Optional[str] = None) -> Handle:
+    op = _reduce_op(average, op)
+    _global_set(process_set, "grouped_allreduce_async_")
+    _start("grouped_allreduce_async_")
+    xs = list(xs)
+    return Handle(_grouped(xs, op, prescale_factor, postscale_factor, name, True),
+                  name, target=xs)
+
+
+def allgather(x: torch.Tensor, process_set=None, name: Optional[str] = None) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on every rank) concatenated along
+    dim 0 in rank order.  Differentiable: the gradient is this rank's
+    rows of the Average allreduce of the incoming gradient."""
+    _global_set(process_set, "allgather")
+    if _wants_grad(x):
+        return _AllgatherFn.apply(x, name)
+    return _allgather(x, name)
+
+
+def allgather_async(x: torch.Tensor, process_set=None,
+                    name: Optional[str] = None) -> Handle:
+    _global_set(process_set, "allgather_async")
+    _start("allgather_async")
+    return Handle(_allgather(x, name, True), name)
+
+
+def allgather_v(x: torch.Tensor, process_set=None, name: Optional[str] = None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order, where
+    the first dims may differ (the trailing ones may not): the row counts
+    are gathered first, every rank's rows padded to the largest count,
+    gathered once and trimmed (``eager.py:501-586``)."""
+    _global_set(process_set, "allgather_v")
+    if x.dim() == 0:
+        raise HorovodTpuError("allgather_v takes a tensor of at least one dimension")
+    runtime.refuse_in_capture("allgather_v's row-count negotiation")
+    count = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+    counts = collectives.allgather(count).tolist()
+    rows = max(counts)
+    padded = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    padded[:x.shape[0]] = x
+    gathered = _allgather(padded, name)
+    return torch.cat([gathered[r * rows:r * rows + c] for r, c in enumerate(counts)])
+
+
+def broadcast(x: torch.Tensor, root_rank: int = 0, process_set=None,
+              name: Optional[str] = None) -> torch.Tensor:
+    """``root_rank``'s ``x`` on every rank.  Differentiable: the gradient
+    is the Average allreduce of the incoming gradient on the root, zero
+    elsewhere."""
+    _global_set(process_set, "broadcast")
+    if _wants_grad(x):
+        return _BroadcastFn.apply(x, root_rank, name)
+    return _broadcast(x, root_rank, name)
+
+
+def broadcast_(x: torch.Tensor, root_rank: int = 0, process_set=None,
+               name: Optional[str] = None) -> torch.Tensor:
+    """:func:`broadcast` written into ``x``; returns ``x``."""
+    _global_set(process_set, "broadcast_")
+    if _wants_grad(x):
+        return _write_back(x, broadcast(x, root_rank, name=name))
+    return _broadcast(x, root_rank, name, inplace=True)
+
+
+def broadcast_async(x: torch.Tensor, root_rank: int = 0, process_set=None,
+                    name: Optional[str] = None) -> Handle:
+    _global_set(process_set, "broadcast_async")
+    _start("broadcast_async")
+    return Handle(_broadcast(x, root_rank, name, True), name)
+
+
+def broadcast_async_(x: torch.Tensor, root_rank: int = 0, process_set=None,
+                     name: Optional[str] = None) -> Handle:
+    _global_set(process_set, "broadcast_async_")
+    _start("broadcast_async_")
+    return Handle(_broadcast(x, root_rank, name, True, inplace=True), name, target=x)
+
+
+def reducescatter(x: torch.Tensor, op: int = Sum, prescale_factor: float = 1.0,
+                  postscale_factor: float = 1.0, process_set=None,
+                  name: Optional[str] = None) -> torch.Tensor:
+    """Every rank's ``x`` summed (``op=Sum``, the JAX package's default)
+    or averaged, this rank's ``1/size`` of it along dim 0, which the
+    world's size must divide."""
+    _global_set(process_set, "reducescatter")
+    return _reducescatter(x, op, prescale_factor, postscale_factor, name)
+
+
+def reducescatter_async(x: torch.Tensor, op: int = Sum, prescale_factor: float = 1.0,
+                        postscale_factor: float = 1.0, process_set=None,
+                        name: Optional[str] = None) -> Handle:
+    _global_set(process_set, "reducescatter_async")
+    _start("reducescatter_async")
+    return Handle(_reducescatter(x, op, prescale_factor, postscale_factor, name, True),
+                  name)
+
+
+def alltoall(x: torch.Tensor, splits: Optional[Union[Sequence[int], torch.Tensor]] = None,
+             process_set=None, name: Optional[str] = None):
+    """Rank i's j-th chunk of ``x`` along dim 0 goes to rank j, which
+    gets the chunks in rank order.  ``splits=None``: equal chunks (the
+    world's size must divide dim 0), returns the output.  Otherwise
+    ``splits[j]`` rows go to rank j, and the result is ``(output,
+    received_splits)``: ``received_splits[j]`` rows came from rank j.
+    Differentiable: the gradient is the reverse alltoall."""
+    _global_set(process_set, "alltoall")
+    if _wants_grad(x):
+        return _AlltoallFn.apply(x, splits, name)
+    return _alltoall(x, splits, name)
+
+
+def alltoall_async(x: torch.Tensor,
+                   splits: Optional[Union[Sequence[int], torch.Tensor]] = None,
+                   process_set=None, name: Optional[str] = None) -> Handle:
+    _global_set(process_set, "alltoall_async")
+    _start("alltoall_async")
+    return Handle(_alltoall(x, splits, name, True), name)
+
+
+def barrier(process_set=None) -> None:
+    """Return once every rank has reached it."""
+    _global_set(process_set, "barrier")
+    runtime.refuse_in_capture("barrier")
+    int(collectives.barrier())  # the host waits for the token
+
+
+def join() -> int:
+    """Announce that this rank has no more data, wait for every rank to
+    do so, and return the rank that joined last (reference ``hvd.join``,
+    ``operations.cc:1714``): each rank stamps its arrival time before
+    anything blocks, the stamps are gathered and the latest wins, ties
+    going to the higher rank (``eager.py:746-817``)."""
+    runtime.refuse_in_capture("join")
+    arrived = time.time()
+    rt = runtime.get_runtime()
+    stamp = torch.tensor([arrived], dtype=torch.float64, device=rt.device)
+    stamps = collectives.allgather(stamp).tolist()
+    return max(zip(stamps, range(rt.size)))[1]

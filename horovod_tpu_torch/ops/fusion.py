@@ -1,7 +1,8 @@
 """Tensor fusion: bucketing small tensors into flat buffers.
 
 Counterpart of ``horovod_tpu/ops/fusion.py`` (``flatten_group`` ``:44``,
-``unflatten_group`` ``:66``, ``bucket_plan`` ``:77``): one flat buffer
+``unflatten_group`` ``:66``, ``bucket_plan`` ``:77``,
+``pad_to_atomic_unit`` ``:180``): one flat buffer
 per dtype per bucket, one collective on it, then views sliced back out.
 The bucket plan is the JAX package's greedy in-order plan with the
 mixed-precision look-ahead bound, so both packages plan identical
@@ -98,3 +99,18 @@ def bucket_plan(
                     entry[2] = i
             open_buckets[dt] = [b, sz, None]
     return buckets
+
+
+def pad_to_atomic_unit(flat: torch.Tensor,
+                       unit_bytes: int | None = None) -> Tuple[torch.Tensor, int]:
+    """Pad a flat buffer with zeros so its byte size is a multiple of the
+    atomic unit (default ``env.FUSION_BUFFER_ATOMIC_UNIT``; at least one
+    element).  Returns (buffer, elements before the padding)."""
+    if unit_bytes is None:
+        unit_bytes = env.FUSION_BUFFER_ATOMIC_UNIT
+    unit_elems = max(1, unit_bytes // flat.element_size())
+    n = flat.shape[0]
+    padded = -(-n // unit_elems) * unit_elems
+    if padded != n:
+        flat = torch.nn.functional.pad(flat, (0, padded - n))
+    return flat, n

@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from collections import OrderedDict
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -618,18 +619,28 @@ def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
     return None
 
 
+# Captured steps a TrainStep keeps, one per batch signature (shapes,
+# dtypes, devices and structure): an epoch's short last batch keeps its
+# own graph beside the full batch's, as ``jax.jit`` keeps one executable
+# per shape.  Past this many, the least recently replayed is dropped.
+MAX_GRAPHS = 4
+
+
 class _Captured:
     """One step captured as a CUDA graph: its static inputs, its loss,
-    and the kernel launches it records, per wrapper of
+    the kernel launches it records, per wrapper of
     ``ops.LAUNCH_COUNTED`` (added to their counters on every replay: the
     replay's counts are inferred from the capture's, not counted at a
-    launch)."""
+    launch), and the bytes the card's reserved memory grew by across its
+    capture (its memory pool)."""
 
-    def __init__(self, graph, static: list, loss: torch.Tensor, launches: dict):
+    def __init__(self, graph, static: list, loss: torch.Tensor, launches: dict,
+                 reserved: int = 0):
         self.graph = graph
         self.static = static
         self.loss = loss
         self.launches = launches
+        self.reserved = reserved
 
     def replay(self, leaves: list) -> torch.Tensor:
         for s, t in zip(self.static, leaves):
@@ -700,14 +711,19 @@ class TrainStep:
     captured (forward, backward, every bucket's exchange, the update and
     the cross-rank means) and every later call copies the batch into the
     graph's inputs, replays it (one ``cudaGraphLaunch``) and returns a
-    copy of its loss, bitwise what the eager step computes.  A change of
-    the batch's shapes or dtypes, of the scheduler's knobs
-    (``HVD_TPU_SCHED_WIRE``, ``HVD_TPU_SCHED_BARRIERS``, ...), of the
-    optimizer's hyperparameters or the quantized wire's knobs
-    (:func:`host_state`: a learning-rate schedule's new ``lr``) or of the
-    mode drops the graph and its memory; the next calls warm up and
-    capture anew, as the JAX package retraces.  So a key that changes at
-    every step (a per-step schedule) runs every step eagerly, on the
+    copy of its loss, bitwise what the eager step computes.  One graph is
+    kept per batch signature (structure, shapes, dtypes and devices), up
+    to ``MAX_GRAPHS``, each in its own memory pool: a new signature warms
+    up and captures on its own, one seen before replays at once (an
+    epoch's short last batch and the full batch each keep theirs, as the
+    JAX package keeps one compiled step per shape), and past the bound
+    the least recently replayed graph is dropped.  A change of the
+    scheduler's knobs (``HVD_TPU_SCHED_WIRE``, ``HVD_TPU_SCHED_BARRIERS``,
+    ...), of the optimizer's hyperparameters or the quantized wire's
+    knobs (:func:`host_state`: a learning-rate schedule's new ``lr``) or
+    of the mode drops every graph and its memory; the next calls warm up
+    and capture anew, as the JAX package retraces.  So a key that changes
+    at every step (a per-step schedule) runs every step eagerly, on the
     warm-up stream, and never captures.  ``auto`` captures a step
     of two or more units (buckets, plus the update) that
     :func:`capture_blocker` lets through and runs any other eagerly;
@@ -724,9 +740,11 @@ class TrainStep:
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
-        self._captured: Optional[_Captured] = None
-        self._key = None
-        self._warm = 0
+        # Batch signature -> its graph, least recently replayed first;
+        # and the eager warm-up steps each signature has run.
+        self._graphs: "OrderedDict[tuple, _Captured]" = OrderedDict()
+        self._warm: "OrderedDict[tuple, int]" = OrderedDict()
+        self._key = None  # what every graph holds fixed besides the batch
 
     def __call__(self, batch) -> torch.Tensor:
         mode = onestep_mode()
@@ -744,22 +762,31 @@ class TrainStep:
             self.drop()
             return self._eager(batch, mode)
         leaves, spec = tree_flatten(batch)
-        key = (mode, SchedConfig.from_env(), spec, _signature(leaves),
-               host_state(self.optimizer))
+        key = (mode, SchedConfig.from_env(), host_state(self.optimizer))
         if key != self._key:
             self.drop()
             self._key = key
-        if self._captured is None:
-            if self._warm < CAPTURE_WARMUP:
-                self._warm += 1
+        sig = (spec, _signature(leaves))
+        captured = self._graphs.get(sig)
+        if captured is None:
+            warm = self._warm.pop(sig, 0)
+            if warm < CAPTURE_WARMUP:
+                self._warm[sig] = warm + 1
+                if len(self._warm) > MAX_GRAPHS:  # bound those warming up
+                    self._warm.popitem(last=False)
                 return self._side_stream_step(batch, mode, device)
             if not onestep_engaged(self._units()):
+                self._warm[sig] = warm
                 return self._eager(batch, mode)
-            self._capture(leaves, spec)
+            if len(self._graphs) >= MAX_GRAPHS:
+                self._evict([next(iter(self._graphs))])
+            captured = self._graphs[sig] = self._capture(leaves, spec)
             if runtime.is_initialized():  # shutdown() drops it first
                 runtime.get_runtime().captured_steps.add(self)
+        else:
+            self._graphs.move_to_end(sig)
         metrics.set_gauge("sched.onestep.engaged", 1.0, {"mode": mode})
-        return self._captured.replay(leaves)
+        return captured.replay(leaves)
 
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
@@ -775,16 +802,24 @@ class TrainStep:
             all(g.get("capturable", True) for g in self.optimizer.param_groups))
 
     def drop(self) -> None:
-        """Drop the captured step and give its memory pool back to the
-        card (an in-flight replay finishes first: ``empty_cache`` frees
-        through ``cudaFree``, which waits for the device); the next call
-        on a card warms up and captures anew.  ``shutdown()`` drops every
-        captured step before it leaves the process group."""
-        captured, self._captured, self._key, self._warm = self._captured, None, None, 0
-        if captured is not None:
-            captured.graph.reset()
-            del captured  # its static inputs and loss live in the pool
-            torch.cuda.empty_cache()
+        """Drop every captured graph and give their memory pools back to
+        the card; the next call on a card warms up and captures anew.
+        ``shutdown()`` drops every captured step before it leaves the
+        process group."""
+        self._evict(list(self._graphs))
+        self._warm.clear()
+        self._key = None
+
+    def _evict(self, sigs: list) -> None:
+        """Drop the graphs of ``sigs`` and return their pools to the card
+        (an in-flight replay finishes first: ``empty_cache`` frees
+        through ``cudaFree``, which waits for the device).  Nothing else
+        holds a graph's static inputs and loss, which live in its pool."""
+        if not sigs:
+            return
+        for sig in sigs:
+            self._graphs.pop(sig).graph.reset()
+        torch.cuda.empty_cache()
 
     def _units(self) -> int:
         schedule = getattr(self.optimizer, "schedule", None)
@@ -800,9 +835,19 @@ class TrainStep:
         loss.record_stream(main)
         return loss
 
-    def _capture(self, leaves: list, spec) -> None:
+    def _capture(self, leaves: list, spec) -> _Captured:
+        """Capture one step on a copy of ``leaves`` into a new graph, in its
+        own memory pool (``torch.cuda.graph``'s default: replays of
+        alternating signatures do not follow capture order, which a
+        shared pool needs)."""
         static = [t.clone() if torch.is_tensor(t) else t for t in leaves]
         before = {fn: fn.launches for fn in LAUNCH_COUNTED}
+        device = self._device()
+        # torch.cuda.graph empties the cache as it starts: do so first,
+        # so that the growth across the capture is the graph's pool.
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
@@ -812,7 +857,8 @@ class TrainStep:
             for fn in LAUNCH_COUNTED:
                 fn.launches = before.get(fn, 0)
         metrics.inc_counter("xir.onestep.steps")
-        self._captured = _Captured(graph, static, loss, launches)
+        return _Captured(graph, static, loss, launches,
+                         torch.cuda.memory_reserved(device) - reserved)
 
     def _eager(self, batch, mode: str) -> torch.Tensor:
         metrics.set_gauge("sched.onestep.engaged", 0.0, {"mode": mode})

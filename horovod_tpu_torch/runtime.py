@@ -238,8 +238,9 @@ def refuse_in_capture(what: str) -> None:
     if capturing():
         raise RuntimeError(
             f"{what} waits on the host and cannot run while a CUDA graph is "
-            "captured; TrainStep's eager warm-up steps make it before the "
-            "capture (HVD_TPU_ONESTEP, ROADMAP Queue A item A12a)"
+            "captured: call it before or after the capture (TrainStep's eager "
+            "warm-up steps make its host collectives before it captures; "
+            "HVD_TPU_ONESTEP, ROADMAP Queue A item A12a)"
         )
 
 

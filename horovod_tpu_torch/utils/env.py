@@ -1,9 +1,10 @@
 """Environment-variable knobs the port reads.
 
 Counterpart of ``horovod_tpu/utils/env.py``, trimmed to the knobs of the
-data-parallel step.  Names and defaults are the JAX package's, so one
-environment drives both sides of a parity test: ``HVD_TPU_<name>``, with
-``HOROVOD_<name>`` accepted as a fallback.
+data-parallel step and the eager collectives.  Names and defaults are
+the JAX package's, so one environment drives both sides of a parity
+test: ``HVD_TPU_<name>``, with ``HOROVOD_<name>`` accepted as a
+fallback.
 """
 
 from __future__ import annotations
@@ -27,8 +28,17 @@ QUANT_BACKEND = "QUANT_BACKEND"
 # Whole-step capture: off | on | auto (default), the JAX package's
 # whole-step emission knob (see xir/interp.py).
 ONESTEP = "ONESTEP"
+# Every eager collective cross-checks its request (type, dtype, shape,
+# name, root) across ranks before it runs (default off; ops/eager.py).
+CONSISTENCY_CHECK = "CONSISTENCY_CHECK"
+# grouped_allreduce runs one collective per tensor, in order, instead of
+# one per dtype over a fused buffer (default off).
+DISABLE_GROUP_FUSION = "DISABLE_GROUP_FUSION"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+# Fusion buffers are padded to this many bytes (ops/fusion.py
+# pad_to_atomic_unit), the JAX package's value.
+FUSION_BUFFER_ATOMIC_UNIT = 512
 
 
 def _names(name: str) -> tuple[str, str]:

@@ -25,8 +25,10 @@ and sum in the plain version's order: bitwise, on n virtual ranks of
 one card, and in worlds of two processes (two cards over NVLink, or two
 ranks sharing one card); captured into a CUDA graph and replayed too.
 The step captured as one CUDA graph (``HVD_TPU_ONESTEP``) is held
-bitwise against the eager step on a narrow ResNet, and ``on`` must
-raise where a step cannot be captured.
+bitwise against the eager step on a narrow ResNet, one graph per batch
+shape, and ``on`` must raise where a step cannot be captured.  The
+eager collective API runs ``chip_smoke.eager_checks`` in worlds of one
+and two.
 """
 
 import ctypes
@@ -794,6 +796,63 @@ def test_ring_waits_for_a_late_peer(tmp_path):
         assert waited > 10.0, outs[0]
 
 
+# --------------------------------------------------- the eager API
+
+_EAGER = textwrap.dedent("""
+    import sys
+    rank, n, store, backend, root = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                     sys.argv[4], sys.argv[5])
+    sys.path.insert(0, root)
+    import chip_smoke
+    import horovod_tpu_torch as hvd
+    hvd.init("cuda", init_method="file://" + store, rank=rank, size=n, backend=backend,
+             timeout_s=100)
+    try:
+        rec = chip_smoke.eager_checks(n)
+    finally:
+        hvd.shutdown()
+    print("EAGER OK", rank, rec["backend"], rec["captured"], flush=True)
+""")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["world of one", "two cards", "one card shared"])
+def test_eager_api_on_the_card(tmp_path, layout):
+    """``chip_smoke.eager_checks`` in a world of one (NCCL), of two cards
+    (NCCL) and of two ranks sharing one card (gloo): every op of the
+    eager API bitwise with the values each rank computes itself on the
+    CPU; B1 launched exactly twice by a bf16 allreduce with a pre- and a
+    postscale and bitwise with its plain version; on NCCL a captured
+    ``allreduce_`` replayed three times bitwise with eager, and ``poll``
+    refused under capture."""
+    _cuda()
+    if layout == "two cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(k, None)
+    if layout == "one card shared":
+        env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    n = 1 if layout == "world of one" else 2
+    backend = "gloo" if layout == "one card shared" else "nccl"
+    procs = [subprocess.Popen([sys.executable, "-c", _EAGER, str(r), str(n),
+                               str(tmp_path / "store"), backend, root],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"EAGER OK {r} {backend}" in out, out
+        assert ("None" in out.split("EAGER OK")[-1]) == (backend == "gloo"), out
+
+
 # ------------------------------------------------- the step as one graph
 
 
@@ -842,13 +901,14 @@ def test_rings_captured_and_replayed_bitwise(n):
         win.close()
 
 
-def _small_run(onestep, steps=5, before_step=None):
+def _small_run(onestep, steps=5, before_step=None, rows=lambda i: 4, after_run=None):
     """``steps`` steps of a narrow float32 ResNet at world one on the card
-    (``build_dp_step``, one batch per step, each new), with
-    ``HVD_TPU_ONESTEP`` at ``onestep`` and ``before_step(i, opt)`` called
-    before step i when given: the losses, the final weights and buffers,
-    the residuals, the kernels' launches, the captures and whether every
-    ``p.grad`` was None after each step."""
+    (``build_dp_step``, one batch per step, each new, of ``rows(i)``
+    images), with ``HVD_TPU_ONESTEP`` at ``onestep`` and
+    ``before_step(i, opt)`` called before step i when given: the losses,
+    the final weights and buffers, the residuals, the kernels' launches,
+    the captures, whether every ``p.grad`` was None after each step and
+    what ``after_run(step)`` returns (None without it)."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics
     from horovod_tpu_torch.models import ResNet
@@ -868,8 +928,8 @@ def _small_run(onestep, steps=5, before_step=None):
         for i in range(steps):
             if before_step is not None:
                 before_step(i, opt)
-            batch = (torch.randn(4, 32, 32, 3, generator=g, device="cuda"),
-                     torch.randint(0, 10, (4,), generator=g, device="cuda"))
+            batch = (torch.randn(rows(i), 32, 32, 3, generator=g, device="cuda"),
+                     torch.randint(0, 10, (rows(i),), generator=g, device="cuda"))
             losses.append(step(batch))
             no_grads &= all(p.grad is None for p in model.parameters())
         torch.cuda.synchronize()
@@ -878,7 +938,8 @@ def _small_run(onestep, steps=5, before_step=None):
         return {"losses": torch.stack(losses), "state": state, "residuals": residuals,
                 "launches": [c.launches - b for c, b in zip(counters, before)],
                 "captures": metrics.get_counter("xir.onestep.steps"),
-                "no_grads": no_grads}
+                "no_grads": no_grads,
+                "after": after_run(step) if after_run is not None else None}
     finally:
         hvd.shutdown()
         os.environ.pop("HVD_TPU_ONESTEP")
@@ -963,6 +1024,55 @@ def test_captured_step_follows_a_changed_learning_rate(monkeypatch, wire):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["bf16", "int8"])
+def test_alternating_batch_shapes_replay_bitwise_with_eager(monkeypatch, wire):
+    """Epochs of three batches of 4 and a short one of 2, eager and under
+    ``on``: each shape warms up and captures once (two captures in all)
+    and its graph replays whenever the shape comes back, bitwise with the
+    eager step, with the same launches.  ``drop()`` then gives both
+    pools back: reserved memory after it is no more than before the
+    first capture."""
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
+
+    _cuda()
+    monkeypatch.setenv("HVD_TPU_SCHED_WIRE", wire)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    reserved = {}
+
+    def before_step(i, opt):
+        if i == CAPTURE_WARMUP:
+            torch.cuda.synchronize()
+            reserved["before"] = torch.cuda.memory_reserved()
+
+    def after_run(step):
+        graphs = len(step._graphs)
+        step.drop()
+        torch.cuda.synchronize()
+        return graphs, torch.cuda.memory_reserved()
+
+    def rows(i):
+        return 2 if i % 4 == 3 else 4
+
+    eager = _small_run("off", steps=16, rows=rows)
+    captured = _small_run("on", steps=16, rows=rows, before_step=before_step,
+                          after_run=after_run)
+    assert torch.equal(_int_bits(captured["losses"]), _int_bits(eager["losses"]))
+    for k, v in eager["state"].items():
+        got = captured["state"][k]
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           v.reshape(-1).view(torch.uint8)), k
+    for r, want in zip(captured["residuals"], eager["residuals"]):
+        assert torch.equal(_int_bits(r), _int_bits(want))
+    assert captured["launches"] == eager["launches"]
+    assert (eager["captures"], captured["captures"]) == (0, 2)
+    graphs, after = captured["after"]
+    assert graphs == 2
+    assert after <= reserved["before"], (after, reserved["before"])
+
+
+@pytest.mark.cuda
 def test_onestep_on_refuses_a_step_it_cannot_capture(monkeypatch):
     """Under ``HVD_TPU_ONESTEP=on`` on the card, a step that cannot be
     captured raises, naming why, before it runs: two backward passes per
@@ -1043,7 +1153,7 @@ def test_dropping_the_captured_step_releases_its_memory(monkeypatch):
             before_capture = torch.cuda.memory_reserved()
             for _ in range(2):
                 loss = step(batch)
-            assert torch.isfinite(loss) and step._captured is not None
+            assert torch.isfinite(loss) and step._graphs
             del loss
             step.drop()
             torch.cuda.synchronize()
@@ -1072,9 +1182,9 @@ _SHUTDOWN = textwrap.dedent("""
              torch.randint(0, 10, (4,), device=hvd.device()))
     for _ in range(CAPTURE_WARMUP + 3):
         loss = float(step(batch))
-    assert step._captured is not None
+    assert step._graphs
     hvd.shutdown()  # the captured step is still alive here
-    assert step._captured is None
+    assert not step._graphs
     print("SHUTDOWN OK", rank, loss, flush=True)
 """)
 

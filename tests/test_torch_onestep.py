@@ -31,6 +31,7 @@
 """
 
 import contextlib
+import itertools
 import os
 
 import numpy as np
@@ -269,7 +270,7 @@ def _fake_capture(step, leaves, spec, graphs):
     loss = torch.zeros(())
     graphs.append(_Graph(step, static, spec, loss))
     metrics.inc_counter("xir.onestep.steps")
-    step._captured = dopt._Captured(graphs[-1], static, loss, {})
+    return dopt._Captured(graphs[-1], static, loss, {})
 
 
 def _faked(monkeypatch, step):
@@ -300,14 +301,16 @@ def _faked_everywhere(monkeypatch):
 
 
 def test_the_cache_captures_once_and_drops_on_a_changed_knob(monkeypatch):
-    """Warm-up, one capture and replays under ``on``; a changed wire, a
-    changed batch shape and ``off`` each drop the captured step (its
-    graph reset), and the next calls warm up and capture anew.  The
-    faked replays compute what the eager step computes, so the losses
-    and weights equal an eager run's."""
+    """Warm-up, one capture and replays under ``on``; a new batch shape
+    warms up and captures beside the old one, whose graph then replays at
+    once; a changed wire and ``off`` each drop every captured graph
+    (reset), and the next calls warm up and capture anew.  The faked
+    replays compute what the eager step computes, so the losses and
+    weights equal an eager run's."""
     monkeypatch.setenv("HVD_TPU_ONESTEP", "on")
     metrics.reset("xir.")
-    plan = ["on"] * 5 + ["wire"] * 4 + ["rows"] * 4 + ["off"] * 2 + ["on"] * 4
+    plan = (["on"] * 5 + ["rows"] * 4 + ["on"] * 2 + ["wire"] * 4 + ["off"] * 2
+            + ["on"] * 4)
 
     def run(fake):
         thvd.init("cpu")
@@ -324,7 +327,7 @@ def test_the_cache_captures_once_and_drops_on_a_changed_knob(monkeypatch):
                 losses.append(float(step(_batch(i, rows=6 if what == "rows" else 4))))
                 engaged.append(metrics.get_gauge("sched.onestep.engaged",
                                                  {"mode": "on"}) == 1.0
-                               and step._captured is not None)
+                               and bool(step._graphs))
             return losses, [p.detach().clone() for p in model.parameters()], graphs, engaged
         finally:
             thvd.shutdown()
@@ -333,11 +336,95 @@ def test_the_cache_captures_once_and_drops_on_a_changed_knob(monkeypatch):
     ref_losses, ref_weights, _, _ = run(fake=False)
     assert losses == ref_losses
     assert all(torch.equal(a, b) for a, b in zip(weights, ref_weights))
-    # Each run of a knob: two eager warm-up steps, then the capture.
-    assert engaged == [False, False, True, True, True] + [False, False, True, True] * 2 + \
-        [False, False] + [False, False, True, True]
+    # Each new signature or knob: two eager warm-up steps, then the
+    # capture; the first shape's graph outlives the second's capture.
+    assert engaged == [False, False, True, True, True] + [False, False, True, True] + \
+        [True, True] + [False, False, True, True] + [False, False] + \
+        [False, False, True, True]
     assert len(graphs) == 4 and metrics.get_counter("xir.onestep.steps") == 4
+    assert [g.replays for g in graphs] == [3 + 2, 1 + 1, 1 + 1, 1 + 1]
     assert [g.resets for g in graphs] == [1, 1, 1, 1]  # the last by shutdown()
+
+
+def _shape_plan(monkeypatch, plan, changes=None):
+    """A faked step fed batches of ``plan``'s row counts under ``on``;
+    ``changes[i]`` runs before call i.  The graphs made, whether each
+    call replayed one, the losses, and those of the same run eagerly."""
+    metrics.reset("xir.")
+
+    def run(fake):
+        monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "off")
+        monkeypatch.setenv("HVD_TPU_ONESTEP", "on" if fake else "off")
+        thvd.init("cpu")
+        try:
+            torch.manual_seed(0)
+            model, opt = _linear()
+            step = thvd.TrainStep(model, opt, _mse)
+            graphs = _faked(monkeypatch, step) if fake else None
+            losses, engaged = [], []
+            for i, rows in enumerate(plan):
+                if changes and i in changes:
+                    changes[i](opt)
+                losses.append(float(step(_batch(i, rows=rows))))
+                engaged.append(metrics.get_gauge("sched.onestep.engaged",
+                                                 {"mode": "on"}) == 1.0)
+            return graphs, engaged, losses
+        finally:
+            thvd.shutdown()
+
+    graphs, engaged, losses = run(fake=True)
+    assert losses == run(fake=False)[2]
+    return graphs, engaged
+
+
+def test_alternating_batch_shapes_capture_once_each(monkeypatch):
+    """Epochs of three full batches and a short last one: each shape
+    warms up and captures once, then replays at once whenever it comes
+    back; two captures in all, none dropped before ``shutdown()``."""
+    graphs, engaged = _shape_plan(monkeypatch, [4, 4, 4, 2] * 4)
+    assert len(graphs) == 2 and metrics.get_counter("xir.onestep.steps") == 2
+    assert engaged == [False, False, True, False] + [True, True, True, False] + \
+        [True, True, True, True] * 2
+    assert [g.replays for g in graphs] == [10, 2]
+    assert [g.resets for g in graphs] == [1, 1]  # by shutdown()
+
+
+@pytest.mark.parametrize("change", ["lr", "wire"])
+def test_a_changed_learning_rate_or_knob_drops_every_graph(monkeypatch, change):
+    """With two shapes captured, a new ``lr`` or ``HVD_TPU_SCHED_WIRE``
+    drops both graphs; each shape then warms up and captures anew."""
+    def new_lr(opt):
+        opt.param_groups[0]["lr"] = 0.05
+
+    def new_wire(opt):
+        monkeypatch.setenv("HVD_TPU_SCHED_WIRE", "bf16")
+
+    plan = [4, 4, 4, 2, 2, 2, 4, 2] + [4, 4, 4, 2, 2, 2, 4, 2]
+    graphs, engaged = _shape_plan(monkeypatch, plan,
+                                  {8: new_lr if change == "lr" else new_wire})
+    assert engaged == [False, False, True, False, False, True, True, True] * 2
+    assert len(graphs) == 4 and [g.replays for g in graphs] == [2, 2, 2, 2]
+    assert [g.resets for g in graphs] == [1, 1, 1, 1]
+
+
+def test_the_bound_evicts_the_least_recently_replayed_graph(monkeypatch):
+    """``MAX_GRAPHS`` shapes each capture; the first replays again, so
+    the next new shape's capture drops the second's graph (the least
+    recently replayed), which warms up and captures anew when it comes
+    back."""
+    n = dopt.MAX_GRAPHS
+    shapes = list(range(1, n + 2))  # rows of n + 1 shapes
+    plan = [r for r in shapes[:n] for _ in range(dopt.CAPTURE_WARMUP + 1)]
+    plan += [shapes[0]] + [shapes[n]] * (dopt.CAPTURE_WARMUP + 1) + \
+        [shapes[1]] * (dopt.CAPTURE_WARMUP + 1)
+    graphs, engaged = _shape_plan(monkeypatch, plan)
+    warm_then_capture = [False] * dopt.CAPTURE_WARMUP + [True]
+    assert engaged == warm_then_capture * n + [True] + warm_then_capture * 2
+    assert len(graphs) == n + 2
+    # Evicted: the second shape's graph by the (n+1)-th shape's capture,
+    # then the third's by the second's capture anew; the rest by shutdown.
+    assert [g.resets for g in graphs] == [1] * (n + 2)
+    assert [g.replays for g in graphs] == [2] + [1] * (n + 1)
 
 
 def test_a_changed_hyperparameter_or_quant_knob_drops_the_captured_step(monkeypatch):
@@ -372,7 +459,7 @@ def test_a_changed_hyperparameter_or_quant_knob_drops_the_captured_step(monkeypa
             if i >= 20:  # a new lr at every step
                 opt.param_groups[0]["lr"] = 0.01 * i
             step(_batch(i))
-            captured.append(step._captured is not None)
+            captured.append(bool(step._graphs))
         assert captured == [False, False, True, True] * 5 + [False] * 4
         assert len(graphs) == 5 and [g.resets for g in graphs] == [1] * 5
         assert metrics.get_counter("xir.onestep.steps") == 5
@@ -426,6 +513,7 @@ def test_a_capture_winds_its_launches_back_and_each_replay_adds_them(monkeypatch
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
     monkeypatch.setattr(torch.cuda, "graph", lambda graph: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
     monkeypatch.setenv("HVD_TPU_ONESTEP", "on")
 
     def loss_fn(m, batch):
@@ -447,8 +535,57 @@ def test_a_capture_winds_its_launches_back_and_each_replay_adds_them(monkeypatch
         for i in range(5):
             step(_batch(i))
             counts.append({fn.launches - before[fn] for fn in LAUNCH_COUNTED})
-        assert step._captured is not None
+        assert step._graphs
         assert counts == [{1}, {2}, {3}, {4}, {5}]
+    finally:
+        thvd.shutdown()
+        for fn, n in before.items():
+            fn.launches = n
+
+
+def test_each_graph_adds_its_own_launches_on_each_replay(monkeypatch):
+    """Two batch shapes whose steps stand for one and for two launches of
+    every wrapper, alternating, through the real ``_capture`` with a
+    stand-in graph: each replay adds the counts its own capture recorded,
+    so the counters read what the eager steps would have launched."""
+
+    class Graph:
+        def replay(self):
+            pass
+
+        def reset(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setenv("HVD_TPU_ONESTEP", "on")
+
+    def loss_fn(m, batch):
+        for fn in LAUNCH_COUNTED:
+            fn.launches += 1 if len(batch[0]) == 4 else 2
+        return _mse(m, batch)
+
+    thvd.init("cpu")
+    before = {fn: fn.launches for fn in LAUNCH_COUNTED}
+    try:
+        model = torch.nn.Linear(3, 2)
+        opt = thvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1))
+        step = thvd.TrainStep(model, opt, loss_fn)
+        monkeypatch.setattr(step, "_device", lambda: torch.device("cuda"))
+        monkeypatch.setattr(thvd.runtime.get_runtime(), "backend", "nccl")
+        monkeypatch.setattr(step, "_side_stream_step",
+                            lambda batch, mode, device: step._eager(batch, mode))
+        plan = [4, 4, 4, 2, 2, 2, 4, 2, 4, 2]
+        counts = []
+        for i, rows in enumerate(plan):
+            step(_batch(i, rows=rows))
+            counts.append({fn.launches - before[fn] for fn in LAUNCH_COUNTED})
+        assert len(step._graphs) == 2
+        want = list(itertools.accumulate(1 if rows == 4 else 2 for rows in plan))
+        assert counts == [{c} for c in want]
+        assert sorted(sum(c.launches.values()) for c in step._graphs.values()) == \
+            [len(LAUNCH_COUNTED), 2 * len(LAUNCH_COUNTED)]
     finally:
         thvd.shutdown()
         for fn, n in before.items():
@@ -534,7 +671,7 @@ def test_shutdown_drops_a_captured_step(monkeypatch):
         graphs = _faked(monkeypatch, step)
         for i in range(dopt.CAPTURE_WARMUP + 2):
             step(_batch(i))
-        assert step._captured is not None and graphs[0].resets == 0
+        assert step._graphs and graphs[0].resets == 0
     finally:
         thvd.shutdown()
-    assert step._captured is None and graphs[0].resets == 1
+    assert not step._graphs and graphs[0].resets == 1

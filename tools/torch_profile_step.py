@@ -36,10 +36,14 @@ out of its timing, and it has no exchange host time (the replay runs no
 ``--last-batch B`` instead times epochs of ``--window`` steps at batch 32
 and one at batch B (the short last batch a loader gives with
 ``drop_last=False``) on the profiled wire, ``HVD_TPU_ONESTEP`` ``auto``
-against ``off`` in ``--pairs`` pairs of epochs: ms per step over each
-epoch and its peak of allocated and reserved memory.  Each change of
-batch shape drops a captured step, so every ``auto`` epoch warms up and
-captures anew; nothing is profiled.
+against ``off`` in ``--pairs`` pairs of epochs, each mode on its own
+model and step from the same seed (an ``off`` call drops its step's
+graphs, so one step for both would recapture in every ``auto`` epoch):
+ms per step over each epoch, its peak of allocated and reserved memory
+(both models'), and the captures it made; for ``auto`` the graphs kept
+at the end and the reserved memory each capture added.  Each batch shape
+keeps its own graph, so only the first ``auto`` epochs capture; nothing
+is profiled.
 
 Every line names the card and its power limit (``nvidia-smi``).
 """
@@ -148,9 +152,12 @@ def main() -> None:
              torch.randint(0, 1000, (32,), generator=g, device="cuda"))
 
     if args.last_batch:
+        auto_model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                              device="cuda")
+        steps = {"auto": build_dp_step(hvd, auto_model)[0], "off": step}
         result = {"card": card, "wire": profiled, "window": args.window,
                   "last_batch": args.last_batch,
-                  "epochs": last_batch_epochs(step, batch, profiled, args, card)}
+                  "epochs": last_batch_epochs(steps, batch, profiled, args, card)}
         hvd.shutdown()
         write(args.out, result)
         return
@@ -200,12 +207,15 @@ def write(path, result) -> None:
             json.dump(result, f, indent=1)
 
 
-def last_batch_epochs(step, batch, wire, args, card):
+def last_batch_epochs(steps, batch, wire, args, card):
     """Epochs of ``args.window`` steps at the full batch and one at
-    ``args.last_batch``, ``HVD_TPU_ONESTEP`` auto and off in turns (two
-    untimed epochs first, one of each): per mode, each epoch's ms per
-    step, peak allocated and peak reserved GiB."""
+    ``args.last_batch``, ``HVD_TPU_ONESTEP`` auto and off in turns, each
+    on its own step of ``steps`` (two untimed epochs first, one of each):
+    per mode, each epoch's ms per step, peak allocated and peak reserved
+    GiB and captures; for auto, the graphs its step keeps at the end and
+    the reserved GiB each one's capture added."""
     import torch
+    from horovod_tpu_torch import metrics
     from horovod_tpu_torch.utils.benchmarks import quartiles
 
     short = tuple(t[:args.last_batch] for t in batch)
@@ -215,26 +225,36 @@ def last_batch_epochs(step, batch, wire, args, card):
     out = {"auto": [], "off": []}
     for i, mode in enumerate(["auto", "off"] + turns):
         os.environ["HVD_TPU_ONESTEP"] = mode
+        step = steps[mode]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        captures = metrics.get_counter("xir.onestep.steps")
         t0 = time.perf_counter()
         for _ in range(args.window):
             step(batch)
         loss = float(step(short))
         seconds = time.perf_counter() - t0
-        if i >= 2 and math.isfinite(loss):
+        if not math.isfinite(loss):
+            sys.exit(f"non-finite loss {loss} in an epoch under {mode}")
+        if i >= 2:
             out[mode].append({"step_ms": seconds / (args.window + 1) * 1e3,
                               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30})
-        elif not math.isfinite(loss):
-            sys.exit(f"non-finite loss {loss} in an epoch under {mode}")
+                              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+                              "captures": metrics.get_counter("xir.onestep.steps")
+                              - captures})
     for mode, epochs in out.items():
         print(f"epochs of {args.window} x batch {batch[0].shape[0]} + 1 x batch "
               f"{args.last_batch}, {wire}, HVD_TPU_ONESTEP={mode}: step ms quartiles "
-              f"{' '.join(f'{v:.3f}' for v in quartiles([e['step_ms'] for e in epochs]))}, "
-              f"peak allocated {max(e['peak_gib'] for e in epochs):.2f} GiB, peak reserved "
-              f"{max(e['peak_reserved_gib'] for e in epochs):.2f} GiB over {len(epochs)} "
-              f"epochs on {card}", flush=True)
+              f"{' '.join(f'{v:.3f}' for v in quartiles([e['step_ms'] for e in epochs]))} "
+              f"(in order {[round(e['step_ms'], 3) for e in epochs]}; captures "
+              f"{[e['captures'] for e in epochs]}), peak allocated "
+              f"{max(e['peak_gib'] for e in epochs):.2f} GiB, peak reserved "
+              f"{max(e['peak_reserved_gib'] for e in epochs):.2f} GiB (both models) over "
+              f"{len(epochs)} epochs on {card}", flush=True)
+    graphs = [round(c.reserved / 2 ** 30, 3) for c in steps["auto"]._graphs.values()]
+    out["auto_graphs_reserved_gib"] = graphs
+    print(f"HVD_TPU_ONESTEP=auto keeps {len(graphs)} graphs; reserved GiB added by "
+          f"each capture: {graphs} on {card}", flush=True)
     return out
 
 
