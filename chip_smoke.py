@@ -120,6 +120,33 @@ exits non-zero):
    launches, and its A/B/B/A windows.  On one shared card (gloo)
    ``HVD_TPU_ONESTEP=on`` must refuse the step.  Every rank first runs
    the slice eager checks at this world (the capture only on NCCL).
+   Then slice sets: a world of four ranks (four sharing the one card on
+   gloo; one per card on NCCL with four cards) registers the process
+   sets {0,1} (tiling the world with {2,3}), {1,3} (with {0,2}) and
+   {0,1,2} (which does not tile) at ``init``.  Every rank runs every
+   eager op on each set, bitwise with what it computes itself on the CPU
+   for its row, member or not (``set_eager_checks``; a bf16 allreduce
+   with a pre- and a postscale launches B1 exactly twice on a member and
+   never off the set); ``quantized_allreduce_ef`` on {0,1} and {1,3},
+   int8 and fp8, fused backend, every rank in its tile: B3 twice, B4 and
+   B5 once, B6 and B7 never (two ``quant.fused_fallback`` per call: the
+   ring's window spans the world), result and residual bitwise with the
+   plain versions' NCCL lowering on the CPU, each tile's ranks equal, and
+   {0,1,2} raising ``ProcessSetTilingError`` (``set_quant_checks``);
+   then full-width ResNet-50 (224x224, batch 32 per rank, bf16 compute,
+   each rank its own data) with ``DistributedOptimizer(process_set=
+   {0,1})`` for 2 warm-up + 3 steps on the bf16 wire and on int8 with
+   error feedback: finite losses, exact launches per bucket per step
+   (bf16: B1 three times on a member, never off the set; int8 on every
+   rank: B3 twice, B1, B4 and B5 once), ranks 0 and 1 bitwise equal, on
+   bf16 each non-member bitwise equal to its own solo step (the same SGD
+   on its own batch, cuDNN deterministic), on int8 ranks 2 and 3 (one
+   tile) bitwise equal.  On NCCL also each run captured
+   (``HVD_TPU_ONESTEP=on``), bitwise with eager on every rank with one
+   capture; windows of 10 steps of the step on the set and on the world,
+   captured and eager, in turns; and ``remove_process_set`` of the set
+   under a captured step, which drops its graph, the set added again
+   under a new id and captured anew.
 8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
@@ -148,9 +175,10 @@ the host cost means the main path's calls of that kernel are paced by
 the host.
 
 ``--out PATH`` also writes every measurement as JSON.  ``--only ring``
-runs phases 1, 2 and 7 alone (the phase that needs more than one card,
-for a run on several), ``--only kernel`` phases 1 to 3; neither prints a
-kernels line.
+runs phases 1, 2 and 7 (slice ring, then slice sets) alone (the phases
+that need more than one card, for a run on several), ``--only sets``
+phases 1, 2 and slice sets, ``--only kernel`` phases 1 to 3; none prints
+a kernels line.
 """
 
 import argparse
@@ -1708,6 +1736,541 @@ def ring_slice_phase(card, count, log):
     return rec
 
 
+# Phase slice sets: the process sets registered in its world (ranks), the
+# steps of its ResNet-50 runs, and its batch per rank.
+SETS = {"s01": [0, 1], "s13": [1, 3], "s012": [0, 1, 2]}
+SET_WARMUP, SET_TIMED = 2, 3
+SET_BATCH = 32
+SET_WINDOWS = ["set/captured", "world/captured", "world/captured", "set/captured",
+               "set/eager", "world/eager", "world/eager", "set/eager"]
+
+
+def set_eager_checks(n: int, sets: dict) -> dict:
+    """Every eager op on each set of ``sets`` (name: registered
+    ``ProcessSet``) in an initialized world of ``n`` ranks, each rank's
+    result held bitwise against what it computes itself on the CPU for
+    its row, member or not: the inputs of every rank come from one numpy
+    generator (seed 0), dyadic or small integers.  A member gets the
+    set's reduction, gather, broadcast (from the set's rank 1), shard or
+    exchange; a non-member its own tensor (allreduce, grouped allreduce,
+    broadcast) or zeros (allgather, reducescatter, alltoall), no rows
+    from allgather_v or an uneven alltoall.  A bf16 Average with a pre-
+    and a postscale launches B1 exactly twice on a member and never on a
+    non-member.  Returns the host ms per call of each set's ops; raises
+    at the first mismatch."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import kernels
+
+    rank, dev = hvd.rank(), hvd.device()
+    rng = np.random.default_rng(0)
+
+    def dyadic(*shape):
+        return torch.from_numpy((rng.integers(-8, 9, (n,) + shape) / 4).astype(np.float32))
+
+    xs = {torch.float32: dyadic(12, 4), torch.bfloat16: dyadic(12, 4).to(torch.bfloat16),
+          torch.int32: torch.from_numpy(rng.integers(-50, 51, (n, 12, 4)).astype(np.int32))}
+    ragged = [dyadic(r + 1, 3)[0] for r in range(n)]
+
+    def mine(t):
+        return t[rank].to(dev, copy=True)
+
+    def check(what, got, want):
+        got, want = got.detach().cpu(), want.cpu()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"rank {rank}: {what}: {got.dtype} {tuple(got.shape)}, "
+                               f"want {want.dtype} {tuple(want.shape)}")
+        if want.is_floating_point():
+            got, want = bits(got), bits(want)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"rank {rank}: {what} differs from the expected values")
+
+    def f32(v):
+        return float(np.float32(v))
+
+    times = {}
+    for name, ps in sets.items():
+        members = list(ps.ranks)
+        k, member = len(members), rank in members
+        p = members.index(rank) if member else -1
+        c = 12 // k
+        calls = 0
+        t0 = time.perf_counter()
+
+        def call(f, *args, **kwargs):
+            nonlocal calls
+            out = f(*args, process_set=ps, **kwargs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            calls += 1
+            return out
+
+        for dt, x in xs.items():
+            rows = x[members]
+            total = rows.double().sum(0).to(dt)
+            average = (total.float() * f32(1 / k)).to(dt)
+            own = x[rank]
+            want = {hvd.Sum: total, hvd.Average: average, hvd.Min: rows.amin(0),
+                    hvd.Max: rows.amax(0), hvd.Product: rows.double().prod(0).to(dt)}
+            for op, expect in want.items():
+                check(f"{name} allreduce op {op} {dt}", call(hvd.allreduce, mine(x), op=op),
+                      expect if member else own)
+            gather = torch.cat(list(rows))
+            check(f"{name} allgather {dt}", call(hvd.allgather, mine(x)),
+                  gather if member else torch.zeros_like(gather))
+            check(f"{name} broadcast {dt}", call(hvd.broadcast, mine(x), 1),
+                  x[members[1]] if member else own)
+            shard = slice(p * c, (p + 1) * c)
+            for op, expect in ((hvd.Sum, total), (hvd.Average, average)):
+                check(f"{name} reducescatter {op} {dt}",
+                      call(hvd.reducescatter, mine(x), op=op),
+                      expect[shard] if member else torch.zeros(c, 4, dtype=dt))
+            check(f"{name} alltoall {dt}", call(hvd.alltoall, mine(x)),
+                  torch.cat([x[m, shard] for m in members]) if member
+                  else torch.zeros_like(own))
+        group = [xs[torch.float32], xs[torch.bfloat16], xs[torch.int32]]
+        for fuse in ("0", "1"):
+            os.environ["HVD_TPU_DISABLE_GROUP_FUSION"] = fuse
+            try:
+                outs = call(hvd.grouped_allreduce, [mine(t) for t in group])
+            finally:
+                os.environ.pop("HVD_TPU_DISABLE_GROUP_FUSION")
+            for t, got in zip(group, outs):
+                avg = (t[members].double().sum(0).to(t.dtype).float() * f32(1 / k)).to(t.dtype)
+                check(f"{name} grouped allreduce (unfused {fuse}) {t.dtype}", got,
+                      avg if member else t[rank])
+        check(f"{name} allgather_v", call(hvd.allgather_v, ragged[rank].to(dev, copy=True)),
+              torch.cat([ragged[m] for m in members]) if member else torch.zeros(0, 3))
+        splits = rng.integers(0, 4, (k, k))
+        sent = [dyadic(int(splits[m].sum()), 2)[0] for m in range(k)]
+        offs = np.concatenate([np.zeros((k, 1), np.int64), np.cumsum(splits, 1)], 1)
+        if member:
+            out, recv = call(hvd.alltoall, sent[p].to(dev, copy=True),
+                             splits=splits[p].tolist())
+            check(f"{name} uneven alltoall", out, torch.cat(
+                [sent[j][offs[j, p]:offs[j, p + 1]] for j in range(k)]))
+            check(f"{name} uneven alltoall's received splits", recv,
+                  torch.from_numpy(splits[:, p]))
+        else:
+            out, recv = call(hvd.alltoall, torch.zeros(0, 2, device=dev), splits=[0] * k)
+            check(f"{name} uneven alltoall off the set", out, torch.zeros(0, 2))
+            check(f"{name} uneven alltoall's counts off the set", recv,
+                  torch.zeros(k, dtype=torch.int64))
+        x = xs[torch.bfloat16]
+        half = (x[members].float() * 0.5).to(torch.bfloat16)
+        kernels.scale_cast.launches = 0
+        # A postscale of 6: 6/k is not 1 at k = 2, 3 or 4, so B1 runs twice.
+        got = call(hvd.allreduce, mine(x), op=hvd.Average, prescale_factor=0.5,
+                   postscale_factor=6.0)
+        want_b1 = 2 if member else 0
+        if dev.type == "cuda" and kernels.scale_cast.launches != want_b1:
+            raise RuntimeError(f"rank {rank}: {name}: a bf16 allreduce with a pre- and a "
+                               f"postscale launched B1 {kernels.scale_cast.launches} times, "
+                               f"not {want_b1}")
+        check(f"{name} allreduce bf16 pre/postscale", got,
+              (half.double().sum(0).to(torch.bfloat16).float() * f32(6.0 / k))
+              .to(torch.bfloat16) if member else x[rank])
+        h = hvd.allreduce_async(mine(xs[torch.float32]), op=hvd.Sum, process_set=ps)
+        check(f"{name} allreduce_async", hvd.synchronize(h),
+              xs[torch.float32][members].sum(0) if member else xs[torch.float32][rank])
+        call(hvd.barrier)
+        times[name] = (time.perf_counter() - t0) * 1e3 / calls
+    return times
+
+
+def plain_quantized_allreduce_ef(xs, rs, wire, block=BLOCK):
+    """The NCCL lowering of ``quantized_allreduce_ef`` (Average) for one
+    group, on the CPU through the plain versions of B3, B4 and B5
+    (``ops/quant_kernels.py``): ``xs``/``rs`` are the group's members'
+    flat float32 inputs and residuals in group order; returns each
+    member's (result, new residual)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.ops.collectives import f32_reciprocal
+
+    n, V = len(xs), xs[0].numel()
+    c = -(-V // (n * block)) * block
+    flats = [F.pad(x.float() + r.float(), (0, c * n - V)) for x, r in zip(xs, rs)]
+    packed, deqs = zip(*[qk.quant_packed_reference(f.view(n, c // block, block), wire, True)
+                         for f in flats])
+    shards = [qk.dequant_accum_reference(torch.stack([packed[m][j] for m in range(n)]),
+                                         wire).view(c) for j in range(n)]
+    rows = torch.cat([qk.quant_packed_reference(s.view(1, c // block, block), wire)[0]
+                      for s in shards])
+    out = qk.dequant_rows_reference(rows, wire).reshape(-1)[:V] * f32_reciprocal(n)
+    return [(out, (f[:V] - d.reshape(-1)[:V])) for f, d in zip(flats, deqs)]
+
+
+def set_quant_checks(n: int, sets: dict) -> dict:
+    """``quantized_allreduce_ef`` (Average, ``HVD_TPU_QUANT_BACKEND=fused``)
+    on the tiling sets {0,1} and {1,3}, int8 and fp8, every rank in its
+    tile on the card: B3 twice, B4 and B5 once, B1, B6 and B7 never, and
+    ``quant.fused_fallback`` counting both collectives (groups never take
+    the ring); the result and the residual bitwise with the NCCL
+    lowering through the plain versions on the CPU
+    (:func:`plain_quantized_allreduce_ef`); a tile's ranks bitwise
+    equal.  {0,1,2} must raise ``ProcessSetTilingError``.  Returns the
+    launches of each call and the error."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.exceptions import ProcessSetTilingError
+    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.ops import quantized as tq
+    from horovod_tpu_torch.ops import ring_kernels as rk
+    from horovod_tpu_torch.process_sets import tiling_groups
+
+    rank, dev = hvd.rank(), hvd.device()
+    rng = np.random.default_rng(1)
+    V = 3 * 65536 + 1000
+    xs = torch.from_numpy(rng.standard_normal((n, V)).astype(np.float32))
+    rs = torch.from_numpy((rng.standard_normal((n, V)) * 1e-3).astype(np.float32))
+    counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring}
+    want = {"scale_cast": 0, "quant_pack": 2, "dequant_accum": 1, "dequant_rows": 1,
+            "rs_ring": 0, "ag_ring": 0, "fallback": 2}
+    # On the card the fused backend falls back for groups (counted); off
+    # the card (a rehearsal) the phase backend takes the same lowering.
+    os.environ["HVD_TPU_QUANT_BACKEND"] = "fused" if dev.type == "cuda" else "phase"
+    rec = {}
+    for name in ("s01", "s13"):
+        ps = sets[name]
+        tile = [t for t in tiling_groups(ps.ranks, n) if rank in t][0]
+        for wire in ("int8", "fp8"):
+            for ctr in counters.values():
+                ctr.launches = 0
+            metrics.reset("quant.")
+            out, r_new = tq.quantized_allreduce_ef(xs[rank].to(dev), rs[rank].to(dev),
+                                                   hvd.Average, ps, wire=wire)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            got = {k: c.launches for k, c in counters.items()}
+            got["fallback"] = metrics.get_counter("quant.fused_fallback")
+            if dev.type == "cuda" and got != want:
+                raise RuntimeError(f"rank {rank}: {name} {wire}: launches {got}, expected "
+                                   f"{want}")
+            plain = plain_quantized_allreduce_ef([xs[m] for m in tile], [rs[m] for m in tile],
+                                                 wire)[tile.index(rank)]
+            for what, a, b in (("result", out, plain[0]), ("residual", r_new, plain[1])):
+                if not torch.equal(bits(a.cpu()), bits(b)):
+                    raise RuntimeError(f"rank {rank}: {name} {wire}: the {what} differs from "
+                                       "the plain versions' NCCL lowering")
+            digests = [None] * n
+            dist.all_gather_object(digests, bits(out.cpu()).sum().item())
+            if len({digests[m] for m in tile}) != 1:
+                raise RuntimeError(f"rank {rank}: {name} {wire}: tile {tile} disagrees")
+            rec[f"{name} {wire}"] = got
+    try:
+        tq.quantized_allreduce(xs[rank].to(dev), hvd.Average, sets["s012"])
+    except ProcessSetTilingError as e:
+        rec["s012"] = str(e)
+    else:
+        raise RuntimeError(f"rank {rank}: the quantized wire served {{0,1,2}}")
+    return rec
+
+
+def param_digest(model) -> str:
+    """SHA-256 of the model's parameters, bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in model.parameters():
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def solo_digest(tresnet, batch, steps, dev) -> str:
+    """The ResNet-50 from seed 0 after ``steps`` SGD steps (lr 0.01,
+    momentum 0.9, as ``build_dp_step``) on ``batch`` alone: what a rank
+    off the set must hold on a dense wire, which it leaves untouched."""
+    import torch
+    import torch.nn.functional as F
+
+    model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device=dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    model.train()
+    for _ in range(steps):
+        F.cross_entropy(model(batch[0]), batch[1]).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    digest = param_digest(model)
+    del model, opt
+    torch.cuda.empty_cache()
+    return digest
+
+
+def set_expected(wire, buckets, steps, member) -> dict:
+    """Launches of ``steps`` steps of ``buckets`` buckets on the set
+    {0,1}: bf16, B1 three times per bucket per step on a member (the
+    casts and the 1/2 postscale) and never off the set; int8, on every
+    rank (each reduces in its tile of two), B3 twice, B4, B5 and B1 (the
+    postscale) once, B6 and B7 never."""
+    zero = {"scale_cast": 0, "quant_pack": 0, "dequant_accum": 0,
+            "dequant_rows": 0, "rs_ring": 0, "ag_ring": 0}
+    m = buckets * steps
+    if wire == "bf16":
+        return dict(zero, scale_cast=3 * m if member else 0)
+    return dict(zero, scale_cast=m, quant_pack=2 * m, dequant_accum=m, dequant_rows=m)
+
+
+def sets_worker(args) -> None:
+    """One rank of phase slice sets, started by ``sets_slice_phase``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import resnet as tresnet
+    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.ops import ring_kernels as rk
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step, timed_throughput
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the solo step is compared bitwise
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    os.environ["HVD_TPU_QUANT_BACKEND"] = "fused"
+    rank, n = args.sets_rank, args.sets_size
+    registered = [hvd.ProcessSet(r) for r in SETS.values()]
+    hvd.init("cuda", init_method=f"file://{args.sets_store}", rank=rank, size=n,
+             backend=args.sets_backend, process_sets=registered)
+    sets = dict(zip(SETS, registered))
+    counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring}
+    try:
+        eager_ms = set_eager_checks(n, sets)
+        quant = set_quant_checks(n, sets)
+        dev = hvd.device()
+        g = torch.Generator(device=dev).manual_seed(300 + rank)
+        batch = (torch.rand(args.sets_batch, 224, 224, 3, generator=g, device=dev),
+                 torch.randint(0, 1000, (args.sets_batch,), generator=g, device=dev))
+        ps, member = sets["s01"], rank in SETS["s01"]
+        steps = SET_WARMUP + SET_TIMED
+        runs = {}
+        modes = ("off", "on") if args.sets_backend == "nccl" else ("off",)
+        for wire in ("bf16", "int8"):
+            os.environ["HVD_TPU_SCHED_WIRE"] = wire
+            for mode in modes:
+                os.environ["HVD_TPU_ONESTEP"] = mode
+                model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                                         device=dev)
+                step, opt = build_dp_step(hvd, model, process_set=ps)
+                for c in counters.values():
+                    c.launches = 0
+                metrics.reset("quant.")
+                metrics.reset("xir.")
+                seconds, losses = timed_throughput(step, batch, iters=SET_TIMED,
+                                                   warmup=SET_WARMUP)
+                nb = len(opt.schedule.buckets)
+                rec = {"losses": losses, "seconds": seconds, "buckets": nb,
+                       "launches": {k: c.launches for k, c in counters.items()},
+                       "fallback": metrics.get_counter("quant.fused_fallback"),
+                       "captures": metrics.get_counter("xir.onestep.steps"),
+                       "digest": param_digest(model)}
+                if not all(math.isfinite(v) for v in losses):
+                    raise SystemExit(f"rank {rank}: {wire} {mode}: losses {losses}")
+                want = set_expected(wire, nb, steps, member)
+                if dev.type == "cuda" and rec["launches"] != want:
+                    raise SystemExit(f"rank {rank}: {wire} {mode}: launches "
+                                     f"{rec['launches']}, expected {want}")
+                if (dev.type == "cuda" and mode == "off" and wire == "int8"
+                        and rec["fallback"] != 2 * nb * steps):
+                    raise SystemExit(f"rank {rank}: int8: {rec['fallback']} fallbacks, "
+                                     f"expected {2 * nb * steps}")
+                if rec["captures"] != int(mode == "on"):
+                    raise SystemExit(f"rank {rank}: {wire} {mode}: {rec['captures']} captures")
+                rec["digests"] = [None] * n
+                dist.all_gather_object(rec["digests"], rec["digest"])
+                runs[f"{wire}/{mode}"] = rec
+                del model, step, opt
+                torch.cuda.empty_cache()
+            if len({runs[f"{wire}/{m}"]["digest"] for m in modes}) != 1:
+                raise SystemExit(f"rank {rank}: {wire}: the captured and eager steps differ")
+            d = runs[f"{wire}/off"]["digests"]
+            if d[0] != d[1]:
+                raise SystemExit(f"{wire}: ranks 0 and 1 hold different weights")
+            if wire == "int8" and d[2] != d[3]:
+                raise SystemExit("int8: ranks 2 and 3 (one tile) hold different weights")
+        os.environ["HVD_TPU_ONESTEP"] = "off"
+        solo = None
+        if not member:  # bf16: its own step alone, launching nothing
+            solo = solo_digest(tresnet, batch, steps, dev)
+            if solo != runs["bf16/off"]["digest"]:
+                raise SystemExit(f"rank {rank}: bf16: off the set, the weights differ from "
+                                 "its own solo step's")
+        windows, recapture = {}, None
+        torch.backends.cudnn.deterministic = False  # the windows time the default
+        if args.sets_backend == "nccl":
+            # The step on the set against the world's, in turns, then the
+            # set removed under a captured step and added again.
+            for wire in ("bf16", "int8"):
+                os.environ["HVD_TPU_SCHED_WIRE"] = wire
+                steps_by = {}
+                for where in ("set", "world"):
+                    model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                                             seed=0, device=dev)
+                    steps_by[where] = build_dp_step(
+                        hvd, model, process_set=ps if where == "set" else None)[0]
+                windows[wire] = set_windows(steps_by, batch, n)
+                del steps_by
+                torch.cuda.empty_cache()
+            recapture = remove_under_capture(hvd, tresnet, build_dp_step, batch, ps)
+        if rank == 0:
+            with open(args.sets_out, "w") as f:
+                json.dump({"world": n, "backend": args.sets_backend,
+                           "batch": args.sets_batch, "eager_ms": eager_ms, "quant": quant,
+                           "runs": runs, "windows": windows, "recapture": recapture}, f)
+    finally:
+        hvd.shutdown()
+
+
+def set_windows(steps_by, batch, n) -> list:
+    """``SET_WINDOWS``: ``OVERLAP_TIMED`` steps each on the set's step or
+    the world's, captured or eager, in turns (a captured window's warm-up
+    steps and capture run before its clock starts)."""
+    from horovod_tpu_torch.utils.benchmarks import timed_window
+
+    out = []
+    for label in SET_WINDOWS:
+        where, mode = label.split("/")
+        wire = os.environ["HVD_TPU_SCHED_WIRE"]
+        seconds, _ = timed_window(steps_by[where], batch, f"{wire}/{mode}", OVERLAP_TIMED)
+        out.append({"label": label, "step_ms": seconds / OVERLAP_TIMED * 1e3,
+                    "img_s": batch[0].shape[0] * n * OVERLAP_TIMED / seconds})
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    os.environ.pop("HVD_TPU_SCHED_BARRIERS", None)
+    return out
+
+
+def remove_under_capture(hvd, tresnet, build_dp_step, batch, ps) -> dict:
+    """A bf16 step on ``ps`` captured (``on``), then ``remove_process_set``:
+    the step's graphs are dropped; the set added again (dynamic) gets a new
+    id and the next steps warm up and capture anew."""
+    import torch
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
+
+    os.environ["HVD_TPU_SCHED_WIRE"] = "bf16"
+    os.environ["HVD_TPU_ONESTEP"] = "on"
+    os.environ["HVD_TPU_DYNAMIC_PROCESS_SETS"] = "1"
+    model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                             device=hvd.device())
+    step, _ = build_dp_step(hvd, model, process_set=ps)
+    metrics.reset("xir.")
+    for _ in range(CAPTURE_WARMUP + 2):
+        float(step(batch))
+    before = (len(step._graphs), ps.process_set_id)
+    hvd.remove_process_set(ps)
+    dropped = len(step._graphs)
+    hvd.add_process_set(ps)
+    for _ in range(CAPTURE_WARMUP + 2):
+        float(step(batch))
+    rec = {"graphs_before": before[0], "id_before": before[1], "graphs_after_remove": dropped,
+           "id_after": ps.process_set_id, "graphs_after": len(step._graphs),
+           "captures": metrics.get_counter("xir.onestep.steps")}
+    if (rec["graphs_before"], rec["graphs_after_remove"], rec["graphs_after"],
+            rec["captures"]) != (1, 0, 1, 2) or rec["id_after"] == rec["id_before"]:
+        raise SystemExit(f"rank {hvd.rank()}: remove_process_set under a captured step: {rec}")
+    del model, step
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sets_slice_phase(card, count, log):
+    """Phase slice sets: a world of four ranks with the sets of ``SETS``:
+    on one card four ranks sharing it on gloo (NCCL refuses two ranks on
+    one card), on four cards one rank per card on NCCL.  Returns the
+    run's record (rank 0's)."""
+    import tempfile
+
+    n = 4
+    backend = "nccl" if count >= 4 else "gloo"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sets.json")
+        cmd = [sys.executable, os.path.abspath(__file__), "--sets-size", str(n),
+               "--sets-backend", backend, "--sets-store", os.path.join(tmp, "store"),
+               "--sets-out", out, "--sets-batch", str(SET_BATCH)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--sets-rank", str(r)], env=env)
+                 for r in range(n)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            fail(f"slice sets: ranks exited with {rcs}")
+        with open(out) as f:
+            rec = json.load(f)
+    print_sets(rec, card)
+    print(f"phase slice sets: {wall:.0f} s with start-up", flush=True)
+    log["sets_slice"] = rec
+    return rec
+
+
+def print_sets(rec, card) -> None:
+    """The lines of a slice sets run (rank 0's record)."""
+    n, backend = rec["world"], rec["backend"]
+    layout = (f"{n} ranks on {n} cards, NCCL" if backend == "nccl"
+              else f"{n} ranks sharing the one card, gloo")
+    print(f"phase slice sets: {layout}; sets {SETS} registered at init (ids 1-3): every "
+          f"eager op on each set bitwise on every rank, members and non-members; B1 "
+          f"launched exactly twice by a bf16 allreduce with a pre- and a postscale on a "
+          f"member, never off the set; host ms per call (each synchronized) "
+          f"{ {k: round(v, 3) for k, v in rec['eager_ms'].items()} } on {card}", flush=True)
+    print(f"phase slice sets: quantized_allreduce_ef (fused backend) on the tiling sets, "
+          f"every rank in its tile: launches per call {rec['quant']['s01 int8']} (B6 and "
+          f"B7 never: groups fall back, counted); result and residual bitwise with the "
+          f"plain versions' NCCL lowering, each tile's ranks equal, int8 and fp8 on "
+          f"{{0,1}} and {{1,3}}; {{0,1,2}} raised: {rec['quant']['s012']}", flush=True)
+    print(f"phase slice sets: ResNet-50 224x224 batch {rec['batch']} per rank bf16 "
+          f"compute, DistributedOptimizer(process_set={{0,1}}), {SET_WARMUP} warm-up + "
+          f"{SET_TIMED} steps per run, each rank its own data", flush=True)
+    for key, r in rec["runs"].items():
+        wire, mode = key.split("/")
+        step_ms = r["seconds"] / SET_TIMED * 1e3
+        print(f"phase slice sets: {wire} ({'captured' if mode == 'on' else 'eager'}): "
+              f"losses {[round(v, 5) for v in r['losses']]}; rank 0 launches "
+              f"{r['launches']} (= expected, {r['buckets']} buckets); ranks 0 and 1 bitwise "
+              f"equal{', ranks 2 and 3 (one tile) bitwise equal' if wire == 'int8' else ', ranks 2 and 3 each bitwise equal to its own solo step'}; "
+              f"step {step_ms:.2f} ms, {rec['batch'] * n * 1e3 / step_ms:.1f} img/s "
+              f"(world) on {card}", flush=True)
+    if backend == "nccl":
+        for wire in ("bf16", "int8"):
+            print(f"phase slice sets: {wire} eager and captured bitwise on every rank, one "
+                  "capture", flush=True)
+        for wire, ws in rec["windows"].items():
+            print(f"phase slice sets windows {wire}: " + "; ".join(
+                f"{w['label']} {w['step_ms']:.2f} ms {w['img_s']:.1f} img/s" for w in ws)
+                + f" (rank 0, {OVERLAP_TIMED} steps each) on {card}", flush=True)
+        rc = rec["recapture"]
+        print(f"phase slice sets: remove_process_set under a captured step: graphs "
+              f"{rc['graphs_before']} -> {rc['graphs_after_remove']}; added again as id "
+              f"{rc['id_after']} (was {rc['id_before']}), captured anew "
+              f"({rc['captures']} captures in all)", flush=True)
+
+
 def _block_steps(absflat, block=BLOCK):
     """Per element of a flat bucket, one quantization step: the block
     maximum / 127 for int8 (``tests/test_torch_train_step.py``)."""
@@ -2054,15 +2617,21 @@ def examples_phase(root, card):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
-    ap.add_argument("--only", choices=["ring", "kernel"],
+    ap.add_argument("--only", choices=["ring", "kernel", "sets"],
                     help="ring: only the phases that need more than one card; "
-                         "kernel: only the kernels against their plain versions")
+                         "kernel: only the kernels against their plain versions; "
+                         "sets: only phase slice sets")
     for name, kind in (("rank", int), ("size", int), ("backend", str), ("store", str),
                        ("out", str)):
         ap.add_argument(f"--ring-{name}", type=kind, help=argparse.SUPPRESS)
+        ap.add_argument(f"--sets-{name}", type=kind, help=argparse.SUPPRESS)
+    ap.add_argument("--sets-batch", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ring_rank is not None:
         ring_worker(args)
+        return
+    if args.sets_rank is not None:
+        sets_worker(args)
         return
 
     import torch
@@ -2141,8 +2710,10 @@ def main() -> None:
     print(f"phase kernel: ResNet-50 buckets (elements): {sizes}; padded to the "
           f"int8 block: {padded}; at the ring's 32 MiB threshold: {ring_sizes}",
           flush=True)
-    if args.only == "ring":
-        ring_slice_phase(card, count, log)
+    if args.only in ("ring", "sets"):
+        if args.only == "ring":
+            ring_slice_phase(card, count, log)
+        sets_slice_phase(card, count, log)
         finish(args, log, card, kind, count, [])
         return
     record = kernel_phase(kernels, sizes, log)
@@ -2188,6 +2759,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     eager_phase(hvd, card, log)
     ring_run = ring_slice_phase(card, count, log)
+    sets_slice_phase(card, count, log)
 
     # Phase 7: the GPT slice, dense then packed rows; every count is set
     # to 0 just before each run.

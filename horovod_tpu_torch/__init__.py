@@ -23,9 +23,20 @@ in-place ``allreduce_``, ``grouped_allreduce_`` and ``broadcast_``; the
 ``*_async`` forms (and ``allreduce_async_``, ``grouped_allreduce_async_``,
 ``broadcast_async_``), each returning a ``Handle`` for ``synchronize``
 and ``poll``.  Allreduce, grouped allreduce, allgather, broadcast and
-alltoall are differentiable.  A ``process_set`` raises
-``NotImplementedError`` (ROADMAP Queue A entry A2), as does
-``op=Adasum`` (A8).
+alltoall are differentiable.  ``op=Adasum`` raises
+``NotImplementedError`` (ROADMAP Queue A entry A8).
+
+Process sets (``process_sets.py``): ``ProcessSet``, registered by
+``init(process_sets=[...])``, ``HVD_TPU_PROCESS_SETS`` or, after
+``init(process_sets="dynamic")``, ``add_process_set``;
+``remove_process_set``, ``get_process_set_ids`` and
+``global_process_set``.  Every eager op, the quantized wire and
+``DistributedOptimizer`` take ``process_set=``: members reduce over
+the set, non-members keep their own tensor (allreduce, broadcast) or
+get zeros (allgather, reducescatter, alltoall), and the quantized wire
+reduces within each group of a set that tiles the world.
+``is_homogeneous`` and the capability flags (``nccl_built``,
+``cuda_built``, ...) answer from ``torch.distributed`` and ``torch.cuda``.
 
 Importing it imports neither JAX nor ``horovod_tpu``.
 """
@@ -71,30 +82,52 @@ from .ops.eager import (
     synchronize,
 )
 from .optim.distributed_optimizer import DistributedOptimizer, TrainStep
+from .process_sets import ProcessSet
 from .runtime import (
+    add_process_set,
+    ccl_built,
     cross_rank,
     cross_size,
+    cuda_built,
+    ddl_built,
     device,
+    get_process_set_ids,
+    global_process_set,
+    gloo_built,
+    gloo_enabled,
     init,
+    is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    nccl_built,
     rank,
+    remove_process_set,
+    rocm_built,
     shutdown,
     size,
+    tpu_enabled,
+    xla_built,
 )
 from .version import __version__
 
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer", "Handle", "Max",
-    "Min", "Product", "ReduceOp", "Sum", "TrainStep", "__version__",
-    "allgather", "allgather_async", "allgather_object", "allgather_v",
-    "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
-    "alltoall", "alltoall_async", "barrier", "broadcast", "broadcast_",
-    "broadcast_async", "broadcast_async_", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "cross_rank",
-    "cross_size", "device", "grouped_allreduce", "grouped_allreduce_",
-    "grouped_allreduce_async", "grouped_allreduce_async_", "init",
-    "is_initialized", "join", "local_rank", "local_size", "poll", "rank",
-    "reducescatter", "reducescatter_async", "shutdown", "size", "synchronize",
+    "Min", "ProcessSet", "Product", "ReduceOp", "Sum", "TrainStep", "__version__",
+    "add_process_set", "allgather", "allgather_async", "allgather_object",
+    "allgather_v", "allreduce", "allreduce_", "allreduce_async",
+    "allreduce_async_", "alltoall", "alltoall_async", "barrier", "broadcast",
+    "broadcast_", "broadcast_async", "broadcast_async_", "broadcast_object",
+    "broadcast_optimizer_state", "broadcast_parameters", "ccl_built",
+    "cross_rank", "cross_size", "cuda_built", "ddl_built", "device",
+    "get_process_set_ids", "global_process_set", "gloo_built", "gloo_enabled",
+    "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",
+    "grouped_allreduce_async_", "init", "is_homogeneous", "is_initialized",
+    "join", "local_rank", "local_size", "mpi_built", "mpi_enabled",
+    "mpi_threads_supported", "nccl_built", "poll", "rank", "reducescatter",
+    "reducescatter_async", "remove_process_set", "rocm_built", "shutdown",
+    "size", "synchronize", "tpu_enabled", "xla_built",
 ]

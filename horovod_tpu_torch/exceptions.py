@@ -22,13 +22,18 @@ class NotInitializedError(HorovodTpuError):
 
 class QuantizedWireError(HorovodTpuError, ValueError):
     """The quantized wire cannot serve this reduction (an op other than
-    Sum/Average, or a process set).  Subclasses ``ValueError``, as in
-    the JAX package."""
+    Sum/Average, a process set that does not tile the world, or sparse
+    gradients).  Subclasses ``ValueError``, as in the JAX package."""
 
 
 class ProcessSetTilingError(QuantizedWireError):
-    """A rank subset cannot tile the world into equal-size groups.
-    Structured fields: ``ranks``, ``world_size``, ``context``."""
+    """A rank subset cannot tile the world into equal-size groups: the
+    quantized wire's groups (``ops/quantized.py``) and
+    ``process_sets.tiling_groups`` raise it.  Structured fields:
+    ``ranks`` (the subset), ``world_size``, ``context`` (what needed the
+    tiling).  The message is the JAX package's (``exceptions.py:121``),
+    whose groups are XLA replica groups; here they are
+    ``torch.distributed`` groups, with the same rule."""
 
     def __init__(self, ranks, world_size: int, context: str = ""):
         self.ranks = tuple(int(r) for r in ranks)
@@ -36,6 +41,8 @@ class ProcessSetTilingError(QuantizedWireError):
         self.context = context
         where = f" ({context})" if context else ""
         super().__init__(
-            f"ranks {list(self.ranks)} do not tile the world of size "
-            f"{self.world_size} into equal groups{where}"
+            f"ranks {list(self.ranks)} do not tile the axis of size "
+            f"{self.world_size} into equal replica groups{where}; XLA "
+            "replica_groups require an equal-size partition — use the "
+            "dense/masked path for arbitrary subsets"
         )

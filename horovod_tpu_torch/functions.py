@@ -17,6 +17,7 @@ import torch.distributed as dist
 
 from . import runtime
 from .ops import collectives, fusion
+from .process_sets import resolve
 
 
 def broadcast_parameters(
@@ -61,28 +62,26 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     optimizer.load_state_dict(synced)
 
 
-def _global_set(process_set, name: str) -> None:
-    if process_set is not None:
-        raise NotImplementedError(
-            f"{name}: process sets are not ported to horovod_tpu_torch yet "
-            "(ROADMAP Queue A item 5)"
-        )
-
-
 def broadcast_object(obj: Any, root_rank: int = 0, name: Optional[str] = None,
                      process_set=None) -> Any:
     """``root_rank``'s ``obj``, pickled, on every rank (reference
     ``horovod/torch/functions.py:165``).  ``obj`` itself in a world of
-    one.  ``name`` is accepted for the reference's signature."""
-    _global_set(process_set, "broadcast_object")
+    one.  ``name`` is accepted for the reference's signature;
+    ``process_set`` is validated (registered, as the JAX package's
+    ``_ps_id`` checks it: ``process_sets.resolve``) and, as in the JAX package
+    (``functions.py:169-230``), the object still reaches every rank of
+    the world, from the world's ``root_rank``."""
+    resolve(process_set)
     return runtime.broadcast_object(obj, root_rank)
 
 
 def allgather_object(obj: Any, name: Optional[str] = None,
                      process_set=None) -> List[Any]:
     """Every rank's ``obj``, pickled, in rank order (reference
-    ``horovod/torch/functions.py:206``); ``[obj]`` in a world of one."""
-    _global_set(process_set, "allgather_object")
+    ``horovod/torch/functions.py:206``); ``[obj]`` in a world of one.
+    ``process_set`` is validated and, as in the JAX package, every rank
+    of the world takes part."""
+    resolve(process_set)
     if runtime.size() == 1:
         return [obj]
     out = [None] * runtime.size()

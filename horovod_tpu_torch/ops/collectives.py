@@ -1,6 +1,6 @@
-"""Collectives over the global process group.
+"""Collectives over the global process group or a process set's group.
 
-Counterpart of ``horovod_tpu/ops/traced.py`` for the global set: the
+Counterpart of ``horovod_tpu/ops/traced.py``: the
 reduce ops (``:49-63``), ``_scale`` (``:94-105``), ``allreduce_`` over
 every op but Adasum (``:313-400``), ``allgather`` (``:439``),
 ``broadcast_`` (``:479``), ``reducescatter`` (``:526-566``), ``alltoall``
@@ -19,6 +19,21 @@ every rank's tensor and multiplies the rows in rank order, in float32
 for f16/bf16, as ``jnp.prod`` does on the JAX package's gather
 (``traced.py:384-393``): ``ReduceOp.PRODUCT`` would multiply in the
 ring's order.
+
+Each op takes a ``process_set`` (``process_sets.py``; None or id 0 is
+the world).  A member runs the collective on the set's group: Average
+divides by the set's size, a broadcast's ``root_rank`` is the set's
+rank (the group's ``src`` is the global rank ``ranks[root_rank]``), and
+rows gather in set order.  A non-member enters no collective and
+returns its row of the JAX op (``traced.py``): its own input for
+allreduce and broadcast (``:397-399``, ``:519-523``), zeros for
+allgather, reducescatter and alltoall (``:479-480``, ``:554-556``,
+``:592-597``, the rows of a set that tiles the world).  The JAX
+package's rows for a set that does not tile, below its
+``HVD_TPU_SET_RING_THRESHOLD``, come out of a masked whole-world sum
+instead (``:487-492``, ``:560-565``); the port has a group per set, as
+the reference has a communicator per set, so it has no such lowering
+(ROADMAP Queue C, standing divergence).
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from .. import runtime
+from ..process_sets import member_group, resolve
 from . import kernels
 
 
@@ -119,10 +135,12 @@ def allreduce_(
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
     async_op: bool = False,
+    process_set=None,
 ):
-    """Allreduce over the world; may reduce ``x`` in place.  Returns the
-    result, which is ``x`` itself unless a scale or the op (Product)
-    produced a new tensor."""
+    """Allreduce over the world or ``process_set``; may reduce ``x`` in
+    place.  Returns the result, which is ``x`` itself unless a scale or
+    the op (Product) produced a new tensor; ``x`` unchanged on a
+    non-member."""
     if op == Adasum:
         raise NotImplementedError(
             "op=Adasum is not ported to horovod_tpu_torch yet (ROADMAP Queue A "
@@ -130,35 +148,50 @@ def allreduce_(
         )
     if op not in (Average, Sum, Min, Max, Product):
         raise ValueError(f"unknown reduce op {op}")
-    size = runtime.size()
+    group, ranks, member = member_group(resolve(process_set))
+    if not member:
+        return _run([], lambda: x, async_op)
+    size = runtime.size() if ranks is None else len(ranks)
     x = _scale(x, prescale_factor)
     if op == Average:
         postscale_factor = postscale_factor / size
         op = Sum
     if op == Product:
         rows = x.new_empty((size * x.numel(),))
-        work = _all_gather(rows, x.reshape(-1), async_op=async_op)
+        work = _all_gather(rows, x.reshape(-1), group=group, async_op=async_op)
         return _run([work], lambda: _scale(_product(rows.view((size,) + tuple(x.shape))),
                                            postscale_factor), async_op)
-    work = dist.all_reduce(x, op=_DIST_OPS[op], async_op=async_op)
+    work = dist.all_reduce(x, op=_DIST_OPS[op], group=group, async_op=async_op)
     return _run([work], lambda: _scale(x, postscale_factor), async_op)
 
 
-def allgather(x: torch.Tensor, async_op: bool = False):
-    """Every rank's ``x`` (one shape on every rank) concatenated along
-    dim 0 in rank order."""
+def allgather(x: torch.Tensor, async_op: bool = False, process_set=None):
+    """Every member's ``x`` (one shape on every rank) concatenated along
+    dim 0 in rank order; zeros of that shape on a non-member."""
     if x.dim() == 0:
         raise ValueError("allgather takes a tensor of at least one dimension")
-    out = x.new_empty((runtime.size() * x.shape[0],) + tuple(x.shape[1:]))
-    work = _all_gather(out, x.contiguous(), async_op=async_op)
+    group, ranks, member = member_group(resolve(process_set))
+    size = runtime.size() if ranks is None else len(ranks)
+    shape = (size * x.shape[0],) + tuple(x.shape[1:])
+    if not member:
+        return _run([], lambda: x.new_zeros(shape), async_op)
+    out = x.new_empty(shape)
+    work = _all_gather(out, x.contiguous(), group=group, async_op=async_op)
     return _run([work], lambda: out, async_op)
 
 
-def broadcast_(x: torch.Tensor, root_rank: int = 0, async_op: bool = False):
-    """Overwrite ``x`` with ``root_rank``'s value, in place."""
+def broadcast_(x: torch.Tensor, root_rank: int = 0, async_op: bool = False,
+               process_set=None):
+    """Overwrite ``x`` with the value of ``root_rank`` (the set's rank on
+    a set), in place; ``x`` unchanged on a non-member."""
+    group, ranks, member = member_group(resolve(process_set))
+    size = runtime.size() if ranks is None else len(ranks)
+    if ranks is not None and not 0 <= root_rank < size:
+        raise ValueError(f"root_rank {root_rank} out of range for set size {size}")
     work = None
-    if runtime.size() > 1:
-        work = dist.broadcast(x, src=root_rank, async_op=async_op)
+    if member and size > 1:
+        src = root_rank if ranks is None else ranks[root_rank]
+        work = dist.broadcast(x, src=src, group=group, async_op=async_op)
     return _run([work], lambda: x, async_op)
 
 
@@ -168,10 +201,13 @@ def reducescatter(
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
     async_op: bool = False,
+    process_set=None,
 ):
-    """Sum (or Average) every rank's ``x`` and keep this rank's
-    ``1/size`` of it along dim 0, which the world's size must divide."""
-    size = runtime.size()
+    """Sum (or Average) every member's ``x`` and keep this rank's
+    ``1/size`` of it along dim 0, which the set's size must divide;
+    zeros of that shape on a non-member."""
+    group, ranks, member = member_group(resolve(process_set))
+    size = runtime.size() if ranks is None else len(ranks)
     rows = x.shape[0] if x.dim() else 0
     if x.dim() == 0 or rows % size != 0:
         raise ValueError(
@@ -179,11 +215,15 @@ def reducescatter(
         )
     if op not in (Average, Sum):
         raise ValueError("reducescatter supports SUM/AVERAGE")
+    shape = (rows // size,) + tuple(x.shape[1:])
+    if not member:
+        return _run([], lambda: x.new_zeros(shape), async_op)
     x = _scale(x, prescale_factor)
     if op == Average:
         postscale_factor = postscale_factor / size
-    out = x.new_empty((rows // size,) + tuple(x.shape[1:]))
-    work = _reduce_scatter(out, x.contiguous(), op=dist.ReduceOp.SUM, async_op=async_op)
+    out = x.new_empty(shape)
+    work = _reduce_scatter(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group,
+                           async_op=async_op)
     return _run([work], lambda: _scale(out, postscale_factor), async_op)
 
 
@@ -192,40 +232,52 @@ def alltoall(
     send_splits: Optional[List[int]] = None,
     recv_splits: Optional[List[int]] = None,
     async_op: bool = False,
+    process_set=None,
 ):
-    """Rank i's j-th chunk of ``x`` (along dim 0) becomes rank j's i-th
-    chunk.  Without splits the chunks are equal, so the world's size
-    must divide dim 0; with them, ``send_splits[j]`` rows go to rank j
-    and ``recv_splits[j]`` rows come from it (every rank's
+    """Member i's j-th chunk of ``x`` (along dim 0) becomes member j's
+    i-th chunk.  Without splits the chunks are equal, so the set's size
+    must divide dim 0; with them, ``send_splits[j]`` rows go to member j
+    and ``recv_splits[j]`` rows come from it (every member's
     ``recv_splits`` the column of the others' ``send_splits``, which
-    ``ops/eager.py`` exchanges first)."""
+    ``ops/eager.py`` exchanges first).  A non-member gets zeros like
+    ``x`` (no rows with splits)."""
+    group, ranks, member = member_group(resolve(process_set))
     if send_splits is None:
-        size = runtime.size()
+        size = runtime.size() if ranks is None else len(ranks)
         rows = x.shape[0] if x.dim() else 0
         if x.dim() == 0 or rows % size != 0:
             raise ValueError(
                 f"alltoall dim 0 ({rows}) must be divisible by set size {size}"
             )
+        if not member:
+            return _run([], lambda: torch.zeros_like(x), async_op)
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
     else:
+        if not member:
+            return _run([], lambda: x.new_zeros((0,) + tuple(x.shape[1:])), async_op)
         out = x.new_empty((sum(recv_splits),) + tuple(x.shape[1:]))
     work = dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv_splits,
-                                  input_split_sizes=send_splits, async_op=async_op)
+                                  input_split_sizes=send_splits, group=group,
+                                  async_op=async_op)
     return _run([work], lambda: out, async_op)
 
 
-def barrier(device: Optional[torch.device] = None) -> torch.Tensor:
+def barrier(device: Optional[torch.device] = None, process_set=None) -> torch.Tensor:
     """A synchronization token: a Sum allreduce of a zero int32 scalar,
-    which depends on every rank.  Nothing waits for it here (``ops/eager.py``
-    ``barrier`` waits on the host)."""
+    which depends on every member (a non-member's is its own zero).
+    Nothing waits for it here (``ops/eager.py`` ``barrier`` waits on the
+    host)."""
     token = torch.zeros((), dtype=torch.int32,
                         device=runtime.device() if device is None else device)
-    dist.all_reduce(token, op=dist.ReduceOp.SUM)
+    group, _, member = member_group(resolve(process_set))
+    if member:
+        dist.all_reduce(token, op=dist.ReduceOp.SUM, group=group)
     return token
 
 
 def join_average(x: torch.Tensor, active) -> torch.Tensor:
-    """``x`` averaged over the ranks whose ``active`` is true (a joined
+    """``x`` averaged over the world's ranks (the JAX package's takes no
+    process set) whose ``active`` is true (a joined
     rank keeps stepping with a padding batch and contributes nothing);
     zero when no rank is active.  The sum is divided by the count of
     active ranks, in ``x``'s dtype (an integer ``x`` divides to

@@ -27,12 +27,25 @@ module adds what the JAX eager layer adds around them:
   broadcast, alltoall and grouped allreduce are differentiable when
   their input requires grad (``interop/torch.py:92-197``).
 
+Every op but ``join`` takes a ``process_set``, validated as the JAX
+package's ``_ps_id`` validates it (``:244-267``; ``process_sets.resolve``:
+a registered ``ProcessSet`` whose ranks match its registration, else
+``HorovodTpuError``).  On a set, members run the collective on the
+set's group and non-members return their row of the JAX op without
+entering it (``ops/collectives.py``): their own input for allreduce,
+grouped allreduce and broadcast, zeros for allgather, reducescatter and
+alltoall.  ``allgather_v`` and an uneven ``alltoall`` exchange their
+counts within the set (a non-member gets no rows), a broadcast's
+``root_rank`` is the set's rank, and the consistency check records the
+set's ranks.  The gradients follow ``interop/_grads.py`` on the set; an
+uneven alltoall on a set has none (``ensure_alltoall_differentiable``).
+
 A synchronous op may run inside a captured CUDA graph on NCCL.  What
 waits on the host refuses there (``runtime.refuse_in_capture``): an
 async op, ``synchronize``, ``poll``, ``barrier``, ``join``, the
 consistency check, and the count exchanges of ``allgather_v`` and of an
-uneven ``alltoall``.  Process sets wait for ROADMAP Queue A entry A2 and
-Adasum for A8: both raise ``NotImplementedError``.
+uneven ``alltoall``.  Adasum waits for ROADMAP Queue A entry A8: it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ import torch.distributed as dist
 
 from .. import functions, metrics, runtime
 from ..exceptions import HorovodTpuError
+from ..process_sets import ProcessSet, member_group, resolve
 from ..utils import env
 from . import collectives, fusion
 from .collectives import (  # re-exported
@@ -129,12 +143,8 @@ def _start(name: str):
     runtime.refuse_in_capture(f"{name} (an async handle)")
 
 
-def _global_set(process_set, name: str) -> None:
-    if process_set is not None:
-        raise NotImplementedError(
-            f"{name}: process sets are not ported to horovod_tpu_torch yet "
-            "(ROADMAP Queue A entry A2)"
-        )
+def _members(ps: Optional[ProcessSet]) -> List[int]:
+    return list(range(runtime.size())) if ps is None else list(ps.ranks)
 
 
 def _reduce_op(average: Optional[bool], op: Optional[int]) -> int:
@@ -158,12 +168,15 @@ def _record(name: Optional[str], op: str, nbytes: int) -> None:
 
 
 def _consistency_check(op: str, x: torch.Tensor, name: Optional[str],
-                       root: int = -1, extra: str = "") -> None:
+                       root: int = -1, extra: str = "",
+                       ps: Optional[ProcessSet] = None) -> None:
     """Under ``HVD_TPU_CONSISTENCY_CHECK``, gather every rank's request
-    (type, dtype, shape, name, root); rank 0 validates them and
-    broadcasts one response, and a mismatch raises
+    (type, dtype, shape, name with the set's ranks, root); rank 0
+    validates them and broadcasts one response, and a mismatch raises
     ``HorovodTpuError`` on every rank (the reference controller's
-    validation, ``controller.cc`` ``ConstructResponse``)."""
+    validation, ``controller.cc`` ``ConstructResponse``).  Every rank
+    of the world takes part, members of ``ps`` or not, as in the JAX
+    package."""
     if not env.get_bool(env.CONSISTENCY_CHECK):
         return
     rt = runtime.get_runtime()
@@ -171,7 +184,8 @@ def _consistency_check(op: str, x: torch.Tensor, name: Optional[str],
         return
     runtime.refuse_in_capture("the collective consistency check")
     dt = str(x.dtype).replace("torch.", "")
-    wire_name = f"{name or ''}|ps=world|{extra}"
+    ps_tag = "world" if ps is None else ",".join(map(str, ps.ranks))
+    wire_name = f"{name or ''}|ps={ps_tag}|{extra}"
     records = functions.allgather_object({
         "rank": rt.rank, "type": _REQUEST[op],
         "dtype": _WIRE_DTYPES.index(dt) if dt in _WIRE_DTYPES else 255,
@@ -205,76 +219,87 @@ def _wants_grad(x) -> bool:
 # ------------------------------------------------------------ the ops
 
 
-def _allreduce(x, op, pre, post, name, async_op=False, inplace=False):
+def _allreduce(x, op, pre, post, name, async_op=False, inplace=False, ps=None):
     _record(name, "ALLREDUCE", _nbytes([x]))
-    _consistency_check("ALLREDUCE", x, name)
+    _consistency_check("ALLREDUCE", x, name, ps=ps)
     return collectives.allreduce_(x if inplace else x.clone(), op, pre, post,
-                                  async_op=async_op)
+                                  async_op=async_op, process_set=ps)
 
 
-def _grouped(xs, op, pre, post, name, async_op=False):
+def _grouped(xs, op, pre, post, name, async_op=False, ps=None):
     """One allreduce per dtype over a fused buffer (``fusion.flatten_group``),
     or one per tensor, in order, under ``HVD_TPU_DISABLE_GROUP_FUSION``;
-    a :class:`Pending` for all of them when ``async_op``."""
+    a :class:`Pending` for all of them when ``async_op``.  A non-member
+    of ``ps`` gets its tensors back unchanged (a fused buffer's views)."""
     if env.get_bool(env.DISABLE_GROUP_FUSION):
-        parts = [_allreduce(x, op, pre, post, f"{name}.{i}" if name else None, True)
+        parts = [_allreduce(x, op, pre, post, f"{name}.{i}" if name else None, True,
+                            ps=ps)
                  for i, x in enumerate(xs)]
         pending = Pending([w for p in parts for w in p.works],
                           lambda: [p.finish() for p in parts])
     else:
         _record(name, "GROUPED_ALLREDUCE", _nbytes(xs))
         flats, meta = fusion.flatten_group(xs)
-        parts = [collectives.allreduce_(f, op, pre, post, async_op=True) for f in flats]
+        parts = [collectives.allreduce_(f, op, pre, post, async_op=True, process_set=ps)
+                 for f in flats]
         pending = Pending([w for p in parts for w in p.works],
                           lambda: fusion.unflatten_group([p.finish() for p in parts], meta))
     return pending if async_op else pending.wait()
 
 
-def _allgather(x, name, async_op=False):
+def _allgather(x, name, async_op=False, ps=None):
     _record(name, "ALLGATHER", _nbytes([x]))
-    _consistency_check("ALLGATHER", x, name)
-    return collectives.allgather(x, async_op)
+    _consistency_check("ALLGATHER", x, name, ps=ps)
+    return collectives.allgather(x, async_op, process_set=ps)
 
 
-def _broadcast(x, root_rank, name, async_op=False, inplace=False):
+def _broadcast(x, root_rank, name, async_op=False, inplace=False, ps=None):
     _record(name, "BROADCAST", _nbytes([x]))
-    _consistency_check("BROADCAST", x, name, root=int(root_rank))
-    return collectives.broadcast_(x if inplace else x.clone(), root_rank, async_op)
+    _consistency_check("BROADCAST", x, name, root=int(root_rank), ps=ps)
+    return collectives.broadcast_(x if inplace else x.clone(), root_rank, async_op,
+                                  process_set=ps)
 
 
-def _reducescatter(x, op, pre, post, name, async_op=False):
+def _reducescatter(x, op, pre, post, name, async_op=False, ps=None):
     _record(name, "REDUCESCATTER", _nbytes([x]))
-    _consistency_check("REDUCESCATTER", x, name)
-    return collectives.reducescatter(x, op, pre, post, async_op)
+    _consistency_check("REDUCESCATTER", x, name, ps=ps)
+    return collectives.reducescatter(x, op, pre, post, async_op, process_set=ps)
 
 
-def _send_splits(splits, x: torch.Tensor) -> List[int]:
-    n = runtime.size()
+def _send_splits(splits, x: torch.Tensor, n: int) -> List[int]:
     send = [int(s) for s in (splits.tolist() if torch.is_tensor(splits) else splits)]
     if len(send) != n:
         raise HorovodTpuError(
-            f"splits must have one entry per rank ({n}); got {len(send)}")
+            f"splits must have one entry per rank of the set ({n}); got {len(send)}")
     if min(send) < 0 or sum(send) != (x.shape[0] if x.dim() else 0):
         raise HorovodTpuError("each rank's splits must sum to its row count")
     return send
 
 
-def _alltoall(x, splits, name, async_op=False):
-    """Even or, with ``splits`` (this rank's send counts, one per rank),
-    uneven; the uneven form exchanges the counts first (each rank's
-    receive counts are the others' send counts to it) and returns
-    ``(output, received_splits)``."""
+def _alltoall(x, splits, name, async_op=False, ps=None):
+    """Even or, with ``splits`` (this rank's send counts, one per member),
+    uneven; the uneven form exchanges the counts within the set first
+    (each member's receive counts are the others' send counts to it)
+    and returns ``(output, received_splits)``; a non-member receives no
+    rows and zero counts."""
     _record(name, "ALLTOALL", _nbytes([x]))
-    _consistency_check("ALLTOALL", x, name, extra="" if splits is None else "splits")
+    _consistency_check("ALLTOALL", x, name, extra="" if splits is None else "splits",
+                       ps=ps)
     if splits is None:
-        return collectives.alltoall(x, async_op=async_op)
-    send = _send_splits(splits, x)
+        return collectives.alltoall(x, async_op=async_op, process_set=ps)
+    group, ranks, member = member_group(ps)
+    k = runtime.size() if ranks is None else len(ranks)
+    send = _send_splits(splits, x, k)
+    if not member:
+        empty = x.new_zeros((0,) + tuple(x.shape[1:]))
+        received = torch.zeros(k, dtype=torch.int64)
+        return Pending([], lambda: (empty, received)) if async_op else (empty, received)
     runtime.refuse_in_capture("alltoall's split-count exchange")
     counts = torch.tensor(send, dtype=torch.int64, device=x.device)
     got = torch.empty_like(counts)
-    dist.all_to_all_single(got, counts)
+    dist.all_to_all_single(got, counts, group=group)
     recv = got.tolist()
-    out = collectives.alltoall(x, send, recv, async_op)
+    out = collectives.alltoall(x, send, recv, async_op, process_set=ps)
     received = torch.tensor(recv, dtype=torch.int64)
     if async_op:
         return Pending(out.works, lambda: (out.finish(), received))
@@ -286,48 +311,57 @@ def _alltoall(x, splits, name, async_op=False):
 
 class _AllreduceFn(torch.autograd.Function):
     """``_grads.allreduce_grad``: the gradient is an allreduce with the
-    same op and scale factors."""
+    same op, scale factors and set."""
 
     @staticmethod
-    def forward(ctx, x, op, pre, post, name):
-        ctx.meta = (op, pre, post)
-        return _allreduce(x, op, pre, post, name)
+    def forward(ctx, x, op, pre, post, name, ps):
+        ctx.meta = (op, pre, post, ps)
+        return _allreduce(x, op, pre, post, name, ps=ps)
 
     @staticmethod
     def backward(ctx, dy):
-        op, pre, post = ctx.meta
-        return _allreduce(dy.contiguous(), op, pre, post, None), None, None, None, None
+        op, pre, post, ps = ctx.meta
+        return (_allreduce(dy.contiguous(), op, pre, post, None, ps=ps),
+                None, None, None, None, None)
 
 
 class _AllgatherFn(torch.autograd.Function):
-    """``_grads.allgather_grad``: the Average allreduce of the gradient,
-    this rank's rows of it."""
+    """``_grads.allgather_grad``: the Average allreduce of the gradient
+    over the set, this member's rows of it; zeros on a non-member."""
 
     @staticmethod
-    def forward(ctx, x, name):
-        ctx.rows = x.shape[0]
-        return _allgather(x, name)
+    def forward(ctx, x, name, ps):
+        ctx.rows, ctx.ps = x.shape[0], ps
+        return _allgather(x, name, ps=ps)
 
     @staticmethod
     def backward(ctx, dy):
-        g = _allreduce(dy.contiguous(), Average, 1.0, 1.0, None)
-        r, d = runtime.rank(), ctx.rows
-        return g[r * d:(r + 1) * d], None
+        g = _allreduce(dy.contiguous(), Average, 1.0, 1.0, None, ps=ctx.ps)
+        members, d = _members(ctx.ps), ctx.rows
+        if runtime.rank() not in members:
+            return g.new_zeros((d,) + tuple(g.shape[1:])), None, None
+        p = members.index(runtime.rank())
+        return g[p * d:(p + 1) * d], None, None
 
 
 class _BroadcastFn(torch.autograd.Function):
-    """``_grads.broadcast_grad``: the Average allreduce of the gradient on
-    the root, zero elsewhere."""
+    """``_grads.broadcast_grad``: the Average allreduce of the gradient
+    over the set on the root, zero on the other members; a non-member
+    (an identity forward) passes the gradient through."""
 
     @staticmethod
-    def forward(ctx, x, root_rank, name):
-        ctx.root = root_rank
-        return _broadcast(x, root_rank, name)
+    def forward(ctx, x, root_rank, name, ps):
+        ctx.root, ctx.ps = root_rank, ps
+        return _broadcast(x, root_rank, name, ps=ps)
 
     @staticmethod
     def backward(ctx, dy):
-        g = _allreduce(dy.contiguous(), Average, 1.0, 1.0, None)
-        return (g if runtime.rank() == ctx.root else torch.zeros_like(g)), None, None
+        g = _allreduce(dy.contiguous(), Average, 1.0, 1.0, None, ps=ctx.ps)
+        members = _members(ctx.ps)
+        if runtime.rank() not in members:
+            return dy, None, None, None
+        root = members[ctx.root]
+        return (g if runtime.rank() == root else torch.zeros_like(g)), None, None, None
 
 
 class _AlltoallFn(torch.autograd.Function):
@@ -335,13 +369,14 @@ class _AlltoallFn(torch.autograd.Function):
     sent back to its sender (equal splits are their own reverse)."""
 
     @staticmethod
-    def forward(ctx, x, splits, name):
-        out = _alltoall(x, splits, name)
+    def forward(ctx, x, splits, name, ps):
+        ctx.ps = ps
+        out = _alltoall(x, splits, name, ps=ps)
         if splits is None:
             ctx.splits = None
             return out
         y, recv = out
-        ctx.splits = (_send_splits(splits, x), recv.tolist())
+        ctx.splits = (_send_splits(splits, x, len(_members(ps))), recv.tolist())
         ctx.mark_non_differentiable(recv)
         return y, recv
 
@@ -349,25 +384,26 @@ class _AlltoallFn(torch.autograd.Function):
     def backward(ctx, dy, *unused):
         dy = dy.contiguous()
         if ctx.splits is None:
-            return collectives.alltoall(dy), None, None
+            return collectives.alltoall(dy, process_set=ctx.ps), None, None, None
         send, recv = ctx.splits
-        return collectives.alltoall(dy, recv, send), None, None
+        return collectives.alltoall(dy, recv, send), None, None, None
 
 
 class _GroupedAllreduceFn(torch.autograd.Function):
     """Reference ``HorovodGroupedAllreduce`` (``torch/mpi_ops.py:383``):
-    one grouped allreduce each way, with the same op and scale factors."""
+    one grouped allreduce each way, with the same op, scale factors and
+    set."""
 
     @staticmethod
-    def forward(ctx, op, pre, post, name, *xs):
-        ctx.meta = (op, pre, post)
-        return tuple(_grouped(list(xs), op, pre, post, name))
+    def forward(ctx, op, pre, post, name, ps, *xs):
+        ctx.meta = (op, pre, post, ps)
+        return tuple(_grouped(list(xs), op, pre, post, name, ps=ps))
 
     @staticmethod
     def backward(ctx, *dys):
-        op, pre, post = ctx.meta
-        gs = _grouped([d.contiguous() for d in dys], op, pre, post, None)
-        return (None, None, None, None) + tuple(gs)
+        op, pre, post, ps = ctx.meta
+        gs = _grouped([d.contiguous() for d in dys], op, pre, post, None, ps=ps)
+        return (None, None, None, None, None) + tuple(gs)
 
 
 # ------------------------------------------------------------ the API
@@ -376,16 +412,17 @@ class _GroupedAllreduceFn(torch.autograd.Function):
 def allreduce(x: torch.Tensor, average: Optional[bool] = None, op: Optional[int] = None,
               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
               process_set=None, name: Optional[str] = None) -> torch.Tensor:
-    """Every rank's ``x`` reduced by ``op`` (Average, Sum, Min, Max,
+    """Every member's ``x`` reduced by ``op`` (Average, Sum, Min, Max,
     Product; ``average`` and ``op`` are exclusive, Average by default),
     ``x`` scaled by ``prescale_factor`` first and the result by
     ``postscale_factor`` (in float32 for f16/bf16: kernel B1 on the
-    card).  Differentiable: the gradient is the same allreduce."""
+    card).  A non-member of ``process_set`` gets ``x`` back unchanged.
+    Differentiable: the gradient is the same allreduce."""
     op = _reduce_op(average, op)
-    _global_set(process_set, "allreduce")
+    ps = resolve(process_set)
     if _wants_grad(x):
-        return _AllreduceFn.apply(x, op, prescale_factor, postscale_factor, name)
-    return _allreduce(x, op, prescale_factor, postscale_factor, name)
+        return _AllreduceFn.apply(x, op, prescale_factor, postscale_factor, name, ps)
+    return _allreduce(x, op, prescale_factor, postscale_factor, name, ps=ps)
 
 
 def allreduce_(x: torch.Tensor, average: Optional[bool] = None, op: Optional[int] = None,
@@ -393,12 +430,13 @@ def allreduce_(x: torch.Tensor, average: Optional[bool] = None, op: Optional[int
                process_set=None, name: Optional[str] = None) -> torch.Tensor:
     """:func:`allreduce` written into ``x``; returns ``x``."""
     op = _reduce_op(average, op)
-    _global_set(process_set, "allreduce_")
+    ps = resolve(process_set)
     if _wants_grad(x):
         return _write_back(x, allreduce(x, op=op, prescale_factor=prescale_factor,
-                                        postscale_factor=postscale_factor, name=name))
+                                        postscale_factor=postscale_factor,
+                                        process_set=ps, name=name))
     return _write_back(x, _allreduce(x, op, prescale_factor, postscale_factor, name,
-                                     inplace=True))
+                                     inplace=True, ps=ps))
 
 
 def allreduce_async(x: torch.Tensor, average: Optional[bool] = None,
@@ -406,9 +444,10 @@ def allreduce_async(x: torch.Tensor, average: Optional[bool] = None,
                     postscale_factor: float = 1.0, process_set=None,
                     name: Optional[str] = None) -> Handle:
     op = _reduce_op(average, op)
-    _global_set(process_set, "allreduce_async")
+    ps = resolve(process_set)
     _start("allreduce_async")
-    return Handle(_allreduce(x, op, prescale_factor, postscale_factor, name, True), name)
+    return Handle(_allreduce(x, op, prescale_factor, postscale_factor, name, True, ps=ps),
+                  name)
 
 
 def allreduce_async_(x: torch.Tensor, average: Optional[bool] = None,
@@ -416,10 +455,10 @@ def allreduce_async_(x: torch.Tensor, average: Optional[bool] = None,
                      postscale_factor: float = 1.0, process_set=None,
                      name: Optional[str] = None) -> Handle:
     op = _reduce_op(average, op)
-    _global_set(process_set, "allreduce_async_")
+    ps = resolve(process_set)
     _start("allreduce_async_")
     return Handle(_allreduce(x, op, prescale_factor, postscale_factor, name, True,
-                             inplace=True), name, target=x)
+                             inplace=True, ps=ps), name, target=x)
 
 
 def grouped_allreduce(xs: Sequence[torch.Tensor], average: Optional[bool] = None,
@@ -430,12 +469,12 @@ def grouped_allreduce(xs: Sequence[torch.Tensor], average: Optional[bool] = None
     dtype over a fused buffer (one per tensor, in order, under
     ``HVD_TPU_DISABLE_GROUP_FUSION``).  Differentiable."""
     op = _reduce_op(average, op)
-    _global_set(process_set, "grouped_allreduce")
+    ps = resolve(process_set)
     xs = list(xs)
     if any(_wants_grad(x) for x in xs):
         return list(_GroupedAllreduceFn.apply(op, prescale_factor, postscale_factor,
-                                              name, *xs))
-    return _grouped(xs, op, prescale_factor, postscale_factor, name)
+                                              name, ps, *xs))
+    return _grouped(xs, op, prescale_factor, postscale_factor, name, ps=ps)
 
 
 def grouped_allreduce_(xs: Sequence[torch.Tensor], average: Optional[bool] = None,
@@ -453,10 +492,10 @@ def grouped_allreduce_async(xs: Sequence[torch.Tensor], average: Optional[bool] 
                             postscale_factor: float = 1.0, process_set=None,
                             name: Optional[str] = None) -> Handle:
     op = _reduce_op(average, op)
-    _global_set(process_set, "grouped_allreduce_async")
+    ps = resolve(process_set)
     _start("grouped_allreduce_async")
-    return Handle(_grouped(list(xs), op, prescale_factor, postscale_factor, name, True),
-                  name)
+    return Handle(_grouped(list(xs), op, prescale_factor, postscale_factor, name, True,
+                           ps=ps), name)
 
 
 def grouped_allreduce_async_(xs: Sequence[torch.Tensor], average: Optional[bool] = None,
@@ -464,128 +503,140 @@ def grouped_allreduce_async_(xs: Sequence[torch.Tensor], average: Optional[bool]
                              postscale_factor: float = 1.0, process_set=None,
                              name: Optional[str] = None) -> Handle:
     op = _reduce_op(average, op)
-    _global_set(process_set, "grouped_allreduce_async_")
+    ps = resolve(process_set)
     _start("grouped_allreduce_async_")
     xs = list(xs)
-    return Handle(_grouped(xs, op, prescale_factor, postscale_factor, name, True),
+    return Handle(_grouped(xs, op, prescale_factor, postscale_factor, name, True, ps=ps),
                   name, target=xs)
 
 
 def allgather(x: torch.Tensor, process_set=None, name: Optional[str] = None) -> torch.Tensor:
-    """Every rank's ``x`` (one shape on every rank) concatenated along
-    dim 0 in rank order.  Differentiable: the gradient is this rank's
-    rows of the Average allreduce of the incoming gradient."""
-    _global_set(process_set, "allgather")
+    """Every member's ``x`` (one shape on every rank) concatenated along
+    dim 0 in rank order; zeros of that shape on a non-member.
+    Differentiable: the gradient is this member's rows of the Average
+    allreduce of the incoming gradient."""
+    ps = resolve(process_set)
     if _wants_grad(x):
-        return _AllgatherFn.apply(x, name)
-    return _allgather(x, name)
+        return _AllgatherFn.apply(x, name, ps)
+    return _allgather(x, name, ps=ps)
 
 
 def allgather_async(x: torch.Tensor, process_set=None,
                     name: Optional[str] = None) -> Handle:
-    _global_set(process_set, "allgather_async")
+    ps = resolve(process_set)
     _start("allgather_async")
-    return Handle(_allgather(x, name, True), name)
+    return Handle(_allgather(x, name, True, ps=ps), name)
 
 
 def allgather_v(x: torch.Tensor, process_set=None, name: Optional[str] = None) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0 in rank order, where
+    """Every member's ``x`` concatenated along dim 0 in rank order, where
     the first dims may differ (the trailing ones may not): the row counts
-    are gathered first, every rank's rows padded to the largest count,
-    gathered once and trimmed (``eager.py:501-586``)."""
-    _global_set(process_set, "allgather_v")
+    are gathered within the set first, every member's rows padded to the
+    largest count, gathered once and trimmed (``eager.py:501-586``).  A
+    non-member takes part in nothing and gets no rows."""
+    ps = resolve(process_set)
     if x.dim() == 0:
         raise HorovodTpuError("allgather_v takes a tensor of at least one dimension")
+    if runtime.rank() not in _members(ps):
+        return x.new_zeros((0,) + tuple(x.shape[1:]))
     runtime.refuse_in_capture("allgather_v's row-count negotiation")
     count = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-    counts = collectives.allgather(count).tolist()
+    counts = collectives.allgather(count, process_set=ps).tolist()
     rows = max(counts)
     padded = x.new_zeros((rows,) + tuple(x.shape[1:]))
     padded[:x.shape[0]] = x
-    gathered = _allgather(padded, name)
+    gathered = _allgather(padded, name, ps=ps)
     return torch.cat([gathered[r * rows:r * rows + c] for r, c in enumerate(counts)])
 
 
 def broadcast(x: torch.Tensor, root_rank: int = 0, process_set=None,
               name: Optional[str] = None) -> torch.Tensor:
-    """``root_rank``'s ``x`` on every rank.  Differentiable: the gradient
-    is the Average allreduce of the incoming gradient on the root, zero
-    elsewhere."""
-    _global_set(process_set, "broadcast")
+    """The value of ``root_rank`` (the set's rank on a set) on every
+    member; ``x`` unchanged on a non-member.  Differentiable: the
+    gradient is the Average allreduce of the incoming gradient on the
+    root, zero on the other members."""
+    ps = resolve(process_set)
     if _wants_grad(x):
-        return _BroadcastFn.apply(x, root_rank, name)
-    return _broadcast(x, root_rank, name)
+        return _BroadcastFn.apply(x, root_rank, name, ps)
+    return _broadcast(x, root_rank, name, ps=ps)
 
 
 def broadcast_(x: torch.Tensor, root_rank: int = 0, process_set=None,
                name: Optional[str] = None) -> torch.Tensor:
     """:func:`broadcast` written into ``x``; returns ``x``."""
-    _global_set(process_set, "broadcast_")
+    ps = resolve(process_set)
     if _wants_grad(x):
-        return _write_back(x, broadcast(x, root_rank, name=name))
-    return _broadcast(x, root_rank, name, inplace=True)
+        return _write_back(x, broadcast(x, root_rank, ps, name=name))
+    return _broadcast(x, root_rank, name, inplace=True, ps=ps)
 
 
 def broadcast_async(x: torch.Tensor, root_rank: int = 0, process_set=None,
                     name: Optional[str] = None) -> Handle:
-    _global_set(process_set, "broadcast_async")
+    ps = resolve(process_set)
     _start("broadcast_async")
-    return Handle(_broadcast(x, root_rank, name, True), name)
+    return Handle(_broadcast(x, root_rank, name, True, ps=ps), name)
 
 
 def broadcast_async_(x: torch.Tensor, root_rank: int = 0, process_set=None,
                      name: Optional[str] = None) -> Handle:
-    _global_set(process_set, "broadcast_async_")
+    ps = resolve(process_set)
     _start("broadcast_async_")
-    return Handle(_broadcast(x, root_rank, name, True, inplace=True), name, target=x)
+    return Handle(_broadcast(x, root_rank, name, True, inplace=True, ps=ps), name,
+                  target=x)
 
 
 def reducescatter(x: torch.Tensor, op: int = Sum, prescale_factor: float = 1.0,
                   postscale_factor: float = 1.0, process_set=None,
                   name: Optional[str] = None) -> torch.Tensor:
-    """Every rank's ``x`` summed (``op=Sum``, the JAX package's default)
-    or averaged, this rank's ``1/size`` of it along dim 0, which the
-    world's size must divide."""
-    _global_set(process_set, "reducescatter")
-    return _reducescatter(x, op, prescale_factor, postscale_factor, name)
+    """Every member's ``x`` summed (``op=Sum``, the JAX package's default)
+    or averaged, this member's ``1/size`` of it along dim 0, which the
+    set's size must divide; zeros of that shape on a non-member."""
+    ps = resolve(process_set)
+    return _reducescatter(x, op, prescale_factor, postscale_factor, name, ps=ps)
 
 
 def reducescatter_async(x: torch.Tensor, op: int = Sum, prescale_factor: float = 1.0,
                         postscale_factor: float = 1.0, process_set=None,
                         name: Optional[str] = None) -> Handle:
-    _global_set(process_set, "reducescatter_async")
+    ps = resolve(process_set)
     _start("reducescatter_async")
-    return Handle(_reducescatter(x, op, prescale_factor, postscale_factor, name, True),
-                  name)
+    return Handle(_reducescatter(x, op, prescale_factor, postscale_factor, name, True,
+                                 ps=ps), name)
 
 
 def alltoall(x: torch.Tensor, splits: Optional[Union[Sequence[int], torch.Tensor]] = None,
              process_set=None, name: Optional[str] = None):
-    """Rank i's j-th chunk of ``x`` along dim 0 goes to rank j, which
+    """Member i's j-th chunk of ``x`` along dim 0 goes to member j, which
     gets the chunks in rank order.  ``splits=None``: equal chunks (the
-    world's size must divide dim 0), returns the output.  Otherwise
-    ``splits[j]`` rows go to rank j, and the result is ``(output,
-    received_splits)``: ``received_splits[j]`` rows came from rank j.
-    Differentiable: the gradient is the reverse alltoall."""
-    _global_set(process_set, "alltoall")
+    set's size must divide dim 0), returns the output (zeros on a
+    non-member).  Otherwise ``splits[j]`` rows go to member j, and the
+    result is ``(output, received_splits)``: ``received_splits[j]`` rows
+    came from member j.  Differentiable: the gradient is the reverse
+    alltoall (not for uneven splits on a set, as in the JAX package)."""
+    ps = resolve(process_set)
     if _wants_grad(x):
-        return _AlltoallFn.apply(x, splits, name)
-    return _alltoall(x, splits, name)
+        if splits is not None and ps is not None:
+            raise NotImplementedError(
+                "gradients of uneven-splits alltoall on an explicit process "
+                "set are not supported; use the global set or equal splits"
+            )
+        return _AlltoallFn.apply(x, splits, name, ps)
+    return _alltoall(x, splits, name, ps=ps)
 
 
 def alltoall_async(x: torch.Tensor,
                    splits: Optional[Union[Sequence[int], torch.Tensor]] = None,
                    process_set=None, name: Optional[str] = None) -> Handle:
-    _global_set(process_set, "alltoall_async")
+    ps = resolve(process_set)
     _start("alltoall_async")
-    return Handle(_alltoall(x, splits, name, True), name)
+    return Handle(_alltoall(x, splits, name, True, ps=ps), name)
 
 
 def barrier(process_set=None) -> None:
-    """Return once every rank has reached it."""
-    _global_set(process_set, "barrier")
+    """Return once every member has reached it (at once on a non-member)."""
+    ps = resolve(process_set)
     runtime.refuse_in_capture("barrier")
-    int(collectives.barrier())  # the host waits for the token
+    int(collectives.barrier(process_set=ps))  # the host waits for the token
 
 
 def join() -> int:

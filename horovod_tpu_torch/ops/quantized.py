@@ -1,8 +1,10 @@
-"""The quantized gradient wire (int8 / fp8) over the global process group.
+"""The quantized gradient wire (int8 / fp8) over the world or the groups
+of a process set.
 
 Counterpart of ``horovod_tpu/ops/quantized.py``: the knobs
 (``quant_block`` ``:97``, ``quant_backend`` ``:103``), ``_fused_mode``
-(``:157``), ``_block_scale`` (``:178``), ``quantized_reduce_scatter``
+(``:157``), ``_block_scale`` (``:178``), ``_axis_groups`` (``:247``),
+``quantized_reduce_scatter``
 (``:298``), ``quantized_all_gather`` (``:388``), ``quantized_allreduce``
 (``:442``), ``quantized_allreduce_ef`` (``:476``) and the marker
 compressors (``:510``); and of ``ops/pallas_quant.py``'s
@@ -37,20 +39,33 @@ lowerings differ only in the order of the float32 sum, and the
 error-feedback residual, which comes from the quantizer's dequant (B3's,
 or B6's on the ring), is bitwise the same in all three.
 ``quant.fused_collectives`` and ``quant.fused_bytes`` count the
-collectives the fused backend serves (ring or interp).  Process sets are
-not ported: a ``process_set`` raises :class:`QuantizedWireError`.
+collectives the fused backend serves (ring or interp).
+
+Groups (:func:`_axis_groups`): each collective runs over the world, over
+explicit equal-size ``groups=`` (lists of ranks covering the world), or
+over a process set that tiles the world into equal groups
+(``process_sets.tiling_groups``).  There is no mask: on a tiling set
+every rank reduces within its own group, members and non-members alike
+(``quantized.py:339-386``), ``n`` is the group's size, the interp hop
+order runs over the rank's position in its group, and an Average
+divides by ``n``.  A set that does not tile raises
+:class:`ProcessSetTilingError`.  On the card groups never take the
+ring, whose peer window spans the world (``pallas_quant.py:242``): the
+collective takes the NCCL lowering on the group, counted in
+``quant.fused_fallback``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import metrics, runtime
-from ..exceptions import QuantizedWireError
+from ..exceptions import ProcessSetTilingError, QuantizedWireError
+from ..process_sets import resolve
 from ..utils import env
 from . import peer, quant_kernels, ring_kernels
 from .collectives import Average, Sum, f32_reciprocal
@@ -104,22 +119,71 @@ def wire_itemsize(wire: str) -> int:
     return torch.empty(0, dtype=WIRE_FORMATS[_canon_wire(wire)][0]).element_size()
 
 
-def _world(process_set, backend: Optional[str]) -> int:
-    """Validate the set and the backend knob; the world size."""
-    if process_set is not None:
-        raise QuantizedWireError(
-            "process sets are not ported to horovod_tpu_torch: the "
-            "quantized wire serves the global set only"
-        )
+class Groups:
+    """Where one quantized collective runs: ``tiles`` (the equal groups of
+    ranks covering the world, None for the world itself), ``n`` (the
+    group's size), ``group`` (this rank's ``torch.distributed`` group;
+    None for the default group) and ``pos`` (this rank's position in
+    it)."""
+
+    __slots__ = ("tiles", "n", "group", "pos")
+
+    def __init__(self, tiles, n: int, group, pos: int):
+        self.tiles, self.n, self.group, self.pos = tiles, n, group, pos
+
+
+def _explicit_groups(rt, groups: Sequence[Sequence[int]]) -> Groups:
+    """Explicit equal-size ``groups``: validated as the JAX package does
+    (``quantized.py:266-276``), their ``torch.distributed`` groups made
+    on every rank at first use and kept by the runtime."""
+    tiles = [sorted(int(r) for r in g) for g in groups]
+    sizes = {len(g) for g in tiles}
+    flat = sorted(r for g in tiles for r in g)
+    if len(sizes) != 1 or flat != list(range(rt.size)):
+        raise ProcessSetTilingError(
+            groups[0] if groups else (), rt.size, "quantized wire explicit groups")
+    key = tuple(tuple(g) for g in tiles)
+    made = rt.wire_groups.get(key)
+    if made is None:
+        made = rt.wire_groups[key] = [
+            dist.new_group(g) if rt.size > 1 else None for g in tiles]
+    for g, group in zip(tiles, made):
+        if rt.rank in g:
+            return Groups(tiles, len(g), group, g.index(rt.rank))
+    raise AssertionError("the groups cover every rank")
+
+
+def _axis_groups(process_set, groups=None) -> Groups:
+    """Resolve where a quantized collective runs (``quantized.py:247``
+    ``_axis_groups``): explicit equal-size ``groups``, else the process
+    set through its tiles (the table's, ``process_sets.tiling_groups``),
+    else the world.  Raises :class:`QuantizedWireError` for both
+    arguments together and :class:`ProcessSetTilingError` for a set
+    that does not tile the world."""
+    rt = runtime.get_runtime()
+    if groups is not None:
+        if process_set is not None:
+            raise QuantizedWireError("pass either groups= or process_set=, not both")
+        return _explicit_groups(rt, groups)
+    ps = resolve(process_set)
+    if ps is None:
+        return Groups(None, rt.size, None, rt.rank)
+    sg = rt.process_set_table.groups(ps.process_set_id)
+    if sg.tiles is None:
+        raise ProcessSetTilingError(ps.ranks, rt.size,
+                                    "quantized wire over the 'hvd' axis")
+    return Groups(sg.tiles, len(sg.tile_ranks), sg.tile, sg.tile_ranks.index(rt.rank))
+
+
+def _check_backend(backend: Optional[str]) -> None:
     if backend is None:
         quant_backend()
     else:
         _canon_backend(backend)
-    return runtime.size()
 
 
 def dispatch_mode(n: int, wire_nbytes: int, on_cuda: bool, one_host: bool,
-                  peers_reach: bool) -> Optional[str]:
+                  peers_reach: bool, grouped: bool = False) -> Optional[str]:
     """How (whether) the fused backend serves a collective of ``n``
     ranks moving ``wire_nbytes`` packed bytes per rank: ``"interp"`` off
     the card, ``"ring"`` for B6/B7, ``None`` when the caller must take
@@ -127,11 +191,16 @@ def dispatch_mode(n: int, wire_nbytes: int, on_cuda: bool, one_host: bool,
     ``"tpu"`` is ``"ring"``, one slice is one host, and the ICI links are
     the cards' peer access).  A world larger than the kernels' pointer
     tables (``peer.MAX_RANKS``) falls back as any other ineligible
-    collective does (``_fused_mode``, ``quantized.py:157``)."""
+    collective does (``_fused_mode``, ``quantized.py:157``), and so does
+    a collective on groups (``grouped``: a process set's tiles or
+    explicit groups, ``:242``), since the ring's peer window spans the
+    world."""
     if n <= 1:
         return None
     if not on_cuda:
         return "interp"
+    if grouped:
+        return None
     if not one_host or not peers_reach or n > peer.MAX_RANKS:
         return None
     if wire_nbytes > peer.CAP:
@@ -154,22 +223,22 @@ def _peers_reach(rt) -> bool:
 
 
 def dispatch(n: int, c: int, block: int, wire: str, device: torch.device,
-             backend: Optional[str]) -> Optional[str]:
+             backend: Optional[str], grouped: bool = False) -> Optional[str]:
     """The lowering of one collective (``_fused_mode``, ``:157``): the
     fused mode when the fused backend serves it, accounted as
     ``_account`` (``pallas_quant.py:253``) accounts it, else None,
     counting ``quant.fused_fallback`` where the fused backend was asked
-    for and cannot serve it."""
+    for and cannot serve it (``grouped``: on groups, not the world)."""
     resolved = quant_backend() if backend is None else _canon_backend(backend)
     if resolved != "fused":
         return None
     nbytes = n * (c * wire_itemsize(wire) + 4 * (c // block))
     on_cuda = device.type == "cuda"
     one_host = peers_reach = False
-    if n > 1 and on_cuda:
+    if n > 1 and on_cuda and not grouped:
         rt = runtime.get_runtime()
         one_host, peers_reach = rt.cross_size == 1, _peers_reach(rt)
-    mode = dispatch_mode(n, nbytes, on_cuda, one_host, peers_reach)
+    mode = dispatch_mode(n, nbytes, on_cuda, one_host, peers_reach, grouped)
     if mode is None:
         metrics.inc_counter("quant.fused_fallback")
     else:
@@ -187,10 +256,13 @@ def quantized_reduce_scatter(
     block: Optional[int] = None,
     ef: bool = False,
     backend: Optional[str] = None,
+    groups: Optional[Sequence[Sequence[int]]] = None,
 ):
-    """Reduce-scatter with a quantized wire.  ``x`` is flattened; rank
-    *j* returns the float32 sum (or average) of chunk *j*, of length
-    ``c = ceil(V / (n·block))·block``.
+    """Reduce-scatter with a quantized wire over the world, explicit
+    equal-size ``groups`` or the tiles of ``process_set``
+    (:func:`_axis_groups`).  ``x`` is flattened; the rank at position
+    *j* of its group returns the float32 sum (or average) of chunk *j*
+    over the group, of length ``c = ceil(V / (n·block))·block``.
 
     ``ef=True`` also returns the local residual ``x − dequant(quantize(x))``
     in ``x``'s shape and dtype."""
@@ -198,14 +270,16 @@ def quantized_reduce_scatter(
         raise QuantizedWireError("quantized_reduce_scatter supports Sum/Average")
     wire = _canon_wire(wire)
     block = quant_block() if block is None else block
-    n = _world(process_set, backend)
+    _check_backend(backend)
+    where = _axis_groups(process_set, groups)
+    n, grouped = where.n, where.tiles is not None
     shape, dtype = x.shape, x.dtype
     flat = x.reshape(-1).float()
     V = flat.numel()
     c = -(-V // (n * block)) * block  # chunk length, block-aligned
     if c * n != V:
         flat = F.pad(flat, (0, c * n - V))
-    mode = dispatch(n, c, block, wire, flat.device, backend)
+    mode = dispatch(n, c, block, wire, flat.device, backend, grouped)
     if mode == "ring":
         window = peer.world_window(runtime.get_runtime())
         acc, deq = ring_kernels.rs_ring(flat.view(1, n * c), window, wire, block,
@@ -218,10 +292,10 @@ def quantized_reduce_scatter(
         recv = packed
         if n > 1:
             recv = torch.empty_like(packed)
-            dist.all_to_all_single(recv, packed)
-            if mode == "interp":  # hop order: own chunk, then r-1, r-2, ...
-                r = runtime.rank()
-                recv = recv[[(r - t) % n for t in range(n)]]
+            dist.all_to_all_single(recv, packed, group=where.group)
+            if mode == "interp":  # hop order: own chunk, then p-1, p-2, ...
+                p = where.pos
+                recv = recv[[(p - t) % n for t in range(n)]]
         mine = quant_kernels.dequant_accum(recv, wire).view(c)
     if op == Average:
         mine = mine * f32_reciprocal(n)
@@ -238,13 +312,17 @@ def quantized_all_gather(
     wire: str = "int8",
     block: Optional[int] = None,
     backend: Optional[str] = None,
+    groups: Optional[Sequence[Sequence[int]]] = None,
 ) -> torch.Tensor:
-    """All-gather with a quantized wire: quantize this rank's shard (a
-    multiple of ``block`` long), gather every rank's packed row,
-    dequantize.  Returns the float32 concatenation in rank order."""
+    """All-gather with a quantized wire over the world or this rank's
+    group (:func:`_axis_groups`): quantize this rank's shard (a multiple
+    of ``block`` long), gather every group member's packed row,
+    dequantize.  Returns the float32 concatenation in group order."""
     wire = _canon_wire(wire)
     block = quant_block() if block is None else block
-    n = _world(process_set, backend)
+    _check_backend(backend)
+    where = _axis_groups(process_set, groups)
+    n = where.n
     flat = shard.reshape(-1).float()
     c = flat.numel()
     if c % block != 0:
@@ -253,7 +331,7 @@ def quantized_all_gather(
             f"of the quantization block ({block}); align the shard "
             "layout (HVD_TPU_QUANT_BLOCK) before gathering"
         )
-    mode = dispatch(n, c, block, wire, flat.device, backend)
+    mode = dispatch(n, c, block, wire, flat.device, backend, where.tiles is not None)
     if mode == "ring":
         window = peer.world_window(runtime.get_runtime())
         return ring_kernels.ag_ring(flat.view(1, c), window, wire, block).view(-1)
@@ -266,7 +344,7 @@ def quantized_all_gather(
                            device=packed.device)
         # all_gather_single is all_gather_into_tensor's newer name.
         getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
-            rows, packed
+            rows, packed, group=where.group
         )
     return quant_kernels.dequant_rows(rows, wire).view(-1)
 
@@ -279,18 +357,20 @@ def quantized_allreduce(
     wire: str = "int8",
     block: Optional[int] = None,
     backend: Optional[str] = None,
+    groups: Optional[Sequence[Sequence[int]]] = None,
 ) -> torch.Tensor:
-    """Quantized-wire allreduce: the two primitives composed."""
+    """Quantized-wire allreduce: the two primitives composed, averaged
+    over the group's size."""
     if op not in (Sum, Average):
         raise QuantizedWireError("quantized_allreduce supports Sum/Average")
     shard = quantized_reduce_scatter(
-        x, Sum, process_set, wire=wire, block=block, backend=backend
+        x, Sum, process_set, wire=wire, block=block, backend=backend, groups=groups
     )
     out = quantized_all_gather(
-        shard, process_set, wire=wire, block=block, backend=backend
+        shard, process_set, wire=wire, block=block, backend=backend, groups=groups
     )[:x.numel()]
     if op == Average:
-        out = out * f32_reciprocal(runtime.size())
+        out = out * f32_reciprocal(_axis_groups(process_set, groups).n)
     return out.view(x.shape).to(x.dtype)
 
 
@@ -315,7 +395,7 @@ def quantized_allreduce_ef(
         shard, process_set, wire=wire, block=block, backend=backend
     )[:x.numel()]
     if op == Average:
-        out = out * f32_reciprocal(runtime.size())
+        out = out * f32_reciprocal(_axis_groups(process_set).n)
     return out.view(x.shape).to(x.dtype), r_new.view(x.shape).to(residual.dtype)
 
 

@@ -54,6 +54,15 @@ written back when the bucket's result is used (``step()`` /
 ``synchronize()``, ``zero_grad()``) leaves them as they were.  The residuals are rank-local: they
 are not part of ``state_dict()`` and ``broadcast_optimizer_state``
 leaves them alone.
+
+Process sets (``process_set=``, ``:625``): on the dense wires (plain and
+bf16) the set's members average over the set's group, and a non-member
+keeps its own gradient, launching nothing (the JAX package's masked
+``jnp.where(mask, y, x)``, ``traced.py:397-399``); on the quantized
+wires every rank reduces within its tile of a set that tiles the world
+(``ops/quantized.py``), and a set that does not tile raises
+:class:`QuantizedWireError` (``:192-205``).  The plan, the loss and the
+BatchNorm statistics of :class:`TrainStep` stay world-wide.
 """
 
 from __future__ import annotations
@@ -70,10 +79,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import metrics, runtime
 from ..compression import Compression, Compressor
-from ..exceptions import HorovodTpuError, QuantizedWireError
+from ..exceptions import HorovodTpuError, ProcessSetTilingError, QuantizedWireError
 from ..ops import LAUNCH_COUNTED, collectives, fusion
 from ..ops.collectives import Average, Sum
 from ..ops.quantized import quantized_allreduce
+from ..process_sets import ProcessSet, resolve
 from ..sched import execute
 from ..sched.hooks import GradOrder, ScheduleLauncher
 from ..sched.plan import (
@@ -115,6 +125,7 @@ class _DistributedOptimizer:
         fusion_threshold_bytes: Optional[int] = None,
         groups: Optional[Sequence[Sequence[torch.Tensor]]] = None,
         sparse_as_dense: bool = False,
+        process_set: Optional[ProcessSet] = None,
     ):
         cfg = SchedConfig.from_env()
         self._quantized = getattr(compression, "quantized_wire", False)
@@ -138,6 +149,26 @@ class _DistributedOptimizer:
             # by f/size after.
             prescale_factor = prescale_factor / gradient_predivide_factor
             postscale_factor = postscale_factor * gradient_predivide_factor
+        ps = resolve(process_set)
+        if quantized_req and ps is not None:
+            # What the JAX package raises when it reduces: the
+            # compressor's check (:192-205), else the quantized wire's
+            # (ops/quantized.py _axis_groups).
+            table = runtime.get_runtime().process_set_table
+            if table.partition_groups(ps) is None:
+                if not self._quantized:
+                    raise ProcessSetTilingError(ps.ranks, table.world_size,
+                                                "quantized wire over the 'hvd' axis")
+                raise QuantizedWireError(
+                    f"the quantized wire serves the global set or sets "
+                    f"that tile the axis into equal replica groups; "
+                    f"{ps!r} does neither — use the dense "
+                    "path for arbitrary subsets"
+                )
+        # The set as the caller holds it: resolved again at each step, so
+        # a set removed since raises and one re-added is used anew.
+        self._process_set = process_set
+        self._member = ps is None or runtime.rank() in ps.ranks
         self._opt = optimizer
         self.set_backward_passes_per_step(backward_passes_per_step)
         self._op = op
@@ -285,6 +316,11 @@ class _DistributedOptimizer:
         return self._residuals
 
     @property
+    def process_set(self) -> Optional[ProcessSet]:
+        """The set the gradients are reduced over (None: the world)."""
+        return self._process_set
+
+    @property
     def schedule(self) -> Optional[BucketSchedule]:
         """The exchange plan of the last reduction (None before it)."""
         return self._schedule
@@ -403,9 +439,12 @@ class _DistributedOptimizer:
         )
 
     def _reduce_bucket(self, f: torch.Tensor, bucket) -> torch.Tensor:
-        """One bucket's flat buffer through its wire."""
+        """One bucket's flat buffer through its wire; a non-member of the
+        set keeps it as it is on the dense wires."""
         if bucket.wire in QUANTIZED_WIRES:
             return self._quantized_bucket(f, bucket)
+        if not self._member and not (self._quantized and f.is_floating_point()):
+            return f
         if bucket.wire == "bf16":
             return execute.bf16_wire(self._dense)(f)
         return self._dense(f)
@@ -416,11 +455,12 @@ class _DistributedOptimizer:
             # HVD_TPU_SCHED=off): quantized, without residuals.
             g = f if self._prescale == 1.0 else f * self._prescale
             g = quantized_allreduce(
-                g, self._op, wire=self._compression.wire_format
+                g, self._op, self._process_set, wire=self._compression.wire_format
             )
             return g if self._postscale == 1.0 else g * self._postscale
         return collectives.allreduce_(
-            f, self._op, self._prescale, self._postscale
+            f, self._op, self._prescale, self._postscale,
+            process_set=self._process_set,
         )
 
     def synchronize(self) -> None:
@@ -428,6 +468,8 @@ class _DistributedOptimizer:
         buckets not yet launched, in schedule order, and wait for all."""
         n = len(self._params)
         cfg = self._config()
+        ps = resolve(self._process_set)
+        self._member = ps is None or runtime.rank() in ps.ranks
         with torch.no_grad():
             if self._launcher is None:
                 wire = [self._wire_leaf(i) for i in range(n)]
@@ -501,6 +543,7 @@ class _DistributedOptimizer:
             f, average=self._op == Average, wire=bucket.wire,
             prescale_factor=self._prescale,
             postscale_factor=self._postscale, residual=res_flat,
+            process_set=self._process_set,
         )
         if r_new is not None:  # written back once the result is used
             self._pending.append((bucket.indices, r_new, rmeta))
@@ -543,7 +586,8 @@ def DistributedOptimizer(
     **kwargs,
 ):
     """Wrap ``optimizer`` so ``step()`` first averages the gradients
-    across ranks (keyword arguments as :class:`_DistributedOptimizer`).
+    across ranks, or across ``process_set`` (keyword arguments as
+    :class:`_DistributedOptimizer`).
 
     The returned object IS-A ``type(optimizer)``, so
     ``isinstance(opt, torch.optim.Optimizer)`` holds; its own
@@ -721,8 +765,11 @@ class TrainStep:
     scheduler's knobs (``HVD_TPU_SCHED_WIRE``, ``HVD_TPU_SCHED_BARRIERS``,
     ...), of the optimizer's hyperparameters or the quantized wire's
     knobs (:func:`host_state`: a learning-rate schedule's new ``lr``) or
-    of the mode drops every graph and its memory; the next calls warm up
-    and capture anew, as the JAX package retraces.  So a key that changes
+    of the mode, or of the optimizer's process set (its id and ranks:
+    ``remove_process_set`` drops the graphs of a set before it destroys
+    the set's groups, and a set added again gets a new id) drops every
+    graph and its memory; the next calls warm up and capture anew, as
+    the JAX package retraces.  So a key that changes
     at every step (a per-step schedule) runs every step eagerly, on the
     warm-up stream, and never captures.  ``auto`` captures a step
     of two or more units (buckets, plus the update) that
@@ -762,7 +809,8 @@ class TrainStep:
             self.drop()
             return self._eager(batch, mode)
         leaves, spec = tree_flatten(batch)
-        key = (mode, SchedConfig.from_env(), host_state(self.optimizer))
+        key = (mode, SchedConfig.from_env(), host_state(self.optimizer),
+               self._set_key())
         if key != self._key:
             self.drop()
             self._key = key
@@ -790,6 +838,19 @@ class TrainStep:
 
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def _set_key(self) -> Optional[tuple]:
+        """The optimizer's process set as the graphs hold it fixed: its id
+        and ranks (None: the world).  A set removed and added again gets
+        a new id, so the step captures anew on its new groups."""
+        ps = getattr(self.optimizer, "process_set", None)
+        return None if ps is None else (ps.process_set_id, ps.ranks)
+
+    def holds_set(self, process_set_id: int) -> bool:
+        """Whether the captured graphs were made on the set
+        ``process_set_id`` (``remove_process_set`` drops them first)."""
+        held = self._key[3] if self._key is not None else None
+        return held is not None and held[0] == process_set_id
 
     def blocker(self) -> Optional[str]:
         """:func:`capture_blocker` of this step's model and optimizer."""

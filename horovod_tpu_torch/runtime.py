@@ -16,6 +16,11 @@ as a launcher such as ``torchrun`` sets them (with ``MASTER_ADDR`` /
 ``MASTER_PORT`` for the ``env://`` rendezvous), or from an explicit
 ``init_method``.  With none of them set, the world is this one process,
 joined through an in-process store: no port is opened.
+
+The process-set table (``process_sets.py``) lives on the runtime: sets
+passed as ``init(process_sets=[...])`` or in ``HVD_TPU_PROCESS_SETS``
+are registered, with their groups, before ``init`` returns
+(``horovod_tpu/runtime.py:68-80``).
 """
 
 from __future__ import annotations
@@ -25,12 +30,14 @@ import os
 import socket
 import threading
 import weakref
-from typing import Any, List, Optional, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
 from .exceptions import NotInitializedError
+from .process_sets import ProcessSet, ProcessSetTable
+from .utils import env
 
 # The process group's timeout when ``init`` is given none.
 DEFAULT_TIMEOUT_S = 300.0
@@ -70,15 +77,52 @@ class Runtime:
         # shutdown: a graph that captured NCCL operations keeps its
         # communicator alive, and destroying the group waits for it.
         self.captured_steps: "weakref.WeakSet" = weakref.WeakSet()
+        # The quantized wire's explicit groups= (ops/quantized.py): one
+        # torch.distributed group per tile, made on every rank at first
+        # use, by the tiles.
+        self.wire_groups: dict = {}
+        self.process_set_table = ProcessSetTable(
+            size, rank,
+            new_group=(lambda ranks: dist.new_group(
+                ranks, timeout=datetime.timedelta(seconds=timeout_s)))
+            if size > 1 else None,
+            destroy=dist.destroy_process_group,
+        )
+
+    def register_sets(self, process_sets: Sequence[ProcessSet]) -> None:
+        """Register ``process_sets`` and those of ``HVD_TPU_PROCESS_SETS``
+        ("0,1;2,3"), in that order, on every rank alike."""
+        for ps in process_sets:
+            self.process_set_table.add(ps, dynamic_ok=True)
+        spec = env.get_env(env.PROCESS_SETS)
+        if spec:
+            for group in spec.split(";"):
+                ranks = [int(r) for r in group.split(",") if r.strip()]
+                if ranks:
+                    self.process_set_table.add(ProcessSet(ranks), dynamic_ok=True)
+
+    def drop_captured(self, process_set_id: Optional[int] = None) -> None:
+        """Drop every captured step, or those whose key holds the set
+        ``process_set_id``: a graph that captured NCCL operations on a
+        group keeps its communicator alive."""
+        for step in list(self.captured_steps):
+            if process_set_id is None or step.holds_set(process_set_id):
+                step.drop()
 
     def shutdown(self) -> None:
-        for step in list(self.captured_steps):
-            step.drop()
+        self.drop_captured()
         if self.peer_window is not None:
             self.peer_window.close()
             self.peer_window = None
-        if self._owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+        if dist.is_initialized():
+            self.process_set_table.close()
+            for tiles, made in self.wire_groups.items():
+                for ranks, group in zip(tiles, made):
+                    if group is not None and self.rank in ranks:
+                        dist.destroy_process_group(group)
+            self.wire_groups = {}
+            if self._owns_group:
+                dist.destroy_process_group()
 
 
 _runtime: Optional[Runtime] = None
@@ -105,6 +149,7 @@ def init(
     size: Optional[int] = None,
     timeout_s: float = DEFAULT_TIMEOUT_S,
     backend: Optional[str] = None,
+    process_sets: Optional[Union[str, Sequence[ProcessSet]]] = None,
 ) -> None:
     """Join the process group (idempotent).
 
@@ -119,8 +164,21 @@ def init(
     its owner.  ``timeout_s`` bounds how long a collective waits for a
     late peer: the process group's timeout, and every spin of the
     quantized ring's kernels (``ops/ring_kernels.py``).
+
+    ``process_sets`` registers rank subsets up front, every rank the
+    same (reference ``horovod_init_multi_comm``), or is the string
+    ``"dynamic"``, which sets ``HVD_TPU_DYNAMIC_PROCESS_SETS=1`` so that
+    ``add_process_set`` may register sets later (``:277-284``).
     """
     global _runtime
+    if isinstance(process_sets, str):
+        if process_sets.lower() != "dynamic":
+            raise ValueError(
+                f"process_sets={process_sets!r}: only 'dynamic' or a "
+                "sequence of ProcessSet is accepted"
+            )
+        env.set_env(env.DYNAMIC_PROCESS_SETS, "1")
+        process_sets = None
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {device!r}")
@@ -172,8 +230,10 @@ def init(
             places = [None] * size
             dist.all_gather_object(places, (socket.gethostname(), _card_id(dev)))
             hosts, cards = [p[0] for p in places], [p[1] for p in places]
-        _runtime = Runtime(dev, rank, size, local_rank, owns, backend, hosts, cards,
-                           timeout_s)
+        rt = Runtime(dev, rank, size, local_rank, owns, backend, hosts, cards,
+                     timeout_s)
+        rt.register_sets(process_sets or ())
+        _runtime = rt
 
 
 def shutdown() -> None:
@@ -256,3 +316,90 @@ def broadcast_object(obj: Any, root_rank: int = 0) -> Any:
         device=rt.device if rt.backend == "nccl" else None,
     )
     return box[0]
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of ranks (reference
+    ``horovod_is_homogeneous``)."""
+    rt = get_runtime()
+    return rt.size == rt.local_size * rt.cross_size
+
+
+# Capability flags (reference ``common/basics.py`` ``*_built`` /
+# ``*_enabled``), answered by this PyTorch build and the runtime.
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_available() and dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    """Whether the runtime's process group runs gloo."""
+    return is_initialized() and get_runtime().backend == "gloo"
+
+
+def nccl_built() -> bool:
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def xla_built() -> bool:
+    return False
+
+
+def tpu_enabled() -> bool:
+    return False
+
+
+# Process sets (reference ``common/process_sets.py``).
+
+def add_process_set(ranks_or_set) -> ProcessSet:
+    """Register a set after init, on every rank alike (needs
+    ``HVD_TPU_DYNAMIC_PROCESS_SETS=1`` or ``init(process_sets="dynamic")``);
+    the ranks of a set already registered return that set."""
+    ps = ranks_or_set if isinstance(ranks_or_set, ProcessSet) else ProcessSet(ranks_or_set)
+    return get_runtime().process_set_table.add(ps)
+
+
+def remove_process_set(ps: ProcessSet) -> None:
+    """Unregister ``ps`` on every rank alike: first drop every captured
+    step whose key holds it, then destroy its groups.  The global set
+    and an unknown set raise."""
+    rt = get_runtime()
+    if ps.process_set_id not in (None, 0):
+        rt.drop_captured(ps.process_set_id)
+    rt.process_set_table.remove(ps)
+
+
+def get_process_set_ids() -> List[int]:
+    return get_runtime().process_set_table.ids()
+
+
+def global_process_set() -> ProcessSet:
+    return get_runtime().process_set_table.global_set

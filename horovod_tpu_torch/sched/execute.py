@@ -53,7 +53,7 @@ from .. import metrics, runtime
 from ..ops import fusion
 from ..ops.collectives import Sum
 from ..ops.kernels import cast_buffer, scale_cast
-from ..ops.quantized import quantized_all_gather, quantized_reduce_scatter
+from ..ops.quantized import _axis_groups, quantized_all_gather, quantized_reduce_scatter
 from .plan import Bucket, BucketSchedule, wire_bytes
 
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
@@ -274,11 +274,13 @@ def quantized_exchange_flat(
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
     residual: Optional[torch.Tensor] = None,
+    process_set=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One bucket's quantized reduce-scatter + all-gather exchange:
     ``g = f·prescale (+ residual)`` in float32, quantized
-    reduce-scatter, the shard scaled by ``postscale`` (and ``1/world``
-    for an average), quantized all-gather, the first ``f.numel()``
+    reduce-scatter, the shard scaled by ``postscale`` (and ``1/n`` for
+    an average, n the size of the rank's group: the world, or its tile
+    of ``process_set``), quantized all-gather, the first ``f.numel()``
     elements cast back to ``f.dtype``.
 
     ``residual`` engages error feedback: the wire carries
@@ -288,11 +290,11 @@ def quantized_exchange_flat(
     r_new = None
     if residual is not None:
         g = g + residual.float()
-        shard, r_new = quantized_reduce_scatter(g, Sum, wire=wire, ef=True)
+        shard, r_new = quantized_reduce_scatter(g, Sum, process_set, wire=wire, ef=True)
     else:
-        shard = quantized_reduce_scatter(g, Sum, wire=wire)
+        shard = quantized_reduce_scatter(g, Sum, process_set, wire=wire)
     if average:
-        postscale_factor = postscale_factor / runtime.size()
+        postscale_factor = postscale_factor / _axis_groups(process_set).n
     shard = _scale_f32(shard, postscale_factor)
-    out = quantized_all_gather(shard, wire=wire)[:f.numel()]
+    out = quantized_all_gather(shard, process_set, wire=wire)[:f.numel()]
     return out.to(f.dtype), r_new

@@ -30,11 +30,12 @@ def _loss_fn(model, batch):
 
 def build_dp_step(hvd, model: torch.nn.Module, *, compression=None,
                   lr: float = 0.01,
-                  momentum: Optional[float] = 0.9) -> Tuple:
+                  momentum: Optional[float] = 0.9, process_set=None) -> Tuple:
     """Build the data-parallel step: rank 0's weights and buffers are
-    broadcast, SGD (``lr``, ``momentum``; dampening 0, no Nesterov: the
-    update of ``optax.sgd``) is wrapped in ``hvd.DistributedOptimizer``,
-    and the step minimises the mean softmax cross-entropy.
+    broadcast (to the world), SGD (``lr``, ``momentum``; dampening 0, no
+    Nesterov: the update of ``optax.sgd``) is wrapped in
+    ``hvd.DistributedOptimizer`` (over ``process_set`` when given), and
+    the step minimises the mean softmax cross-entropy.
 
     Returns ``(step, optimizer)``; ``step(batch)`` runs one step on this
     rank's ``(images NHWC, labels)`` and returns the loss averaged across
@@ -45,6 +46,7 @@ def build_dp_step(hvd, model: torch.nn.Module, *, compression=None,
         named_parameters=model.named_parameters(),
         compression=compression if compression is not None
         else hvd.Compression.none,
+        process_set=process_set,
     )
     return hvd.TrainStep(model, opt, _loss_fn), opt
 

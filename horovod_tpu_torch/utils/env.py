@@ -34,6 +34,11 @@ CONSISTENCY_CHECK = "CONSISTENCY_CHECK"
 # grouped_allreduce runs one collective per tensor, in order, instead of
 # one per dtype over a fused buffer (default off).
 DISABLE_GROUP_FUSION = "DISABLE_GROUP_FUSION"
+# add_process_set / remove_process_set after init (default off), as
+# init(process_sets="dynamic") sets it.
+DYNAMIC_PROCESS_SETS = "DYNAMIC_PROCESS_SETS"
+# Sets registered at init, "0,1;2,3": one set per ";", ranks by ",".
+PROCESS_SETS = "PROCESS_SETS"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 # Fusion buffers are padded to this many bytes (ops/fusion.py
@@ -52,6 +57,10 @@ def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
     if val is None:
         val = os.environ.get(legacy)
     return default if val is None else val
+
+
+def set_env(name: str, value: str) -> None:
+    os.environ["HVD_TPU_" + name] = value
 
 
 def get_int(name: str, default: int) -> int:

@@ -1219,3 +1219,83 @@ def test_shutdown_returns_with_a_captured_step_alive(tmp_path, wire):
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"SHUTDOWN OK {r}" in out, out
+
+
+_SET_CAPTURE = textwrap.dedent("""
+    import os, sys
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    rank, n, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    members = [0, 1] if n == 4 else [1]
+    ps = hvd.ProcessSet(members)
+    hvd.init("cuda", init_method="file://" + store, rank=rank, size=n, timeout_s=100,
+             process_sets=[ps])
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for wire in ("bf16", "int8"):
+            os.environ["HVD_TPU_SCHED_WIRE"] = wire
+            runs = []
+            for mode in ("off", "on"):
+                os.environ["HVD_TPU_ONESTEP"] = mode
+                metrics.reset("xir.")
+                model = ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
+                               dtype=torch.float32, seed=0, device=hvd.device())
+                step, _ = build_dp_step(hvd, model, process_set=ps)
+                g = torch.Generator(device="cuda").manual_seed(10 + rank)
+                losses = []
+                for _ in range(5):
+                    batch = (torch.randn(4, 32, 32, 3, generator=g, device="cuda"),
+                             torch.randint(0, 10, (4,), generator=g, device="cuda"))
+                    losses.append(step(batch))
+                torch.cuda.synchronize()
+                runs.append((torch.stack(losses).cpu(),
+                             [p.detach().cpu().clone() for p in model.parameters()],
+                             metrics.get_counter("xir.onestep.steps")))
+                step.drop()
+            (l0, p0, c0), (l1, p1, c1) = runs
+            assert (c0, c1) == (0, 1), (c0, c1)
+            assert torch.equal(l0.view(torch.int32), l1.view(torch.int32)), wire
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(p0, p1)), wire
+            print("SET CAPTURE OK", rank, wire, flush=True)
+    finally:
+        hvd.shutdown()
+""")
+
+
+@pytest.mark.cuda
+def test_captured_step_on_a_process_set_is_bitwise_with_eager(tmp_path):
+    """A world of two cards ({1} on the set, rank 0 off it) or four ({0, 1}
+    on it), NCCL: the narrow ResNet's step with
+    ``DistributedOptimizer(process_set=...)`` on the bf16 and int8 wires,
+    five steps eager and five under ``HVD_TPU_ONESTEP=on`` (one capture,
+    the set's communicators made in the warm-up steps), from one seed:
+    every rank's losses and weights bitwise equal across the two."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL refuses two ranks on one card")
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, HVD_TPU_QUANT_BACKEND="fused")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, "-c", _SET_CAPTURE, str(r), str(n),
+                               str(tmp_path / "store")],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"SET CAPTURE OK {r} int8" in out, out

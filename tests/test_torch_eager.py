@@ -29,7 +29,7 @@ Also: ``barrier``, ``join`` (the rank that sleeps 0.2 s before it joins
 is the answer on every rank), the counters, the consistency check (a
 shape mismatch raises on every rank), the errors of a reducescatter or
 even alltoall whose dim 0 the world does not divide, and, in this
-process at world one, the errors for ``process_set``, Adasum and
+process at world one, the errors for an unregistered ``process_set``, Adasum and
 ``average`` with ``op``, and ``runtime.refuse_in_capture`` for every op
 that waits on the host, with the capture faked.
 """
@@ -534,8 +534,10 @@ def test_barrier_join_counters_and_errors_in_the_world(worlds, n):
 
 
 def test_errors_at_world_one():
-    """A process set raises naming A2, Adasum naming A8, and ``average``
-    with ``op`` a ``ValueError``, as the JAX eager API does."""
+    """A ``process_set`` that is not a registered ``ProcessSet`` raises
+    ``HorovodTpuError`` (the JAX package's ``_ps_id``), Adasum raises
+    naming A8, and ``average`` with ``op`` a ``ValueError``, as the JAX
+    eager API does."""
     thvd.init("cpu")
     try:
         x = torch.ones(4)
@@ -543,10 +545,11 @@ def test_errors_at_world_one():
                    thvd.reducescatter, thvd.alltoall, thvd.allreduce_async,
                    thvd.grouped_allreduce):
             arg = [x] if fn is thvd.grouped_allreduce else x
-            with pytest.raises(NotImplementedError, match="Queue A entry A2"):
-                fn(arg, process_set=object())
-        with pytest.raises(NotImplementedError, match="Queue A entry A2"):
-            thvd.barrier(process_set=object())
+            for bad in (object(), thvd.ProcessSet([0])):
+                with pytest.raises(thvd.exceptions.HorovodTpuError):
+                    fn(arg, process_set=bad)
+        with pytest.raises(thvd.exceptions.HorovodTpuError, match="not registered"):
+            thvd.barrier(process_set=thvd.ProcessSet([0]))
         with pytest.raises(NotImplementedError, match="Queue A entry A8"):
             thvd.allreduce(x, op=thvd.Adasum)
         with pytest.raises(NotImplementedError, match="Queue A entry A8"):

@@ -19,8 +19,9 @@ collectives, against the JAX package or the reference's contract.
   explicit ``synchronize()`` before ``step()`` is not reduced again,
   with or without ``skip_synchronize()``; without the ``synchronize()``
   the local gradients are applied.  In a world of one they return
-  the object itself and ``[obj]``; a ``process_set`` raises
-  ``NotImplementedError`` naming Queue A item 5.
+  the object itself and ``[obj]``; a ``process_set`` that is not a
+  registered ``ProcessSet`` raises ``HorovodTpuError``, as the JAX
+  package's ``_ps_id`` does, and the global set serves every rank.
 """
 
 import os
@@ -232,10 +233,14 @@ def test_object_collectives_in_a_world_of_one(world1):
     obj = {"epoch": 3, "names": ["a", "b"]}
     assert thvd.broadcast_object(obj, root_rank=0, name="state") is obj
     assert thvd.allgather_object(obj) == [obj]
-    for fn in (lambda: thvd.broadcast_object(obj, process_set=object()),
-               lambda: thvd.allgather_object(obj, process_set=object())):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            fn()
+    for bad in (object(), thvd.ProcessSet([0])):
+        for fn in (lambda: thvd.broadcast_object(obj, process_set=bad),
+                   lambda: thvd.allgather_object(obj, process_set=bad)):
+            with pytest.raises(thvd.exceptions.HorovodTpuError):
+                fn()
+    world = thvd.global_process_set()
+    assert thvd.broadcast_object(obj, process_set=world) is obj
+    assert thvd.allgather_object(obj, process_set=world) == [obj]
 
 
 _WORKER3 = textwrap.dedent("""

@@ -288,8 +288,11 @@ def test_quantized_collectives_refuse_what_they_cannot_serve():
         x = torch.ones(100)
         with pytest.raises(QuantizedWireError):
             tq.quantized_reduce_scatter(x, op=4)  # the JAX package's Max
-        with pytest.raises(QuantizedWireError):
-            tq.quantized_allreduce(x, process_set=object())
+        # A process set is validated as the JAX package's _ps_id
+        # validates it: neither a non-ProcessSet nor an unregistered set.
+        for bad in (object(), thvd.ProcessSet([0])):
+            with pytest.raises(thvd.exceptions.HorovodTpuError):
+                tq.quantized_allreduce(x, process_set=bad)
         with pytest.raises(QuantizedWireError):
             tq.quantized_all_gather(torch.ones(100), block=64)
         with pytest.raises(QuantizedWireError):

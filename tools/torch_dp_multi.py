@@ -28,12 +28,19 @@ on, ...), and rank 0 also prints each side's median and quartiles.
 With ``--onestep-pairs N`` they are N pairs with the step captured as one
 CUDA graph and run eagerly (``HVD_TPU_ONESTEP`` on, off, off, on, ...;
 the barriers off); a captured window's warm-up steps and its capture
-are left out of its timing.
+are left out of its timing.  With ``--process-set 0,1`` every rank
+registers that set at ``init`` and builds two steps per wire, one whose
+``DistributedOptimizer`` reduces over the set and one over the world
+(from the same weights); each window label then runs on the set's step
+and the world's in turns (set, world, world, set, ...), and the labels
+gain ``@set`` and ``@world``.
 Then it checks that:
 
 * every rank holds bitwise the same weights and statistics afterwards
   (on the quantized wire every rank applies the same all-gathered
-  dequant);
+  dequant); on a set, the set's members hold bitwise the same weights,
+  and on a quantized wire so does each group the set tiles the world
+  into (non-members of a set on a dense wire keep their own);
 * on the GPU, each window launched exactly the kernels its wire implies,
   per bucket per step: bf16, B1 twice (the down-cast and the up-cast),
   three times above a world of one (the 1/size postscale of the bf16
@@ -41,7 +48,10 @@ Then it checks that:
   (the 1/size postscale of the reduced shard), and on the fused backend
   B6 and B7 once (the ring) for every bucket whose packed payload fits
   the ring, or else B3 twice (reduce-scatter and all-gather), B4 and B5
-  once (the NCCL lowering, also the phase backend's); off, none;
+  once (the NCCL lowering, also the phase backend's); off, none; on a
+  set, a non-member launches nothing on bf16, and every rank takes the
+  NCCL lowering on a quantized wire (groups never take the ring:
+  ``quant.fused_fallback`` counts both collectives of every bucket);
 * ``quant.fused_fallback`` counts exactly the fused collectives that
   could not take the ring (none at ``--fusion-threshold 33554432``).
 
@@ -81,23 +91,39 @@ def worker(args) -> None:
         os.environ["HVD_TPU_FUSION_THRESHOLD"] = str(args.fusion_threshold)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    members = ([int(r) for r in args.process_set.split(",")]
+               if args.process_set else None)
     hvd.init(args.device, init_method=f"file://{args.store}",
-             rank=args.rank, size=args.nproc)
+             rank=args.rank, size=args.nproc,
+             process_sets=[hvd.ProcessSet(members)] if members else None)
     try:
         dev = hvd.device()
-        if args.tiny:
-            model = ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
-                           dtype=torch.float32, seed=args.rank, device=dev)
-            shape, classes = (32, 32, 32, 3), 10
-        else:
-            model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
-                             seed=args.rank, device=dev)
-            shape, classes = (32, 224, 224, 3), 1000
+
+        def make_model():
+            if args.tiny:
+                return ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
+                              dtype=torch.float32, seed=args.rank, device=dev)
+            return ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                            seed=args.rank, device=dev)
+
+        shape, classes = ((32, 32, 32, 3), 10) if args.tiny else ((32, 224, 224, 3), 1000)
         wires = window_labels(args.wire, args.overlap_pairs, args.onestep_pairs)
+        pset = None
+        if members:
+            pset = hvd.global_process_set() if len(members) == args.nproc else [
+                ps for ps in (hvd.runtime.get_runtime().process_set_table.get(i)
+                              for i in hvd.get_process_set_ids())
+                if list(ps.ranks) == sorted(members)][0]
         # The wire at construction decides whether the optimizer keeps
-        # error-feedback residuals.
-        os.environ["HVD_TPU_SCHED_WIRE"] = wires[0].split("/")[0]
-        step, opt = build_dp_step(hvd, model)
+        # error-feedback residuals: with a set, one pair of steps (the
+        # set's, the world's) per wire, each built under its wire.
+        steps = {}
+        for wire in dict.fromkeys(w.split("/")[0] for w in wires):
+            os.environ["HVD_TPU_SCHED_WIRE"] = wire
+            for where in (("set", "world") if members else (None,)):
+                model = make_model()
+                steps[(wire, where)] = (model,) + build_dp_step(
+                    hvd, model, process_set=pset if where == "set" else None)
         g = torch.Generator(device=dev).manual_seed(100 + args.rank)
         batch = (torch.rand(*shape, generator=g, device=dev),
                  torch.randint(0, classes, (shape[0],), generator=g, device=dev))
@@ -106,7 +132,7 @@ def worker(args) -> None:
                     "B6": rk.rs_ring, "B7": rk.ag_ring}
         fused = (args.backend or "fused") == "fused"
 
-        def window(label: str):
+        def window(label: str, step):
             """One window of ``label`` (``window_labels``): step ms, the
             timed steps' launches and the last loss."""
             before = {}
@@ -127,19 +153,30 @@ def worker(args) -> None:
             c = -(-v // (n * 512)) * 512
             return n > 1 and n * (c + 4 * (c // 512)) <= peer.CAP
 
-        def expected(label: str) -> dict:
+        def expected(label: str, opt, on_set: bool) -> dict:
             wire = label.split("/")[0]
             total = dict.fromkeys(list(counters) + ["fallback"], 0)
+            quantized = wire in ("int8", "fp8")
+            # The ranks this rank reduces with: its tile of the set on a
+            # quantized wire, the set's members (none for a non-member) on
+            # a dense one, else the world.
+            n = args.nproc
+            if on_set:
+                n = len(members)
+                if not quantized and args.rank not in members:
+                    n = 0
             for bucket in opt.schedule.buckets:
                 per = dict.fromkeys(total, 0)
-                quantized = wire in ("int8", "fp8")
-                ring = quantized and fused and dev.type == "cuda" and fits_ring(bucket)
-                if fused and quantized and not ring and (dev.type == "cuda"
-                                                         or args.nproc == 1):
+                ring = (quantized and fused and dev.type == "cuda" and not on_set
+                        and fits_ring(bucket))
+                # A replay runs no Python, so a captured window counts none.
+                captured = label.split("/")[-1].startswith("captured")
+                if (fused and quantized and not ring and (dev.type == "cuda" or n == 1)
+                        and not (captured and dev.type == "cuda")):
                     per["fallback"] = 2  # the reduce-scatter and the all-gather
                 if dev.type == "cuda":
-                    above_one = int(args.nproc > 1)
-                    if wire == "bf16":
+                    above_one = int(n > 1)
+                    if wire == "bf16" and n:
                         per["B1"] = 2 + above_one
                     elif ring:
                         per.update(B1=above_one, B6=1, B7=1)
@@ -149,23 +186,38 @@ def worker(args) -> None:
                     total[k] += v * args.steps
             return total
 
-        timing = {w: [] for w in wires}
+        runs = [(w, where) for i, w in enumerate(wires)
+                for where in ((("set", "world") if i % 2 == 0 else ("world", "set"))
+                              if members else (None,))]
+        timing = {w if where is None else f"{w}@{where}": [] for w, where in runs}
         losses = []
-        for wire in wires:
-            ms, launches, loss = window(wire)
-            timing[wire].append(ms)
+        for wire, where in runs:
+            model, step, opt = steps[(wire.split("/")[0], where)]
+            ms, launches, loss = window(wire, step)
+            label = wire if where is None else f"{wire}@{where}"
+            timing[label].append(ms)
             losses.append(loss)
-            if launches != expected(wire):
+            want = expected(wire, opt, where == "set")
+            if launches != want:
                 raise SystemExit(f"rank {args.rank}: launches {launches} in a "
-                                 f"{wire} window, expected {expected(wire)}")
-        state = torch.cat([t.detach().float().reshape(-1).cpu()
-                           for t in model.state_dict().values()])
-        digest = [float(state.double().sum()), float(state.double().abs().sum()),
-                  state.numel()]
-        digests = [None] * args.nproc
-        dist.all_gather_object(digests, digest)
-        if any(d != digests[0] for d in digests):
-            raise SystemExit(f"ranks hold different weights: {digests}")
+                                 f"{label} window, expected {want}")
+        for (wire, where), (model, _, _) in steps.items():
+            state = torch.cat([t.detach().float().reshape(-1).cpu()
+                               for t in model.state_dict().values()])
+            digest = [float(state.double().sum()), float(state.double().abs().sum()),
+                      state.numel()]
+            digests = [None] * args.nproc
+            dist.all_gather_object(digests, digest)
+            groups = [list(range(args.nproc))]
+            if where == "set":
+                groups = (hvd.runtime.get_runtime().process_set_table
+                          .partition_groups(pset) or [sorted(members)])
+                if wire not in ("int8", "fp8"):
+                    groups = groups[:1]
+            for grp in groups:
+                if any(digests[r] != digests[grp[0]] for r in grp):
+                    raise SystemExit(f"{wire} {where or ''}: ranks {grp} hold different "
+                                     f"weights: {digests}")
         if args.rank == 0:
             card = "cpu"
             if dev.type == "cuda":
@@ -182,11 +234,15 @@ def worker(args) -> None:
                 "batch_per_rank": shape[0],
                 "buckets": [b.nbytes for b in opt.schedule.buckets],
                 "residuals": opt.residuals is not None,
+                "process_set": members,
                 "quant_backend": args.backend or "fused",
                 "fusion_threshold": args.fusion_threshold,
                 "step_ms": timing, "step_ms_quartiles": spread,
                 "img_s": {w: [imgs / ms * 1e3 for ms in v] for w, v in timing.items()},
-                "losses": losses, "weights_equal_on_all_ranks": True,
+                "losses": losses,
+                "weights_equal": ("on every rank" if not members else
+                                  "on the set's members (and, quantized, within "
+                                  "each tile)"),
             }), flush=True)
     finally:
         hvd.shutdown()
@@ -210,6 +266,8 @@ def launch(args) -> int:
             cmd += ["--overlap-pairs", str(args.overlap_pairs)]
         if args.onestep_pairs:
             cmd += ["--onestep-pairs", str(args.onestep_pairs)]
+        if args.process_set:
+            cmd += ["--process-set", args.process_set]
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
@@ -242,6 +300,9 @@ def main() -> None:
     ap.add_argument("--onestep-pairs", type=int, default=0,
                     help="time this many pairs of windows with the step "
                     "captured as one CUDA graph and run eagerly")
+    ap.add_argument("--process-set",
+                    help="ranks of a process set, e.g. 0,1: time each window on a "
+                    "step reduced over the set and on one over the world, in turns")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
