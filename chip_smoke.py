@@ -150,12 +150,32 @@ exits non-zero):
 8. slice gpt: ``init`` on NCCL (world of one), GPT-2 small at its
    published widths (vocab 50304, 12 layers, width 768, 12 heads x 64,
    ff 3072, seq 1024, bf16 compute), batch 16, ``build_lm_step`` with
-   AdamW and ``Compression.bf16`` (``HVD_TPU_SCHED_WIRE=off``, as
-   ``bench_gpt``); dense rows for 2 warm-up + 5 timed steps, packed rows
-   (``packed_lm_batch``) for 1 + 2; finite losses, the first dense one
-   within 1 of ln(50304), B2 launched exactly 12 times per step, all on
-   the wgmma route, and no other kernel; step ms, tokens/s and peak
-   memory.
+   AdamW (``capturable=True`` on the card) and ``Compression.bf16``
+   (``HVD_TPU_SCHED_WIRE=off``, as ``bench_gpt``); dense rows for 2
+   warm-up + 5 timed steps, packed rows (``packed_lm_batch``) for 1 + 2;
+   finite losses, the first dense one within 1 of ln(50304), B2 launched
+   exactly 12 times per step, all on the wgmma route, and no other
+   kernel; step ms, tokens/s and peak memory.  Each row kind again with
+   the step captured as one CUDA graph (``HVD_TPU_ONESTEP=on``) for as
+   many steps from the same weights: losses and weights bitwise equal
+   to the eager run's, one capture, B2 12 times per step counted on the
+   replays; then windows of 5 steps, captured and eager in turns
+   (A/B/B/A), with step ms and tokens/s.
+   Then slice hybrid: GPT-2 small at the same widths in a world of four
+   ranks (four sharing the one card on gloo; one per card on NCCL with
+   four cards, ``--only ring``), seq 1024, batch 2 per dp rank, the bf16
+   wire of ``sync_gradients``, over three meshes for 1 + 3 steps each:
+   ``dp2 x tp2`` with flash attention (B2 at 6 heads), ``sp2 x tp2``
+   with ring attention (no B2) and ``sp4`` with Ulysses (B2 at 3 heads
+   over T 1024); then ``dp2 x tp2`` for 2 steps on int8, where the tp
+   shards' mean is over dp alone (B3 twice, B4, B5 and B1 once per such
+   bucket).  Checks: finite losses; each mesh's first loss within 2^-8
+   of the unsharded flash step on the same tokens and weights; replicated
+   parameters bitwise equal on every rank and each tp shard across its
+   replicas; B2 and B1 launches per step exactly as the mesh implies
+   (B1 three times per bf16 bucket: the down-cast, the 1/n mean and the
+   up-cast); B2 at the tp and Ulysses shapes against its plain version;
+   step ms and tokens/s.
 9. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
    seq 256) for three steps on the card against the CPU path, to stated
    tolerances.
@@ -175,10 +195,13 @@ the host cost means the main path's calls of that kernel are paced by
 the host.
 
 ``--out PATH`` also writes every measurement as JSON.  ``--only ring``
-runs phases 1, 2 and 7 (slice ring, then slice sets) alone (the phases
-that need more than one card, for a run on several), ``--only sets``
-phases 1, 2 and slice sets, ``--only kernel`` phases 1 to 3; none prints
-a kernels line.
+runs phases 1, 2 and 7 (slice ring, then slice sets), then, with two
+cards or more, the GPT step at world min(count, 4) eager and captured
+(``tools/torch_lm_multi.py``: every rank bitwise, captured bitwise with
+eager, exact launches, a pair of windows) and slice hybrid (the phases
+that need more than one card, for a run on several); ``--only sets``
+phases 1, 2 and slice sets, ``--only hybrid`` phases 1, 2 and slice
+hybrid, ``--only kernel`` phases 1 to 3; none prints a kernels line.
 """
 
 import argparse
@@ -203,6 +226,30 @@ FP8_WARMUP, FP8_TIMED = 1, 2
 PACKED_WARMUP, PACKED_TIMED = 1, 2
 BLOCK = 512  # HVD_TPU_QUANT_BLOCK default
 GPT_BATCH, GPT_SEQ, GPT_LAYERS, GPT_VOCAB = 16, 1024, 12, 50304
+# Windows of the captured GPT step against eager, in turns.
+GPT_WINDOWS, GPT_WINDOW_STEPS = ["captured", "eager", "eager", "captured"], 5
+# Phase slice hybrid: the meshes (degrees, attention), rows per dp rank,
+# timed steps after the first, int8 steps on dp2 x tp2.  The first loss
+# of each mesh against the unsharded flash model on the same tokens and
+# weights: the loss is a float32 mean over 2048 or 4096 tokens of
+# logits from a bf16 residual stream that tensor parallelism rounds
+# once more (each rank's partial product, before the sum); on an H100
+# the gaps were at most 5e-6 of the loss, and the limit is 20 times
+# that.  The gradients after ``sync_gradients`` against the unsharded
+# model's, both models computing in float32 (each parameter's shard, by
+# the norm of the difference over the norm of the unsharded gradient):
+# the bf16 wire rounds each element twice (the cast, the sum), to 2^-8
+# of itself, and the limit is 4 times that (float32 compute keeps the
+# models' own rounding far below it).  A wrong sum or routing of
+# cotangents moves whole gradients: the worst parameter by 0.92 with
+# the row layer's backward sum left out (gpt_tiny on the CPU), by 0.75
+# with the ring's staged hop cutting the gradient of K and V (an H100).
+HYBRID_MESHES = {"dp2_tp2": ({"dp": 2, "tp": 2}, "flash"),
+                 "sp2_tp2": ({"sp": 2, "tp": 2}, "ring"),
+                 "sp4": ({"sp": 4}, "ulysses")}
+HYBRID_BATCH, HYBRID_TIMED, HYBRID_INT8 = 2, 3, 2
+HYBRID_LOSS_RTOL = 1e-4
+HYBRID_GRAD_RTOL = 2.0 ** -6
 SOURCES = ["scale_cast", "quant", "flash_attn", "flash_attn_sm90", "quant_ring"]
 RING_THRESHOLD = 32 * 1024 * 1024  # HVD_TPU_FUSION_THRESHOLD of the ring slice
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
@@ -2500,6 +2547,7 @@ def gpt_phase(hvd, tt, build_lm_step, timed_throughput, counters, batch,
         launches = {k: c.launches for k, c in counters.items()}
         torch.cuda.synchronize()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        digest = param_digest(model)
         del model, step
     finally:
         hvd.shutdown()
@@ -2520,7 +2568,8 @@ def gpt_phase(hvd, tt, build_lm_step, timed_throughput, counters, batch,
           f"launches {launches} (= expected); step {step_ms:.2f} ms, "
           f"{tok_s:.0f} tokens/s, peak {peak_gib:.2f} GiB on {card}", flush=True)
     return {"packed": packed, "losses": losses, "step_ms": step_ms,
-            "tokens_s": tok_s, "peak_gib": peak_gib, "launches": launches}
+            "tokens_s": tok_s, "peak_gib": peak_gib, "launches": launches,
+            "digest": digest}
 
 
 def reference_gpt_phase(hvd, tt, build_lm_step):
@@ -2614,24 +2663,491 @@ def examples_phase(root, card):
     return out
 
 
+def gpt_onestep_phase(hvd, tt, build_lm_step, counters, batch, packed, steps, eager, card):
+    """The GPT slice's step captured as one CUDA graph (``HVD_TPU_ONESTEP=on``)
+    for as many steps, from the same weights and batch, as the eager run
+    ``eager`` (``gpt_phase``, AdamW ``capturable=True`` in both): losses and
+    weights bitwise equal, one capture, B2 counted 12 times per step on the
+    replays; then ``GPT_WINDOWS`` windows of ``GPT_WINDOW_STEPS`` steps,
+    captured and eager in turns, on one step."""
+    import torch
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.utils.benchmarks import timed_window
+
+    what = "packed" if packed else "dense"
+    os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+    os.environ["HVD_TPU_ONESTEP"] = "on"
+    hvd.init("cuda")
+    try:
+        model = tt.gpt_small(seed=0, device="cuda")
+        step, _ = build_lm_step(hvd, model, packed=packed)
+        for c in counters.values():
+            c.launches = 0
+        metrics.reset("xir.")
+        losses = [float(step(batch)) for _ in range(steps)]
+        launches = {k: c.launches for k, c in counters.items()}
+        captures = metrics.get_counter("xir.onestep.steps")
+        digest = param_digest(model)
+        del model, step
+        torch.cuda.empty_cache()
+        model = tt.gpt_small(seed=0, device="cuda")
+        step, _ = build_lm_step(hvd, model, packed=packed)
+        windows = []
+        for label in GPT_WINDOWS:
+            seconds, _ = timed_window(step, batch, f"off/{label}", GPT_WINDOW_STEPS)
+            ms = seconds / GPT_WINDOW_STEPS * 1e3
+            rows = batch[0].shape[0] if packed else batch.shape[0]
+            windows.append({"label": label, "step_ms": ms,
+                            "tokens_s": rows * GPT_SEQ / ms * 1e3})
+        del model, step
+    finally:
+        os.environ["HVD_TPU_ONESTEP"] = "off"
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+    if losses != eager["losses"] or digest != eager["digest"]:
+        fail(f"gpt {what}: captured losses {losses} != eager {eager['losses']}, or the "
+             "weights differ")
+    on_path = ("flash_fwd", "flash_fwd_wgmma")
+    expected = {k: (GPT_LAYERS * steps if k in on_path else 0) for k in counters}
+    if launches != expected or captures != 1:
+        fail(f"gpt {what} captured: launches {launches} (expected {expected}), "
+             f"{captures} captures")
+    print(f"phase slice gpt {what} captured: {steps} steps bitwise with eager (losses and "
+          f"weights; AdamW capturable=True), 1 capture, launches {launches} (= expected, "
+          f"replays counted); {fmt_gpt_windows(windows)} on {card}", flush=True)
+    return {"losses": losses, "launches": launches, "windows": windows}
+
+
+def fmt_gpt_windows(windows) -> str:
+    return "; ".join(f"{w['label']} {w['step_ms']:.2f} ms {w['tokens_s']:.0f} tok/s"
+                     for w in windows)
+
+
+def hybrid_data(steps, rows, seq, vocab):
+    """Every rank's copy of the hybrid slice's tokens: ``[steps, rows,
+    seq + 1]`` from seed 5, the targets being the next tokens."""
+    import torch
+
+    g = torch.Generator().manual_seed(5)
+    return torch.randint(0, vocab, (steps, rows, seq + 1), generator=g)
+
+
+def hybrid_digests(model, mesh, tt) -> dict:
+    """Per parameter, (its tp shard's coordinate or None, its digest)."""
+    import hashlib
+
+    import torch
+
+    axes = tt.param_shard_axes(dict(model.named_parameters()), model.cfg)
+    out = {}
+    for name, p in model.named_parameters():
+        h = hashlib.sha256(p.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        shard = mesh.axis_index("tp") if axes[name] and mesh.axis_size("tp") > 1 else None
+        out[name] = (shard, h.hexdigest())
+    return out
+
+
+def plain_quantized_exchange(xs, wire, block=BLOCK):
+    """The NCCL lowering of ``sched/execute.py`` ``quantized_exchange_flat``
+    (an average, no residual) for one group, on the CPU through the
+    plain versions of B3, B1, B4 and B5: ``xs`` are the group's members'
+    flat float32 buckets in group order; returns the result, the same on
+    every member."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.ops import quant_kernels as qk
+
+    n, V = len(xs), xs[0].numel()
+    c = -(-V // (n * block)) * block
+    packed = [qk.quant_packed_reference(F.pad(x.float(), (0, c * n - V)).view(
+        n, c // block, block), wire)[0] for x in xs]
+    shards = [kernels.scale_cast_reference(qk.dequant_accum_reference(
+        torch.stack([packed[m][j] for m in range(n)]), wire).view(c), 1.0 / n)
+        for j in range(n)]
+    rows = torch.cat([qk.quant_packed_reference(s.view(1, c // block, block), wire)[0]
+                      for s in shards])
+    return qk.dequant_rows_reference(rows, wire).reshape(-1)[:V]
+
+
+def hybrid_checks(model, full, mesh, toks, rows, cols, counters, int8) -> dict:
+    """Phase slice hybrid's checks of one mesh, on every rank, before its
+    steps: ``toks`` (``[rows over every dp rank, seq + 1]``, the first
+    batch) through the unsharded model ``full`` (the same seed) gives
+    the reference gradients; this rank's block through ``model`` (made
+    on ``mesh``) gives its raw gradients.  Both models compute in
+    float32 (``HYBRID_GRAD_RTOL``).  Then (1) bucket 0 of each of
+    ``sync_gradients``' mean groups goes through the bf16 wire (B1: cast,
+    mean on the mesh's group, cast back) and, with ``int8``, the
+    single-axis groups' bucket 0 through the quantized exchange on the
+    mesh's groups (B3, B4, B1, B3, B5), each bitwise with its plain
+    version on the same inputs and groups and with exact launch counts
+    on a card; (2) ``sync_gradients`` (the step's own call, on the bf16
+    wire) is held against the unsharded gradients' shards within
+    ``HYBRID_GRAD_RTOL``.  Returns the worst gradient error over the
+    ranks and the wire checks."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.ops.collectives import f32_reciprocal
+    from horovod_tpu_torch.parallel.grad_sync import pmean_, sync_gradients, wire_groups
+    from horovod_tpu_torch.sched import execute
+    from horovod_tpu_torch.sched.plan import SchedConfig, build_schedule, dtype_name
+
+    on_card = toks.is_cuda
+    logits, _ = full(toks[:, :-1])
+    loss = tt.token_cross_entropy(logits, toks[:, 1:])
+    del logits
+    loss.backward()
+    want_grads = {n: p.grad for n, p in full.named_parameters()}
+    del full, loss
+
+    params = dict(model.named_parameters())
+    axes = tt.param_shard_axes(params, model.cfg)
+    model.zero_grad(set_to_none=True)
+    block = toks[rows]
+    logits, aux = model(block[:, :-1][:, cols])
+    (tt.token_cross_entropy(logits, block[:, 1:][:, cols]) + 0.01 * aux).backward()
+    del logits
+    raw = {n: p.grad.detach().clone() for n, p in params.items()}
+    model.zero_grad(set_to_none=True)
+
+    present = tuple(a for a in ("dp", "sp", "tp", "ep") if mesh.present(a))
+    groups = {}
+    for name in params:
+        m = tuple(a for a in present if a not in axes[name].split())
+        if m and mesh.group_size(m) > 1:
+            groups.setdefault(m, []).append(name)
+    wire_rec, problems = {}, []
+    cfg = SchedConfig.from_env()
+    for m, names in groups.items():
+        n = mesh.group_size(m)
+        for wire in ("bf16", "int8") if int8 and len(m) == 1 else ("bf16",):
+            bucket = build_schedule([raw[x].numel() * raw[x].element_size() for x in names],
+                                    [dtype_name(raw[x].dtype) for x in names], cfg,
+                                    wire=wire).buckets[0]
+            f = torch.cat([raw[names[j]].reshape(-1) for j in bucket.indices])
+            for c in counters.values():
+                c.launches = 0
+            if wire == "bf16":
+                got = execute.bf16_wire(lambda x, _m=m: pmean_(x, mesh, _m))(f)
+                want = kernels.scale_cast_reference(f, 1.0, torch.bfloat16)
+                dist.all_reduce(want, group=mesh.group(m))
+                want = kernels.scale_cast_reference(
+                    kernels.scale_cast_reference(want, f32_reciprocal(n)), 1.0, f.dtype)
+                expected = {"scale_cast": 3}
+            else:
+                got, _ = execute.quantized_exchange_flat(f, average=True, wire=wire,
+                                                         groups=wire_groups(mesh, m))
+                members = [torch.empty_like(f) for _ in range(n)]
+                dist.all_gather(members, f, group=mesh.group(m))
+                want = plain_quantized_exchange([x.cpu() for x in members], wire)
+                expected = {"scale_cast": 1, "quant_pack": 2, "dequant_accum": 1,
+                            "dequant_rows": 1}
+            launches = {k: c.launches for k, c in counters.items() if c.launches}
+            label = f"{wire} over {'x'.join(m)}"
+            if on_card and launches != expected:
+                problems.append(f"{label}: launches {launches}, expected {expected}")
+            if not torch.equal(bits(got.cpu()), bits(want.cpu())):
+                problems.append(f"{label}: the kernels' result differs from the plain "
+                                "versions' on the mesh's group")
+            wire_rec[label] = {"elements": f.numel(), "launches": launches}
+
+    synced = sync_gradients(raw, axes, mesh)
+    tp, r = mesh.axis_size("tp"), mesh.axis_index("tp")
+    worst = (0.0, "")
+    for name, g in synced.items():
+        want = tt.shard_of(name, want_grads[name], model.cfg, tp, r).float()
+        err = float((g.float() - want).norm()) / max(float(want.norm()), 1e-30)
+        if not err <= worst[0]:
+            worst = (err, name)
+    if not worst[0] <= HYBRID_GRAD_RTOL:
+        problems.append(f"the synced gradient of {worst[1]} is {worst[0]} of its norm "
+                        "away from the unsharded model's")
+    every = [None] * mesh.size  # every rank fails together, none waits on another
+    dist.all_gather_object(every, (worst, problems))
+    if any(p for _, p in every):
+        raise SystemExit(f"rank {mesh.rank}: {[p for _, p in every]}")
+    worst = max(w for w, _ in every)
+    return {"grad_err": worst[0], "grad_worst": worst[1], "wire": wire_rec}
+
+
+def hybrid_worker(args) -> None:
+    """One rank of phase slice hybrid, started by ``hybrid_slice_phase``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import flash, kernels
+    from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.parallel import make_mesh
+    from horovod_tpu_torch.sched.plan import SchedConfig, build_schedule, dtype_name
+    from horovod_tpu_torch.utils.benchmarks import build_hybrid_lm_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    rank, n = args.hybrid_rank, args.hybrid_size
+    device = args.hybrid_device
+    hvd.init(device, init_method=f"file://{args.hybrid_store}", rank=rank, size=n,
+             backend=args.hybrid_backend)
+    try:
+        dev = hvd.device()
+        on_card = dev.type == "cuda"
+        tiny = not on_card  # a rehearsal on the CPU: gpt_tiny at 64 positions
+        build = tt.gpt_tiny if tiny else tt.gpt_small
+        seq = 64 if tiny else GPT_SEQ
+        vocab = 256 if tiny else GPT_VOCAB
+        layers = 2 if tiny else GPT_LAYERS
+        steps = 1 + HYBRID_TIMED
+        data = hybrid_data(steps + HYBRID_INT8, 2 * HYBRID_BATCH, seq, vocab)
+        counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                    "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                    "flash_fwd": flash.flash_forward,
+                    "flash_fwd_wgmma": flash.flash_forward_wgmma}
+        # The dp1 flash reference: each mesh's first global batch through
+        # the unsharded model from the same seed.
+        ref = {}
+        if rank == 0:
+            with torch.no_grad():
+                model = build(seed=0, device=dev)
+                for kind, (deg, _) in HYBRID_MESHES.items():
+                    toks = data[0, :HYBRID_BATCH * deg.get("dp", 1)].to(dev)
+                    logits, _ = model(toks[:, :-1])
+                    ref[kind] = float(tt.token_cross_entropy(logits, toks[:, 1:]))
+                    del logits
+                del model
+        kernel_checks = {}
+        if on_card and rank == 0:  # B2 at the shapes the meshes give it
+            g = torch.Generator(device="cuda").manual_seed(6)
+            for name, h in (("tp2", 6), ("ulysses sp4", 3)):
+                qkv = torch.randn(HYBRID_BATCH, seq, 3, h, 64, generator=g,
+                                  device="cuda").to(torch.bfloat16)
+                q, k, v = (x.contiguous() for x in qkv.unbind(2))
+                out, lse = flash.flash_forward(q, k, v, True, 0.125)
+                want_o, want_l = flash.flash_forward_reference(
+                    q, k, v, True, 0.125, block_k=flash.KERNEL_BLOCK["wgmma"])
+                rtol, atol, lse_tol = FLASH_TOL["bfloat16"]
+                err_o = (out.float() - want_o.float()).abs()
+                err_l = float((lse - want_l).abs().max())
+                if bool((err_o > atol + rtol * want_o.float().abs()).any()) or err_l > lse_tol:
+                    raise SystemExit(f"B2 at the {name} shape: out error "
+                                     f"{float(err_o.max())}, lse error {err_l}")
+                kernel_checks[name] = {"shape": [HYBRID_BATCH, seq, h, 64],
+                                       "max_abs_err": float(err_o.max()), "lse_err": err_l}
+        runs = {}
+        for kind, (deg, impl) in HYBRID_MESHES.items():
+            os.environ["HVD_TPU_SCHED_WIRE"] = "bf16"
+            mesh = make_mesh(**deg)
+            try:
+                model = build(seed=0, device=dev, mesh=mesh, attn_impl=impl)
+                step, _ = build_hybrid_lm_step(model, mesh)
+                dp, sp = mesh.axis_size("dp"), mesh.axis_size("sp")
+                b, t = HYBRID_BATCH, seq // sp
+                rows = slice(mesh.axis_index("dp") * b, (mesh.axis_index("dp") + 1) * b)
+                cols = slice(mesh.axis_index("sp") * t, (mesh.axis_index("sp") + 1) * t)
+
+                def run(i):
+                    toks = data[i, rows].to(dev)
+                    return step(toks[:, cols], toks[:, 1:][:, cols])
+
+                f32 = torch.float32
+                check = hybrid_checks(
+                    build(seed=0, device=dev, mesh=mesh, attn_impl=impl, dtype=f32),
+                    build(seed=0, device=dev, dtype=f32), mesh, data[0, :b * dp].to(dev),
+                    rows, cols, counters, int8=kind == "dp2_tp2")
+                for c in counters.values():
+                    c.launches = 0
+                metrics.reset("sched.")
+                losses = [float(run(0))]
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last = None
+                for i in range(1, steps):
+                    last = run(i)
+                losses += [float(last)]
+                seconds = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in counters.items()}
+                buckets = metrics.get_counter("sched.buckets")
+                rec = {"losses": losses, "check": check,
+                       "step_ms": seconds / HYBRID_TIMED * 1e3,
+                       "tokens_s": b * dp * seq * HYBRID_TIMED / seconds,
+                       "launches": launches, "buckets": buckets,
+                       "b2_shape": [b, seq if impl == "ulysses" else t,
+                                    12 // mesh.axis_size("tp") // (sp if impl == "ulysses"
+                                                                    else 1), 64]}
+                b2 = 0 if impl == "ring" else layers * steps
+                want = {k: 0 for k in counters}
+                if on_card:
+                    want.update(flash_fwd=b2, flash_fwd_wgmma=b2,
+                                scale_cast=3 * buckets)
+                if launches != want:
+                    raise SystemExit(f"rank {rank}: {kind}: launches {launches}, "
+                                     f"expected {want}")
+                if kind == "dp2_tp2":  # then int8: the tp shards' mean is over dp alone
+                    os.environ["HVD_TPU_SCHED_WIRE"] = "int8"
+                    axes = tt.param_shard_axes(dict(model.named_parameters()), model.cfg)
+                    shards = [p for name, p in model.named_parameters() if axes[name]]
+                    qb = len(build_schedule([p.numel() * 4 for p in shards],
+                                            [dtype_name(p.dtype) for p in shards],
+                                            SchedConfig.from_env(), wire="int8").buckets)
+                    for c in counters.values():
+                        c.launches = 0
+                    rec["int8_losses"] = [float(run(steps + i)) for i in range(HYBRID_INT8)]
+                    launches = {k: c.launches for k, c in counters.items()}
+                    want = {k: 0 for k in counters}
+                    if on_card:
+                        want.update(flash_fwd=layers * HYBRID_INT8,
+                                    flash_fwd_wgmma=layers * HYBRID_INT8,
+                                    scale_cast=qb * HYBRID_INT8, quant_pack=2 * qb * HYBRID_INT8,
+                                    dequant_accum=qb * HYBRID_INT8,
+                                    dequant_rows=qb * HYBRID_INT8)
+                    if launches != want:
+                        raise SystemExit(f"rank {rank}: {kind} int8: launches {launches}, "
+                                         f"expected {want}")
+                    rec["int8_launches"], rec["int8_buckets"] = launches, qb
+                allowed = [None] * n
+                dist.all_gather_object(allowed, hybrid_digests(model, mesh, tt))
+                for name, (shard, _) in allowed[0].items():
+                    held = {}
+                    for d in allowed:
+                        held.setdefault(d[name][0], set()).add(d[name][1])
+                    if any(len(v) != 1 for v in held.values()):
+                        raise SystemExit(f"{kind}: {name}: replicas differ: {held}")
+                if not all(math.isfinite(v) for v in losses + rec.get("int8_losses", [])):
+                    raise SystemExit(f"rank {rank}: {kind}: losses {losses}")
+                runs[kind] = rec
+                del model, step
+            finally:
+                mesh.shutdown()
+            if on_card:
+                torch.cuda.empty_cache()
+        if rank == 0:
+            with open(args.hybrid_out, "w") as f:
+                json.dump({"world": n, "backend": args.hybrid_backend, "ref": ref,
+                           "runs": runs, "kernel_checks": kernel_checks}, f)
+    finally:
+        os.environ.pop("HVD_TPU_SCHED_WIRE", None)
+        hvd.shutdown()
+
+
+def hybrid_slice_phase(card, count, log, device="cuda"):
+    """Phase slice hybrid: GPT-2 small over three meshes in a world of
+    four, four ranks sharing one card on gloo or one per card on NCCL
+    (four cards).  Returns rank 0's record."""
+    import tempfile
+
+    n = 4
+    backend = "nccl" if count >= 4 and device == "cuda" else "gloo"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "hybrid.json")
+        cmd = [sys.executable, os.path.abspath(__file__), "--hybrid-size", str(n),
+               "--hybrid-backend", backend, "--hybrid-store", os.path.join(tmp, "store"),
+               "--hybrid-out", out, "--hybrid-device", device]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--hybrid-rank", str(r)], env=env)
+                 for r in range(n)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            fail(f"slice hybrid: ranks exited with {rcs}")
+        with open(out) as f:
+            rec = json.load(f)
+    layout = (f"{n} ranks on {n} cards, NCCL" if backend == "nccl"
+              else f"{n} ranks sharing the one card, gloo" if device == "cuda"
+              else f"{n} ranks on the CPU, gloo (gpt_tiny)")
+    for name, c in rec["kernel_checks"].items():
+        print(f"phase slice hybrid: B2 at the {name} shape {c['shape']} bf16 causal, wgmma "
+              f"route: out error {c['max_abs_err']:.3g}, lse error {c['lse_err']:.3g} "
+              "(within FLASH_TOL)", flush=True)
+    for kind, r in rec["runs"].items():
+        first, want = r["losses"][0], rec["ref"][kind]
+        if abs(first - want) > HYBRID_LOSS_RTOL * abs(want):
+            fail(f"slice hybrid {kind}: first loss {first} vs the dp1 flash step's {want}")
+        c = r["check"]
+        print(f"phase slice hybrid {kind}: gradients after sync_gradients against the "
+              f"unsharded model's (float32 compute; every rank, every parameter's shard): worst "
+              f"{c['grad_err']:.3g} of the norm ({c['grad_worst']}), limit "
+              f"{HYBRID_GRAD_RTOL}; bucket 0 of each mean group through the kernels "
+              f"bitwise with the plain versions on the mesh's groups: "
+              + "; ".join(f"{k} {v['elements']} elements, launches {v['launches']}"
+                          for k, v in c["wire"].items()), flush=True)
+        int8 = (f"; then int8 (the tp shards' mean over dp): losses "
+                f"{[round(v, 5) for v in r['int8_losses']]}, launches {r['int8_launches']} "
+                f"(= {r['int8_buckets']} int8 buckets x {HYBRID_INT8} steps: B3 2, B4 1, "
+                "B5 1, B1 1 each)" if "int8_losses" in r else "")
+        print(f"phase slice hybrid {kind} ({HYBRID_MESHES[kind][1]}): {layout}; GPT-2 small, "
+              f"batch {HYBRID_BATCH} x {GPT_SEQ} per dp rank, bf16 wire; first loss "
+              f"{first:.5f} vs dp1 flash {want:.5f} (rtol {HYBRID_LOSS_RTOL}), last "
+              f"{r['losses'][-1]:.5f}; replicas bitwise; launches {r['launches']} (B2 at "
+              f"{r['b2_shape']}, B1 3 x {r['buckets']} bf16 bucket exchanges){int8}; step "
+              f"{r['step_ms']:.1f} ms, {r['tokens_s']:.0f} tokens/s on {card}", flush=True)
+    print(f"phase slice hybrid: {wall:.0f} s with start-up", flush=True)
+    log["hybrid_slice"] = rec
+    return rec
+
+
+def gpt_world_phase(root, count, card, log):
+    """``--only ring``: the GPT step at world min(count, 4), one rank per
+    card on NCCL, eager and captured (``tools/torch_lm_multi.py``)."""
+    n = min(count, 4)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "torch_lm_multi.py"), "--nproc",
+         str(n), "--pairs", "1", "--steps", "5", "--check-steps", "4"],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"gpt world {n}: exit {proc.returncode}: {proc.stdout[-2000:]} "
+             f"{proc.stderr[-3000:]}")
+    rec = json.loads(lines[-1])
+    print(f"phase slice gpt world {n}: GPT-2 small, batch 16 x {GPT_SEQ} per rank, AdamW, "
+          f"Compression.bf16, dense and packed: eager and captured bitwise on every rank, "
+          f"launches per run {[rec['checks'][k]['launches'] for k in ('dense', 'packed')]}; "
+          f"median step ms {rec['median_step_ms']}, tokens/s {rec['median_tokens_s']} on "
+          f"{card} ({time.perf_counter() - t0:.0f} s with start-up)", flush=True)
+    log["gpt_world"] = rec
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
-    ap.add_argument("--only", choices=["ring", "kernel", "sets"],
+    ap.add_argument("--only", choices=["ring", "kernel", "sets", "hybrid"],
                     help="ring: only the phases that need more than one card; "
                          "kernel: only the kernels against their plain versions; "
-                         "sets: only phase slice sets")
+                         "sets: only phase slice sets; hybrid: only phase slice "
+                         "hybrid")
     for name, kind in (("rank", int), ("size", int), ("backend", str), ("store", str),
                        ("out", str)):
-        ap.add_argument(f"--ring-{name}", type=kind, help=argparse.SUPPRESS)
-        ap.add_argument(f"--sets-{name}", type=kind, help=argparse.SUPPRESS)
+        for worker in ("ring", "sets", "hybrid"):
+            ap.add_argument(f"--{worker}-{name}", type=kind, help=argparse.SUPPRESS)
     ap.add_argument("--sets-batch", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--hybrid-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ring_rank is not None:
         ring_worker(args)
         return
     if args.sets_rank is not None:
         sets_worker(args)
+        return
+    if args.hybrid_rank is not None:
+        hybrid_worker(args)
         return
 
     import torch
@@ -2710,10 +3226,15 @@ def main() -> None:
     print(f"phase kernel: ResNet-50 buckets (elements): {sizes}; padded to the "
           f"int8 block: {padded}; at the ring's 32 MiB threshold: {ring_sizes}",
           flush=True)
-    if args.only in ("ring", "sets"):
+    if args.only in ("ring", "sets", "hybrid"):
         if args.only == "ring":
             ring_slice_phase(card, count, log)
-        sets_slice_phase(card, count, log)
+        if args.only in ("ring", "sets"):
+            sets_slice_phase(card, count, log)
+        if args.only == "ring" and count >= 2:
+            gpt_world_phase(root, count, card, log)
+        if args.only in ("ring", "hybrid"):
+            hybrid_slice_phase(card, count, log)
         finish(args, log, card, kind, count, [])
         return
     record = kernel_phase(kernels, sizes, log)
@@ -2777,10 +3298,17 @@ def main() -> None:
                                          (True, packed_batch, PACKED_WARMUP,
                                           PACKED_TIMED)):
         torch.cuda.empty_cache()
-        gpt_runs["packed" if packed else "dense"] = gpt_phase(
+        what = "packed" if packed else "dense"
+        gpt_runs[what] = gpt_phase(
             hvd, tt, build_lm_step, timed_throughput, counters, batch, packed,
             warmup, timed, card)
+        torch.cuda.empty_cache()
+        gpt_runs[what + "_captured"] = gpt_onestep_phase(
+            hvd, tt, build_lm_step, counters, batch, packed, warmup + timed,
+            gpt_runs[what], card)
     log["gpt"] = gpt_runs
+    torch.cuda.empty_cache()
+    hybrid_slice_phase(card, count, log)
     log["reference_gpt"] = reference_gpt_phase(hvd, tt, build_lm_step)
     torch.cuda.empty_cache()
     log["examples"] = examples_phase(root, card)

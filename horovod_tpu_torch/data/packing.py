@@ -1,15 +1,15 @@
 """Sequence packing for LM pretraining batches.
 
 Copy of ``horovod_tpu/data/packing.py`` (``pack_documents``,
-``packing_efficiency``): pure numpy, kept here so that the port imports
-nothing of the JAX package.  Several documents share one fixed-length
+``pack_batches``, ``packing_efficiency``): pure numpy, kept here so that
+the port imports nothing of the JAX package.  Several documents share one fixed-length
 row; ``segment_ids`` mark document membership (ids start at 1; 0 is
 padding).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -63,6 +63,51 @@ def pack_documents(
             segs[r, off:off + len(piece)] = s
             off += len(piece)
     return tokens, segs
+
+
+def pack_batches(
+    docs: Iterable[np.ndarray],
+    seq_len: int,
+    batch_size: int,
+    pad_id: int = 0,
+    drop_remainder: bool = True,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield ``(tokens, segment_ids)`` batches of shape
+    ``(batch_size, seq_len)`` from a document stream (static shapes).
+    Rows pack greedily within a window of documents."""
+    window: List[np.ndarray] = []
+    # Pack in windows big enough to fill ~2 batches so first-fit has
+    # material to work with, then emit full batches.
+    rows_t: List[np.ndarray] = []
+    rows_s: List[np.ndarray] = []
+    for d in docs:
+        window.append(np.asarray(d).reshape(-1))
+        if sum(len(w) for w in window) >= 2 * batch_size * seq_len:
+            t, s = pack_documents(window, seq_len, pad_id)
+            rows_t.extend(t)
+            rows_s.extend(s)
+            window = []
+        while len(rows_t) >= batch_size:
+            yield (np.stack(rows_t[:batch_size]),
+                   np.stack(rows_s[:batch_size]))
+            rows_t, rows_s = rows_t[batch_size:], rows_s[batch_size:]
+    if window:
+        t, s = pack_documents(window, seq_len, pad_id)
+        rows_t.extend(t)
+        rows_s.extend(s)
+    while len(rows_t) >= batch_size:
+        yield (np.stack(rows_t[:batch_size]), np.stack(rows_s[:batch_size]))
+        rows_t, rows_s = rows_t[batch_size:], rows_s[batch_size:]
+    if rows_t and not drop_remainder:
+        pad_rows = batch_size - len(rows_t)
+        t = np.concatenate(
+            [np.stack(rows_t),
+             np.full((pad_rows, seq_len), pad_id, np.int32)]
+        )
+        s = np.concatenate(
+            [np.stack(rows_s), np.zeros((pad_rows, seq_len), np.int32)]
+        )
+        yield t, s
 
 
 def packing_efficiency(segment_ids: np.ndarray) -> float:

@@ -1,14 +1,26 @@
 """GPT-style decoder-only transformer as a torch ``nn.Module`` with the
-JAX model's numerics.
+JAX model's numerics, wired for hybrid parallelism over a mesh.
 
 Counterpart of ``horovod_tpu/models/transformer.py``:
 ``TransformerConfig`` (``:46``), ``Attention`` (``:74``), ``Block``
-(``:142``), ``Transformer`` (``:181``), ``gpt_small`` (``:296``),
-``gpt_tiny`` (``:307``), ``packed_token_cross_entropy`` (``:317``) and
-``token_cross_entropy`` (``:339``).  Ported: the dense single-device
-model with ``attn_impl`` "flash" (kernel B2, ``ops/flash.py``) or "full".
-Ring and Ulysses attention, a sequence or tensor axis, MoE and remat
-raise ``NotImplementedError`` (ROADMAP Queue A item 10).
+(``:142``), ``Transformer`` (``:181``), ``param_shard_axes`` (``:261``),
+``gpt_small`` (``:296``), ``gpt_tiny`` (``:307``),
+``packed_token_cross_entropy`` (``:317``) and ``token_cross_entropy``
+(``:339``).  ``attn_impl`` "flash" (kernel B2, ``ops/flash.py``),
+"full", "ring" (``parallel/ring_attention.py``) or "ulysses"
+(``parallel/ulysses.py``, with B2 inside at ``[B, T_global, H/sp, D]``).
+
+The model, its layers and ``parallel.sync_gradients`` take a
+``parallel.Mesh`` where the JAX model reads the axes ``shard_map`` binds:
+``mesh=None`` is the single-device model.  Over a mesh the qkv, proj
+and MLP layers are tensor-parallel over ``tp_axis`` (this rank holds
+heads ``r·H/tp:(r+1)·H/tp``; qkv's local columns in ``[3, H/tp, D]``
+order), the tokens are this rank's block of the sequence over
+``sp_axis`` (positions offset by the block's index), and the model
+raises every error the JAX one raises: heads not divisible by tp,
+packed rows with ring/ulysses or over sp > 1, flash/full on an sp axis
+of size > 1, a global length over ``max_len``.  MoE and remat raise
+``NotImplementedError`` (ROADMAP Queue A entry A10).
 
 Kept from the flax model, on purpose:
 
@@ -35,16 +47,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.flash import flash_attention
-from ..parallel import EP_AXIS, SP_AXIS, TP_AXIS
-from ..parallel.ring_attention import full_attention
+from ..parallel.mesh import EP_AXIS, SP_AXIS, TP_AXIS, Mesh
+from ..parallel.ring_attention import full_attention, ring_attention
 from ..parallel.tensor import (
     ColumnParallelDense,
     RowParallelDense,
     TensorParallelMLP,
+    axis_degree,
     lecun_normal_,
 )
+from ..parallel.ulysses import ulysses_attention
 
-_QUEUE = "ROADMAP Queue A item 10"
+_QUEUE = "ROADMAP Queue A entry A10"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +73,10 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     causal: bool = True
     # Parallelism:
-    attn_impl: str = "flash"     # "flash" | "full" ("ring", "ulysses": not ported)
+    attn_impl: str = "flash"     # "flash" | "full" | "ring" | "ulysses"
     sp_axis: str = SP_AXIS
     tp_axis: str = TP_AXIS
-    remat: bool = False
+    remat: bool = False          # not ported
     # MoE (0: dense FFN everywhere; MoE is not ported):
     moe_every: int = 0
     num_experts_local: int = 1
@@ -71,12 +85,9 @@ class TransformerConfig:
     ep_axis: str = EP_AXIS
 
     def check(self) -> None:
-        """Raise for what the port does not run yet."""
-        if self.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} is not ported yet: {_QUEUE}"
-            )
-        if self.attn_impl not in ("flash", "full"):
+        """Raise for an unknown ``attn_impl`` and for what the port does
+        not run yet."""
+        if self.attn_impl not in ("flash", "full", "ring", "ulysses"):
             raise ValueError(
                 f"unknown attn_impl {self.attn_impl!r}; expected 'flash', "
                 "'full', 'ring', or 'ulysses'"
@@ -117,44 +128,71 @@ class Embed(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention: one qkv projection, flash or full
-    attention, an output projection."""
+    """Multi-head self-attention: tp-sharded qkv and output projections,
+    and flash, full, ring or Ulysses attention."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh: Optional[Mesh] = None):
         super().__init__()
         cfg.check()
         self.cfg = cfg
+        self.mesh = mesh
+        tp = axis_degree(mesh, cfg.tp_axis)
+        if cfg.num_heads % tp != 0:
+            raise ValueError(
+                f"num_heads {cfg.num_heads} not divisible by tp degree {tp}"
+            )
+        self.h_local = cfg.num_heads // tp
         width = cfg.num_heads * cfg.head_dim
         self.qkv = ColumnParallelDense(cfg.model_dim, 3 * width, cfg.tp_axis,
-                                       dtype=cfg.dtype)
+                                       dtype=cfg.dtype, mesh=mesh)
         self.proj = RowParallelDense(width, cfg.model_dim, cfg.tp_axis,
-                                     dtype=cfg.dtype)
+                                     dtype=cfg.dtype, mesh=mesh)
 
     def forward(self, x: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         b, t, _ = x.shape
-        qkv = self.qkv(x).view(b, t, 3, cfg.num_heads, cfg.head_dim)
+        qkv = self.qkv(x).view(b, t, 3, self.h_local, cfg.head_dim)
         q, k, v = qkv.unbind(2)  # strided views: B2 reads them in place
-        if cfg.attn_impl == "flash":
+        if segment_ids is not None and cfg.attn_impl not in ("flash", "full"):
+            raise ValueError(
+                "packed sequences (segment_ids) require attn_impl='flash' "
+                "or 'full'; sequence-parallel impls do not support packing"
+            )
+        sp_present = mesh is not None and mesh.present(cfg.sp_axis)
+        # With the sp axis absent the sequence is unsharded: full
+        # attention is the lowering of every impl, as in the JAX model.
+        if cfg.attn_impl == "ring" and sp_present:
+            out = ring_attention(q, k, v, mesh, cfg.sp_axis, causal=cfg.causal)
+        elif cfg.attn_impl == "ulysses" and sp_present:
+            # B2 over the whole sequence, a fraction of the heads.
+            out = ulysses_attention(q, k, v, mesh, cfg.sp_axis, causal=cfg.causal,
+                                    attn_fn=flash_attention)
+        elif sp_present and mesh.axis_size(cfg.sp_axis) > 1:
+            raise ValueError(
+                f"attn_impl={cfg.attn_impl!r} is shard-local but the "
+                f"sequence axis {cfg.sp_axis!r} is present in the mesh; "
+                "use attn_impl='ring' or 'ulysses' for sequence parallelism"
+            )
+        elif cfg.attn_impl == "flash":
             out = flash_attention(q, k, v, cfg.causal, segment_ids=segment_ids)
         else:
             out = full_attention(q, k, v, causal=cfg.causal,
                                  segment_ids=segment_ids)
-        return self.proj(out.reshape(b, t, cfg.num_heads * cfg.head_dim))
+        return self.proj(out.reshape(b, t, self.h_local * cfg.head_dim))
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block with the dense MLP."""
+    """Pre-LN transformer block with the tensor-parallel dense MLP."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
         self.ln_attn = LayerNorm(cfg.model_dim)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, mesh)
         self.ln_mlp = LayerNorm(cfg.model_dim)
         self.mlp = TensorParallelMLP(cfg.model_dim, cfg.ff_dim, cfg.model_dim,
-                                     cfg.tp_axis, dtype=cfg.dtype)
+                                     cfg.tp_axis, dtype=cfg.dtype, mesh=mesh)
 
     def forward(self, x: torch.Tensor, segment_ids: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -165,37 +203,60 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Decoder-only LM: int token ids ``[B, T]`` (and optional packed
-    ``segment_ids``) -> ``(logits [B, T, vocab] float32, aux loss)``.
-    Weights are drawn from ``seed`` on the CPU with flax's initialisers,
-    then moved to ``device``."""
+    """Decoder-only LM: int token ids ``[B, T_local]`` (and optional
+    packed ``segment_ids``) -> ``(logits [B, T_local, vocab] float32, aux
+    loss)``; ``T_local = T_global / sp`` over a mesh with a sequence axis.
+    Weights are drawn from ``seed`` on the CPU with flax's initialisers
+    at full width (over a tensor-parallel mesh this rank keeps its shard
+    of them, :func:`load_jax_params`'s slicing), then moved to
+    ``device``."""
 
-    def __init__(self, cfg: TransformerConfig, *, seed: int = 0, device="cuda"):
+    def __init__(self, cfg: TransformerConfig, *, seed: int = 0, device="cuda",
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         cfg.check()
         self.cfg = cfg
+        self.mesh = mesh
         self.wte = Embed(cfg.vocab_size, cfg.model_dim)
         self.wpe = nn.Parameter(torch.empty(cfg.max_len, cfg.model_dim))
         for i in range(cfg.num_layers):
-            self.add_module(f"block_{i}", Block(cfg))
+            self.add_module(f"block_{i}", Block(cfg, mesh))
         self.ln_f = LayerNorm(cfg.model_dim)
-        g = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            self.wte.embedding.normal_(0.0, 0.02, generator=g)
-            self.wpe.normal_(0.0, 0.02, generator=g)
-            for name, p in self.named_parameters():
-                if name.endswith(".kernel"):
-                    lecun_normal_(p, g)
+        if axis_degree(mesh, cfg.tp_axis) > 1:
+            full = Transformer(cfg, seed=seed, device="cpu")
+            _copy_full(self, {n: p.detach() for n, p in full.named_parameters()})
+        else:
+            g = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                self.wte.embedding.normal_(0.0, 0.02, generator=g)
+                self.wpe.normal_(0.0, 0.02, generator=g)
+                for name, p in self.named_parameters():
+                    if name.endswith(".kernel"):
+                        lecun_normal_(p, g)
         self.to(device)
 
     def forward(self, tokens: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         b, t = tokens.shape
-        if t > cfg.max_len:
-            raise ValueError(f"sequence length {t} exceeds max_len {cfg.max_len}")
         x = self.wte(tokens)
+        # Positions are global: offset by this rank's block of the
+        # sequence when it is sharded over sp.
+        pos = torch.arange(t, device=tokens.device)
+        t_global = t
+        if mesh is not None and mesh.present(cfg.sp_axis):
+            sp = mesh.axis_size(cfg.sp_axis)
+            if segment_ids is not None and sp > 1:
+                raise ValueError(
+                    "packed sequences cannot be sequence-sharded; drop "
+                    "the sp axis or the segment_ids"
+                )
+            t_global = t * sp
+            pos = pos + mesh.axis_index(cfg.sp_axis) * t
+        if t_global > cfg.max_len:
+            raise ValueError(
+                f"sequence length {t_global} exceeds max_len {cfg.max_len}")
         if segment_ids is not None:
             # Positions restart at each packed document.
             idx = torch.arange(t, device=tokens.device).expand(b, t)
@@ -205,8 +266,10 @@ class Transformer(nn.Module):
             )
             start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
             x = (x + self.wpe[idx - start]).to(cfg.dtype)
-        else:
+        elif t_global == t:
             x = (x + self.wpe[:t][None]).to(cfg.dtype)
+        else:
+            x = (x + self.wpe[pos][None]).to(cfg.dtype)
         aux_total = torch.zeros((), device=x.device)
         for i in range(cfg.num_layers):
             x, aux = getattr(self, f"block_{i}")(x, segment_ids)
@@ -217,7 +280,41 @@ class Transformer(nn.Module):
         return logits, aux_total
 
 
-def gpt_small(*, seed: int = 0, device="cuda", **overrides) -> Transformer:
+def param_shard_axes(params, cfg: TransformerConfig) -> dict:
+    """Each parameter's name -> the space-separated mesh axes it is
+    sharded over, for ``parallel.sync_gradients``.  ``params`` is a
+    mapping (or iterable) of the model's parameter names, as
+    ``dict(model.named_parameters())``.  The JAX model's rules: attention
+    qkv (kernel and bias) and proj kernels and the MLP's wi (kernel and
+    bias) and wo kernels are tp-sharded; MoE expert weights ep-sharded;
+    embeddings, LayerNorms, the row layers' biases and the router are
+    replicated."""
+
+    def classify(name: str) -> str:
+        parts = name.split(".")
+        leaf = parts[-1]
+        inside = set(parts[:-1])
+        if "moe" in inside:
+            return cfg.ep_axis if leaf in ("wi", "wo") else ""
+        if "attn" in inside:
+            if "qkv" in inside:
+                return cfg.tp_axis
+            if "proj" in inside and leaf == "kernel":
+                return cfg.tp_axis
+            return ""
+        if "mlp" in inside:
+            if "wi" in inside:
+                return cfg.tp_axis
+            if "wo" in inside and leaf == "kernel":
+                return cfg.tp_axis
+            return ""
+        return ""
+
+    return {name: classify(name) for name in params}
+
+
+def gpt_small(*, seed: int = 0, device="cuda", mesh: Optional[Mesh] = None,
+              **overrides) -> Transformer:
     """GPT-2 small (124M): vocab 50304, 12 layers, width 768, 12 heads of
     64, ff 3072, max_len 1024, bf16 compute."""
     cfg = TransformerConfig(
@@ -225,17 +322,18 @@ def gpt_small(*, seed: int = 0, device="cuda", **overrides) -> Transformer:
         head_dim=64, ff_dim=3072, max_len=1024,
     )
     return Transformer(dataclasses.replace(cfg, **overrides), seed=seed,
-                       device=device)
+                       device=device, mesh=mesh)
 
 
-def gpt_tiny(*, seed: int = 0, device="cuda", **overrides) -> Transformer:
+def gpt_tiny(*, seed: int = 0, device="cuda", mesh: Optional[Mesh] = None,
+             **overrides) -> Transformer:
     """Tiny float32 config for tests."""
     cfg = TransformerConfig(
         vocab_size=256, num_layers=2, model_dim=64, num_heads=4,
         head_dim=16, ff_dim=128, max_len=256, dtype=torch.float32,
     )
     return Transformer(dataclasses.replace(cfg, **overrides), seed=seed,
-                       device=device)
+                       device=device, mesh=mesh)
 
 
 def packed_token_cross_entropy(logits: torch.Tensor, tokens: torch.Tensor,
@@ -262,11 +360,66 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Te
                            targets.long().reshape(-1))
 
 
+def shard_of(name: str, full: torch.Tensor, cfg: TransformerConfig, tp: int,
+             r: int) -> torch.Tensor:
+    """Rank r's shard (of ``tp``) of the full-width parameter ``name``.
+
+    qkv (``[D, 3·H·hd]`` kernel, ``[3·H·hd]`` bias): heads
+    ``r·H/tp:(r+1)·H/tp`` of each of q, k and v, the local columns in
+    ``[3, H/tp, hd]`` order.  The MLP's ``wi`` (kernel and bias): columns
+    ``r·ff/tp:(r+1)·ff/tp``.  The kernels of ``proj`` and of the MLP's
+    ``wo``: the rows of those heads / columns.  Every other parameter
+    (replicated) whole."""
+    axes = param_shard_axes([name], cfg)[name]
+    if tp == 1 or cfg.tp_axis not in axes.split():
+        return full
+    parts = name.split(".")
+    if "qkv" in parts:
+        h, hd = cfg.num_heads, cfg.head_dim
+        hl = h // tp
+        view = full.reshape(full.shape[:-1] + (3, h, hd))
+        return view[..., r * hl:(r + 1) * hl, :].reshape(full.shape[:-1] + (-1,))
+    if "wi" in parts:
+        n = full.shape[-1] // tp
+        return full[..., r * n:(r + 1) * n]
+    n = full.shape[0] // tp  # proj and wo kernels: rows
+    return full[r * n:(r + 1) * n]
+
+
+def _copy_full(model: Transformer, flat: Mapping) -> None:
+    """Copy full-width parameters (name -> array or tensor) into
+    ``model``, each as this rank's shard (:func:`shard_of`)."""
+    own = dict(model.named_parameters())
+    if set(flat) != set(own):
+        raise KeyError(
+            f"flax tree and model differ: only in the tree "
+            f"{sorted(set(flat) - set(own))}, only in the model "
+            f"{sorted(set(own) - set(flat))}"
+        )
+    mesh, cfg = model.mesh, model.cfg
+    tp = axis_degree(mesh, cfg.tp_axis)
+    r = 0 if mesh is None else mesh.axis_index(cfg.tp_axis)
+    with torch.no_grad():
+        for name, p in own.items():
+            val = flat[name]
+            full = (val.detach().float().cpu() if torch.is_tensor(val)
+                    else torch.from_numpy(np.array(val, np.float32)))
+            part = shard_of(name, full, cfg, tp, r)
+            if tuple(part.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(part.shape)} != {tuple(p.shape)}")
+            p.copy_(part)
+
+
 def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
-    """Copy the flax tree of numpy arrays (``params["params"]["block_0"]
-    ["attn"]["qkv"]["Dense_0"]["kernel"]``, ...) into ``model``, name for
-    name and without transposes: every kernel keeps flax's ``[in, out]``.
-    Raises if the two sets of names differ."""
+    """Copy the full-width flax tree of numpy arrays
+    (``params["params"]["block_0"]["attn"]["qkv"]["Dense_0"]["kernel"]``,
+    ...) into ``model``, name for name and without transposes: every
+    kernel keeps flax's ``[in, out]``.  Over a tensor-parallel mesh each
+    tp-sharded leaf is cut to this rank's shard (:func:`shard_of`: rank r
+    of tp takes heads ``r·H/tp:(r+1)·H/tp`` of each of q, k and v in qkv,
+    the rows of ``proj`` and ``wo`` and the columns of ``wi`` that go
+    with them), and replicated leaves are copied whole.  Raises if the
+    two sets of names differ."""
     tree = params.get("params", params)
     flat = {}
 
@@ -279,17 +432,5 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
                 flat[name] = val
 
     walk("", tree)
-    own = dict(model.named_parameters())
-    if set(flat) != set(own):
-        raise KeyError(
-            f"flax tree and model differ: only in the tree "
-            f"{sorted(set(flat) - set(own))}, only in the model "
-            f"{sorted(set(own) - set(flat))}"
-        )
-    with torch.no_grad():
-        for name, p in own.items():
-            arr = np.array(flat[name], np.float32)
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(arr))
+    _copy_full(model, flat)
     return model

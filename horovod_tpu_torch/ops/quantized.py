@@ -155,15 +155,19 @@ def _explicit_groups(rt, groups: Sequence[Sequence[int]]) -> Groups:
 
 def _axis_groups(process_set, groups=None) -> Groups:
     """Resolve where a quantized collective runs (``quantized.py:247``
-    ``_axis_groups``): explicit equal-size ``groups``, else the process
-    set through its tiles (the table's, ``process_sets.tiling_groups``),
-    else the world.  Raises :class:`QuantizedWireError` for both
-    arguments together and :class:`ProcessSetTilingError` for a set
-    that does not tile the world."""
+    ``_axis_groups``): explicit equal-size ``groups`` (lists of ranks, or
+    a :class:`Groups` whose ``torch.distributed`` group its caller owns,
+    as a mesh does), else the process set through its tiles (the
+    table's, ``process_sets.tiling_groups``), else the world.  Raises
+    :class:`QuantizedWireError` for both arguments together and
+    :class:`ProcessSetTilingError` for a set that does not tile the
+    world."""
     rt = runtime.get_runtime()
     if groups is not None:
         if process_set is not None:
             raise QuantizedWireError("pass either groups= or process_set=, not both")
+        if isinstance(groups, Groups):
+            return groups
         return _explicit_groups(rt, groups)
     ps = resolve(process_set)
     if ps is None:

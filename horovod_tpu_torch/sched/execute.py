@@ -275,13 +275,16 @@ def quantized_exchange_flat(
     postscale_factor: float = 1.0,
     residual: Optional[torch.Tensor] = None,
     process_set=None,
+    groups=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One bucket's quantized reduce-scatter + all-gather exchange:
     ``g = f·prescale (+ residual)`` in float32, quantized
     reduce-scatter, the shard scaled by ``postscale`` (and ``1/n`` for
-    an average, n the size of the rank's group: the world, or its tile
-    of ``process_set``), quantized all-gather, the first ``f.numel()``
-    elements cast back to ``f.dtype``.
+    an average, n the size of the rank's group: the world, its tile of
+    ``process_set`` or its group of the explicit ``groups``: lists of
+    ranks or an ``ops/quantized.py`` ``Groups``), quantized
+    all-gather, the first ``f.numel()`` elements cast back to
+    ``f.dtype``.
 
     ``residual`` engages error feedback: the wire carries
     ``quantize(g)`` and the new residual ``g − dequant(quantize(g))`` is
@@ -290,11 +293,12 @@ def quantized_exchange_flat(
     r_new = None
     if residual is not None:
         g = g + residual.float()
-        shard, r_new = quantized_reduce_scatter(g, Sum, process_set, wire=wire, ef=True)
+        shard, r_new = quantized_reduce_scatter(g, Sum, process_set, wire=wire, ef=True,
+                                                groups=groups)
     else:
-        shard = quantized_reduce_scatter(g, Sum, process_set, wire=wire)
+        shard = quantized_reduce_scatter(g, Sum, process_set, wire=wire, groups=groups)
     if average:
-        postscale_factor = postscale_factor / _axis_groups(process_set).n
+        postscale_factor = postscale_factor / _axis_groups(process_set, groups).n
     shard = _scale_f32(shard, postscale_factor)
-    out = quantized_all_gather(shard, process_set, wire=wire)[:f.numel()]
+    out = quantized_all_gather(shard, process_set, wire=wire, groups=groups)[:f.numel()]
     return out.to(f.dtype), r_new

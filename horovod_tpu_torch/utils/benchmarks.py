@@ -148,7 +148,8 @@ def build_lm_step(hvd, model: torch.nn.Module, *, packed: bool,
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                          eps=1e-8, weight_decay=1e-4),
+                          eps=1e-8, weight_decay=1e-4,
+                          capturable=next(model.parameters()).is_cuda),
         named_parameters=model.named_parameters(),
         compression=compression,
     )
@@ -165,6 +166,60 @@ def build_lm_step(hvd, model: torch.nn.Module, *, packed: bool,
             return token_cross_entropy(logits, target) + 0.01 * aux
 
     return hvd.TrainStep(model, opt, loss_fn), opt
+
+
+def build_hybrid_lm_step(model: torch.nn.Module, mesh, *, packed: bool = False,
+                         lr: float = 3e-4) -> Tuple:
+    """Build the hybrid-parallel step of ``examples/gpt_pretrain.py``
+    (``train_step``) for ``model`` (a ``Transformer`` made on ``mesh``):
+    AdamW as ``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.1)``
+    (eps 1e-8, decay on every parameter; ``capturable=True`` when the
+    weights are on a card), and a step that runs the forward on this
+    rank's block of the batch, the backward, ``sync_gradients`` with the
+    model's ``param_shard_axes``, the update, and returns the loss
+    averaged over every mesh axis among dp, sp and tp.
+
+    Dense rows: ``step(tokens, targets)`` (the next tokens); packed rows
+    (``packed=True``): ``step(tokens, segment_ids)``.  The step runs
+    eagerly: it is not a ``TrainStep``, and the mesh's collectives refuse
+    to run under a CUDA graph's capture.  Returns ``(step, optimizer)``."""
+    from ..models.transformer import (
+        packed_token_cross_entropy,
+        param_shard_axes,
+        token_cross_entropy,
+    )
+    from ..parallel.grad_sync import pmean_, sync_gradients
+
+    params = dict(model.named_parameters())
+    shard_axes = param_shard_axes(params, model.cfg)
+    on_card = next(model.parameters()).is_cuda
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, capturable=on_card)
+    loss_axes = tuple(a for a in ("dp", "sp", "tp")
+                      if mesh is not None and mesh.present(a))
+
+    def step(tokens: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+        model.train()
+        if packed:
+            logits, moe_aux = model(tokens, aux)
+            loss = packed_token_cross_entropy(logits, tokens, aux)
+        else:
+            logits, moe_aux = model(tokens)
+            loss = token_cross_entropy(logits, aux)
+        loss = loss + 0.01 * moe_aux
+        loss.backward()
+        synced = sync_gradients({n: p.grad for n, p in params.items()}, shard_axes, mesh)
+        for n, p in params.items():
+            p.grad = synced[n]
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            loss = loss.detach().reshape(1).clone()
+            if loss_axes:
+                loss = pmean_(loss, mesh, loss_axes)
+        return loss[0]
+
+    return step, opt
 
 
 def packed_lm_batch(rows: int, seq_len: int = 1024, vocab_size: int = 50304,

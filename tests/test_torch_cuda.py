@@ -1299,3 +1299,131 @@ def test_captured_step_on_a_process_set_is_bitwise_with_eager(tmp_path):
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"SET CAPTURE OK {r} int8" in out, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_captured_and_replayed_on_fresh_inputs_bitwise(d):
+    """B2's wgmma route captured into a CUDA graph (its q, k and v tensor
+    maps are encoded on the host at capture, for the capture's static
+    buffers, and kept by the graph), then three replays on fresh inputs
+    copied into those buffers, each bitwise with an eager launch on the
+    same inputs; the chunked backward's loop captured in the same graph,
+    bitwise with its eager run."""
+    _cuda()
+    b, t, h = 2, 1000, 128 // d * 3
+    static = [torch.empty(b, t, h, d, device="cuda", dtype=torch.bfloat16)
+              for _ in range(4)]  # q, k, v, the output's cotangent
+    q, k, v, do = static
+    for x in static:
+        x.copy_(torch.randn(b, t, h, d, device="cuda"))
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        # Build and load the library, and make cuBLAS's handle, first.
+        o, l = flash.flash_forward(q, k, v, True, d ** -0.5)
+        flash.flash_backward_chunked(q, k, v, o, l, do, True, d ** -0.5, 256)
+        with torch.cuda.graph(graph):
+            out, lse = flash.flash_forward(q, k, v, True, d ** -0.5)
+            grads = flash.flash_backward_chunked(q, k, v, out, lse, do, True, d ** -0.5, 256)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for _ in range(3):
+        fresh = [torch.randn(b, t, h, d, generator=g, device="cuda").to(torch.bfloat16)
+                 for _ in range(4)]
+        for s, f in zip(static, fresh):
+            s.copy_(f)
+        graph.replay()
+        want_o, want_l = flash.flash_forward(*fresh[:3], True, d ** -0.5)
+        want_g = flash.flash_backward_chunked(*fresh[:3], want_o, want_l, fresh[3], True,
+                                              d ** -0.5, 256)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(want_o))
+        assert torch.equal(lse.view(torch.int32), want_l.view(torch.int32))
+        for got, want in zip(grads, want_g):
+            assert torch.equal(_bits(got), _bits(want))
+
+
+_GPT_CAPTURE = textwrap.dedent("""
+    import os, sys
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import flash
+    from horovod_tpu_torch.utils.benchmarks import build_lm_step, packed_lm_batch
+
+    packed = sys.argv[1] == "packed"
+    os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+    cfg = tt.TransformerConfig(vocab_size=512, num_layers=2, model_dim=128, num_heads=2,
+                               head_dim=64, ff_dim=512, max_len=256)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    if packed:
+        toks, segs = packed_lm_batch(4, 256, 512, seed=3)
+        batch = (torch.from_numpy(toks).cuda(), torch.from_numpy(segs).cuda())
+    else:
+        batch = torch.randint(0, 512, (4, 256), generator=g, device="cuda")
+    runs = {}
+    hvd.init("cuda")
+    try:
+        for mode in ("off", "on"):
+            os.environ["HVD_TPU_ONESTEP"] = mode
+            model = tt.Transformer(cfg, seed=5, device="cuda")
+            step, opt = build_lm_step(hvd, model, packed=packed)
+            assert all(g["capturable"] for g in opt.param_groups)
+            metrics.reset("xir.")
+            flash.flash_forward.launches = 0
+            losses = [float(step(batch)) for _ in range(5)]
+            runs[mode] = (losses, [p.detach().clone() for p in model.parameters()],
+                          metrics.get_counter("xir.onestep.steps"),
+                          flash.flash_forward.launches)
+    finally:
+        hvd.shutdown()
+    (le, we, ce, fe), (lc, wc, cc, fc) = runs["off"], runs["on"]
+    assert le == lc, (le, lc)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(we, wc))
+    assert (ce, cc) == (0, 1) and fe == fc == 2 * 5, (ce, cc, fe, fc)
+    print("GPT CAPTURE OK", sys.argv[1])
+""")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["dense", "packed"])
+def test_captured_gpt_step_is_bitwise_with_eager(rows):
+    """``build_lm_step`` on a small bf16 GPT (2 layers, 2 heads x 64, 256
+    positions), AdamW ``capturable=True`` on the card: five steps eager
+    and five under ``HVD_TPU_ONESTEP=on`` (two warm-up steps, one
+    capture, replays) from one seed, losses and weights bitwise equal,
+    B2 counted twice per step on the replays (in a process of its own:
+    the port's runtime is process-wide)."""
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(k, None)
+    proc = subprocess.run([sys.executable, "-c", _GPT_CAPTURE, rows], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and f"GPT CAPTURE OK {rows}" in proc.stdout, (
+        proc.stdout[-3000:] + proc.stderr[-3000:])
+
+
+@pytest.mark.cuda
+def test_hybrid_meshes_on_the_card():
+    """``chip_smoke.py --only hybrid``: GPT-2 small over dp2 x tp2 (flash),
+    sp2 x tp2 (ring) and sp4 (Ulysses) in a world of four, one rank per
+    card on NCCL with four cards, else four ranks sharing one on gloo:
+    the first loss and the synced gradients of each mesh against the
+    unsharded model, B1 (and B3-B5) on the mesh's groups bitwise with
+    their plain versions, replicas bitwise, exact launches of B2 (and B1,
+    B3-B5)."""
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"), "--only",
+                           "hybrid"], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=1200)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    for mesh in ("dp2_tp2 (flash)", "sp2_tp2 (ring)", "sp4 (ulysses)"):
+        assert f"phase slice hybrid {mesh}: " in proc.stdout, proc.stdout[-3000:]
+    assert proc.stdout.count("gradients after sync_gradients") == 3, proc.stdout[-3000:]

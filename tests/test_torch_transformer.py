@@ -136,21 +136,44 @@ def test_losses_match_jax():
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    ({"attn_impl": "ring"}, NotImplementedError),
-    ({"attn_impl": "ulysses"}, NotImplementedError),
     ({"moe_every": 2}, NotImplementedError),
     ({"remat": True}, NotImplementedError),
     ({"attn_impl": "sparse"}, ValueError),
 ])
 def test_unported_options_raise(kwargs, exc):
-    with pytest.raises(exc, match="Queue A item 10" if exc is NotImplementedError
+    with pytest.raises(exc, match="Queue A entry A10" if exc is NotImplementedError
                        else "unknown attn_impl"):
         tt.gpt_tiny(device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_sequence_parallel_impls_without_a_mesh_match_jax(impl):
+    """Off a mesh ring and Ulysses lower to full attention, as in the JAX
+    model; with packed rows they raise its ValueError."""
+    toks, segs = _packed(2, 24, seed=2)
+    jm = jax_gpt_tiny(attn_impl=impl)
+    params = _jax_init(jm, 24)
+    want, _ = jax.jit(jm.apply)(params, jnp.asarray(toks))
+    model = tt.load_jax_params(tt.gpt_tiny(attn_impl=impl, device="cpu"), params)
+    with torch.no_grad():
+        got, _ = model(torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
+    with pytest.raises(ValueError, match="packed sequences"):
+        jm.apply(params, jnp.asarray(toks), jnp.asarray(segs))
+    with pytest.raises(ValueError, match="packed sequences"):
+        model(torch.from_numpy(toks), torch.from_numpy(segs))
+
+
 def test_tensor_parallel_degree_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        ColumnParallelDense(8, 8, tp=2)
+    """A tp degree that does not divide the heads or the features raises
+    the JAX model's ValueError."""
+    from horovod_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(("tp",), (3,), rank=0)
+    with pytest.raises(ValueError, match="not divisible by 'tp' axis size 3"):
+        ColumnParallelDense(8, 8, mesh=mesh)
+    with pytest.raises(ValueError, match="num_heads 4 not divisible by tp degree 3"):
+        tt.gpt_tiny(device="cpu", mesh=mesh)
 
 
 def test_sequence_longer_than_max_len_raises():
@@ -319,6 +342,8 @@ def test_new_modules_import_no_jax():
         "import horovod_tpu_torch.ops.flash, horovod_tpu_torch.models.transformer\n"
         "import horovod_tpu_torch.parallel.tensor, horovod_tpu_torch.parallel.ring_attention\n"
         "import horovod_tpu_torch.data.packing, horovod_tpu_torch.utils.benchmarks\n"
+        "import horovod_tpu_torch.parallel, horovod_tpu_torch.parallel.grad_sync\n"
+        "import horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.parallel.ulysses\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "assert not bad, bad\n"

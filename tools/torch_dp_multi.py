@@ -28,7 +28,13 @@ on, ...), and rank 0 also prints each side's median and quartiles.
 With ``--onestep-pairs N`` they are N pairs with the step captured as one
 CUDA graph and run eagerly (``HVD_TPU_ONESTEP`` on, off, off, on, ...;
 the barriers off); a captured window's warm-up steps and its capture
-are left out of its timing.  With ``--process-set 0,1`` every rank
+are left out of its timing.  With ``--barrier-pairs N`` they are N pairs
+of captured windows with each bucket's exchange launched from the
+backward and after it (``HVD_TPU_SCHED_BARRIERS`` on, off, off, on,
+...).  ``--profile-steps K`` then runs K captured steps on every rank
+(bf16, the barriers off), rank 0 under ``torch.profiler``
+(``tools/torch_profile_step.py`` ``profile_steps``: device busy and
+idle share per step, device time by group).  With ``--process-set 0,1`` every rank
 registers that set at ``init`` and builds two steps per wire, one whose
 ``DistributedOptimizer`` reduces over the set and one over the world
 (from the same weights); each window label then runs on the set's step
@@ -108,6 +114,11 @@ def worker(args) -> None:
 
         shape, classes = ((32, 32, 32, 3), 10) if args.tiny else ((32, 224, 224, 3), 1000)
         wires = window_labels(args.wire, args.overlap_pairs, args.onestep_pairs)
+        if args.barrier_pairs:
+            wire = args.wire or "bf16"
+            wires = tuple(f"{wire}/{m}" for _ in range(-(-args.barrier_pairs // 2))
+                          for m in ("captured+barriers", "captured", "captured",
+                                    "captured+barriers"))
         pset = None
         if members:
             pset = hvd.global_process_set() if len(members) == args.nproc else [
@@ -218,14 +229,17 @@ def worker(args) -> None:
                 if any(digests[r] != digests[grp[0]] for r in grp):
                     raise SystemExit(f"{wire} {where or ''}: ranks {grp} hold different "
                                      f"weights: {digests}")
+        card = "cpu"
+        if dev.type == "cuda":
+            card = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60,
+            ).stdout.strip().splitlines()[0]
+        profiled = None
+        if args.profile_steps and dev.type == "cuda":
+            profiled = profile_world(args, steps, batch, card)
         if args.rank == 0:
-            card = "cpu"
-            if dev.type == "cuda":
-                card = subprocess.run(
-                    ["nvidia-smi", "--query-gpu=name,power.limit",
-                     "--format=csv,noheader"],
-                    capture_output=True, text=True, timeout=60,
-                ).stdout.strip().splitlines()[0]
             imgs = shape[0] * args.nproc
             spread = {w: quartiles(v) for w, v in timing.items()}
             print(json.dumps({
@@ -240,12 +254,37 @@ def worker(args) -> None:
                 "step_ms": timing, "step_ms_quartiles": spread,
                 "img_s": {w: [imgs / ms * 1e3 for ms in v] for w, v in timing.items()},
                 "losses": losses,
+                "profiled": profiled,
                 "weights_equal": ("on every rank" if not members else
                                   "on the set's members (and, quantized, within "
                                   "each tile)"),
             }), flush=True)
     finally:
         hvd.shutdown()
+
+
+def profile_world(args, steps, batch, card):
+    """``--profile-steps``: the bf16 step captured on every rank (its
+    warm-up steps and capture first), then K steps, rank 0's under
+    ``torch.profiler``.  Rank 0's profile record (None elsewhere)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from torch_profile_step import profile_steps
+
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
+    from horovod_tpu_torch.utils.benchmarks import select_window
+
+    select_window("bf16/captured")
+    step = steps[("bf16", None)][1] if ("bf16", None) in steps else next(iter(steps.values()))[1]
+    for _ in range(CAPTURE_WARMUP + 1):
+        float(step(batch))
+    if args.rank == 0:
+        return profile_steps(step, batch, args.profile_steps, "bf16/captured", card)
+    for _ in range(args.profile_steps + 1):  # profile_steps runs one more first
+        float(step(batch))
+    torch.cuda.synchronize()
+    return None
 
 
 def launch(args) -> int:
@@ -266,6 +305,10 @@ def launch(args) -> int:
             cmd += ["--overlap-pairs", str(args.overlap_pairs)]
         if args.onestep_pairs:
             cmd += ["--onestep-pairs", str(args.onestep_pairs)]
+        if args.barrier_pairs:
+            cmd += ["--barrier-pairs", str(args.barrier_pairs)]
+        if args.profile_steps:
+            cmd += ["--profile-steps", str(args.profile_steps)]
         if args.process_set:
             cmd += ["--process-set", args.process_set]
         env = {k: v for k, v in os.environ.items()
@@ -300,6 +343,11 @@ def main() -> None:
     ap.add_argument("--onestep-pairs", type=int, default=0,
                     help="time this many pairs of windows with the step "
                     "captured as one CUDA graph and run eagerly")
+    ap.add_argument("--barrier-pairs", type=int, default=0,
+                    help="time this many pairs of captured windows with the "
+                    "exchange launched from the backward and after it")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="then profile this many captured bf16 steps on rank 0")
     ap.add_argument("--process-set",
                     help="ranks of a process set, e.g. 0,1: time each window on a "
                     "step reduced over the set and on one over the world, in turns")
