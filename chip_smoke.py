@@ -161,6 +161,11 @@ exits non-zero):
    to the eager run's, one capture, B2 12 times per step counted on the
    replays; then windows of 5 steps, captured and eager in turns
    (A/B/B/A), with step ms and tokens/s.
+   Then slice gpt remat: the same model and batch with ``remat=True``
+   against off, eager, in turns (on, off, off, on), then remat captured,
+   4 steps each: losses and weights bitwise equal in all five runs, B2
+   24 times per step with remat (each block's forward again in the
+   backward) and 12 without; peak allocated memory and step ms.
    Then slice hybrid: GPT-2 small at the same widths in a world of four
    ranks (four sharing the one card on gloo; one per card on NCCL with
    four cards, ``--only ring``), seq 1024, batch 2 per dp rank, the bf16
@@ -176,13 +181,46 @@ exits non-zero):
    (B1 three times per bf16 bucket: the down-cast, the 1/n mean and the
    up-cast); B2 at the tp and Ulysses shapes against its plain version;
    step ms and tokens/s.
+   Then slice moe: GPT-2 small with a mixture-of-experts FFN in every
+   second block (4 experts of 768, top-2, capacity factor 1.25), world
+   one, batch 4 x 1024, ``build_lm_step``: eager and captured for 4
+   steps each, bitwise (losses and weights, one capture), B2 12 per
+   step; step ms and peak memory.  Then, in a world of four ranks (four
+   sharing the one card on gloo; one per card on NCCL with four cards,
+   ``--only ring``), the meshes ``ep4`` (2 experts a rank, 8 of 1536)
+   and ``dp2 x ep2``: on every rank the MoE layer over ep in float32 on
+   its own 2 x 1024 tokens against the layer the rank computes alone
+   over every expert's weights (output, aux, the input's, router's and
+   experts' gradients; ``MOE_LAYER_RTOL``), then the GPT step over the
+   mesh (``build_hybrid_lm_step``, bf16 wire) for 1 + 3 steps: finite
+   losses, replicas bitwise, B2 12 per step and B1 3 per bucket
+   exchange; step ms.
+   Then slice pipeline: ``pipeline_apply`` over ``pp4`` (the same two
+   layouts), GPT-2 small's 12 blocks 3 a stage (flash, bf16), 8
+   microbatches of [2, 1024, 768], with ``remat_stage`` off and on:
+   outputs bitwise with each rank applying the 12 blocks in sequence,
+   every stage's gradients within ``PIPE_GRAD_RTOL``, remat bitwise with
+   off, B2 3 x (8 + 4 - 1) launches per stage (doubled with remat); ms.
+   Then slice fsdp: GPT-2 small, flash, batch 2 x 1024 per rank, AdamW,
+   in the same layouts: the replicated data-parallel step (dense and
+   ``Compression.bf16``), ``fsdp_train_step`` (dense and bf16) and
+   ``zero_train_step`` on the int8 wire with error feedback, 3 steps
+   each from the same weights: first losses equal, weights after 3 steps
+   within ``ADAM_APART`` and the ``FSDP_RATIO`` mean move of the
+   replicated step's; on int8 every B3/B4/B5 call of the first step's
+   reduce-scatter bitwise with its plain version and the shard within
+   the int8 grid of the dense mean, B3 2, B4 1 and B5 1 per step (or B6
+   and B7 once where the ring serves; the dispatch printed); persistent
+   bytes per rank and step ms.
 9. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
    seq 256) for three steps on the card against the CPU path, to stated
    tolerances.
 10. examples: ``examples/torch_port_mnist.py`` (one epoch of 4096
-   samples) and ``examples/torch_synthetic_benchmark.py --num-iters 1``
-   run as a user starts them, each checked for its last lines.
-11. result: the card line, the kernels JSON line, then
+   samples), ``examples/torch_synthetic_benchmark.py --num-iters 1`` and
+   ``examples/torch_fsdp_gpt.py --steps 3`` run as a user starts them,
+   each checked for its last lines.
+11. result: the card line, the kernels JSON line (each kernel with its
+   launches on every path, ``paths``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel time is given three ways (``split_ms``): the device time
@@ -199,9 +237,11 @@ runs phases 1, 2 and 7 (slice ring, then slice sets), then, with two
 cards or more, the GPT step at world min(count, 4) eager and captured
 (``tools/torch_lm_multi.py``: every rank bitwise, captured bitwise with
 eager, exact launches, a pair of windows) and slice hybrid (the phases
-that need more than one card, for a run on several); ``--only sets``
-phases 1, 2 and slice sets, ``--only hybrid`` phases 1, 2 and slice
-hybrid, ``--only kernel`` phases 1 to 3; none prints a kernels line.
+that need more than one card, for a run on several), then the
+four-rank worlds of slice moe, slice pipeline and slice fsdp; ``--only
+sets``, ``hybrid``, ``moe`` (world one and the meshes), ``pipeline``,
+``fsdp`` and ``remat`` phases 1, 2 and that phase, ``--only kernel``
+phases 1 to 3; none prints a kernels line.
 """
 
 import argparse
@@ -273,6 +313,51 @@ FLASH_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -9, 1e-4),
 # Two runs of three AdamW steps (lr 3e-4, weight decay 1e-4 on weights
 # below 1) can differ by at most this much (``reference_gpt_phase``).
 ADAM_APART = 2 * 3 * 3e-4 * (1.004 + 1e-4) + 1e-6
+# Phase slice gpt remat: steps of each run (the captured run's third is
+# its capture, its fourth a replay).
+REMAT_STEPS = 4
+# Phase slice moe, world of one: GPT-2 small with an MoE FFN in every
+# second block, its batch and steps (1 + 3, the captured run's capture
+# being the third).  Batch 4, not 16: the dense [S, E, C] combine
+# grows as 2.5·S² floats, ~170 MB per MoE layer at S 4096.
+MOE_CFG = {"moe_every": 2, "num_experts_local": 4, "moe_k": 2, "moe_capacity_factor": 1.25}
+MOE_BATCH, MOE_STEPS = 4, 4
+# Phases slice moe (meshes), pipeline and fsdp: ranks of each world.
+MESH_WORLD = 4
+# The meshes of phase slice moe, experts per rank, rows per rank, timed
+# steps after the first.  The layer over ep against the rank's lone
+# layer, both in float32 (TF32 off): the products and sums run in other
+# orders and shapes, some float32 ulps of each tensor's largest
+# element (4.1e-7 on the CPU); a token sent to the wrong expert or rank
+# moves whole rows, O(1) of it.  The limit is 1e-4.
+MOE_MESHES = {"ep4": {"ep": 4}, "dp2_ep2": {"dp": 2, "ep": 2}}
+MOE_MESH_EXPERTS, MOE_MESH_BATCH, MOE_MESH_TIMED = 2, 2, 3
+MOE_LAYER_RTOL = 1e-4
+# Phase slice pipeline: microbatches and their rows.  The outputs are
+# the same kernels on the same inputs as the sequential blocks' (a hop
+# is a copy, the broadcast adds zeros), so they must agree bitwise.
+# Each rank's loss is sum(out · wts) / 4, so the broadcast's backward
+# sums four bf16 cotangents of wts / 4, which can round once (2^-9 of
+# each element), and the stages add the microbatches' gradients in
+# another order: the gradients agree to 2^-6 of their norm
+# (HYBRID_GRAD_RTOL's limit); a lost or misrouted hop moves them O(1).
+PIPE_M, PIPE_ROWS = 8, 2
+PIPE_OUT_ATOL = 0.0
+PIPE_GRAD_RTOL = 2.0 ** -6
+# Phase slice fsdp: rows per rank, steps checked, then steps timed.  The first loss is the same
+# forward on the same weights as the replicated step's; float32 rounding
+# of the loss average aside it is equal (rtol 1e-6).  After three AdamW
+# steps two runs whose gradients round differently are at most
+# ADAM_APART apart, and (``reference_gpt_phase``'s check) the mean
+# difference of each tensor is at most this share of its mean move: the
+# dense and bf16 wires differ from the replicated step only in the order
+# of their sums (0.25); the int8 wire's quantization noise turns the
+# sign of Adam's first steps on the elements whose gradient is below it,
+# and the limit there only says that most elements step the same way
+# (1.0; two runs of independent signs would give about 1.3).
+FSDP_BATCH, FSDP_STEPS, FSDP_TIMED = 2, 3, 3
+FSDP_LOSS_RTOL = 1e-6
+FSDP_RATIO = {"dense": 0.25, "int8": 1.0}
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -2647,7 +2732,8 @@ def examples_phase(root, card):
              "final loss"),
             ("torch_synthetic_benchmark.py", ["--num-iters", "1", "--num-warmup-batches",
                                               "2", "--num-batches-per-iter", "5"],
-             "Total img/sec")):
+             "Total img/sec"),
+            ("torch_fsdp_gpt.py", ["--steps", "3"], "gathered eval logits")):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.join(root, "examples", script)] + args,
                               cwd=root, env=env, capture_output=True, text=True,
@@ -3125,20 +3211,776 @@ def gpt_world_phase(root, count, card, log):
     return rec
 
 
+def lm_run(hvd, tt, build_lm_step, counters, batch, steps, onestep, **overrides):
+    """``steps`` steps of ``build_lm_step`` on GPT-2 small (seed 0, world of
+    one, ``HVD_TPU_SCHED_WIRE=off``), eager or captured
+    (``HVD_TPU_ONESTEP=on``): every loss, each step's host-clock ms (a
+    host read of the loss ends it), the kernel launches, the captures,
+    peak allocated memory and the weights' digest."""
+    import torch
+
+    from horovod_tpu_torch import metrics
+
+    os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+    os.environ["HVD_TPU_ONESTEP"] = "on" if onestep else "off"
+    hvd.init("cuda")
+    try:
+        model = tt.gpt_small(seed=0, device="cuda", **overrides)
+        step, _ = build_lm_step(hvd, model, packed=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        metrics.reset("xir.")
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: c.launches for k, c in counters.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        captures = metrics.get_counter("xir.onestep.steps")
+        digest = param_digest(model)
+        del model, step
+    finally:
+        os.environ["HVD_TPU_ONESTEP"] = "off"
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": times, "launches": launches, "captures": captures,
+            "peak_gib": peak_gib, "digest": digest}
+
+
+def b2_only(counters, per_step, steps) -> dict:
+    """The launches of a GPT step whose only kernel is B2 on the wgmma route."""
+    return {k: (per_step * steps if k in ("flash_fwd", "flash_fwd_wgmma") else 0)
+            for k in counters}
+
+
+def remat_phase(hvd, tt, build_lm_step, counters, batch, card, log):
+    """Phase slice gpt remat: GPT-2 small at batch 16 x 1024 with ``remat=True``
+    against off, eager, in turns (on, off, off, on), then remat captured
+    (``HVD_TPU_ONESTEP=on``): every run's losses and weights bitwise equal
+    after ``REMAT_STEPS`` steps (the recompute runs the same kernels on the
+    same inputs), B2 24 times per step with remat and 12 without; peak
+    allocated memory and step ms."""
+    runs = []
+    for remat, onestep in ((True, False), (False, False), (False, False), (True, False),
+                           (True, True)):
+        r = lm_run(hvd, tt, build_lm_step, counters, batch, REMAT_STEPS, onestep, remat=remat)
+        r.update(remat=remat, onestep=onestep)
+        want = b2_only(counters, GPT_LAYERS * (2 if remat else 1), REMAT_STEPS)
+        if r["launches"] != want:
+            fail(f"gpt remat={remat} onestep={onestep}: launches {r['launches']}, "
+                 f"expected {want}")
+        if onestep and r["captures"] != 1:
+            fail(f"gpt remat captured: {r['captures']} captures, expected 1")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"gpt remat={remat}: losses {r['losses']}")
+        runs.append(r)
+    for r in runs[1:]:
+        if r["losses"] != runs[0]["losses"] or r["digest"] != runs[0]["digest"]:
+            fail(f"gpt remat={r['remat']} onestep={r['onestep']}: losses {r['losses']} or "
+                 f"weights differ from remat eager's {runs[0]['losses']}")
+
+    def ms(rs):
+        return sorted(t for r in rs for t in r["step_ms"][1:])
+
+    on, off = ms(runs[0:4:3]), ms(runs[1:3])
+    rec = {"runs": runs, "peak_gib": {"remat": max(r["peak_gib"] for r in runs[0:4:3]),
+                                      "off": max(r["peak_gib"] for r in runs[1:3])},
+           "step_ms": {"remat": on[len(on) // 2], "off": off[len(off) // 2],
+                       "remat_captured": runs[4]["step_ms"][-1]}}
+    print(f"phase slice gpt remat: GPT-2 small, batch {GPT_BATCH} x {GPT_SEQ}, bf16, AdamW "
+          f"capturable, Compression.bf16, {REMAT_STEPS} steps per run, remat on/off/off/on "
+          f"eager then on captured: losses {[round(v, 5) for v in runs[0]['losses']]} and "
+          f"weights bitwise equal in all five runs; launches per run remat "
+          f"{runs[0]['launches']['flash_fwd']} / off {runs[1]['launches']['flash_fwd']} "
+          f"(= 24 / 12 per step; the captured run counted on its replays, 1 capture); peak "
+          f"{rec['peak_gib']['remat']:.2f} GiB remat vs {rec['peak_gib']['off']:.2f} GiB off; "
+          f"median step {rec['step_ms']['remat']:.2f} ms remat vs {rec['step_ms']['off']:.2f} "
+          f"ms off (host clock, steps 2-{REMAT_STEPS} of each eager run), captured remat "
+          f"replay {rec['step_ms']['remat_captured']:.2f} ms on {card}", flush=True)
+    log["gpt_remat"] = rec
+    return rec
+
+
+def moe_phase(hvd, tt, build_lm_step, counters, card, log):
+    """Phase slice moe, world of one: GPT-2 small with an MoE FFN in every
+    second block (``MOE_CFG``) at batch ``MOE_BATCH`` x 1024, eager and
+    captured, ``MOE_STEPS`` steps each from seed 0: losses and weights
+    bitwise equal, one capture, B2 12 times per step; step ms and peak
+    memory."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batch = torch.randint(0, GPT_VOCAB, (MOE_BATCH, GPT_SEQ), generator=g, device="cuda")
+    eager = lm_run(hvd, tt, build_lm_step, counters, batch, MOE_STEPS, False, **MOE_CFG)
+    captured = lm_run(hvd, tt, build_lm_step, counters, batch, MOE_STEPS, True, **MOE_CFG)
+    want = b2_only(counters, GPT_LAYERS, MOE_STEPS)
+    for what, r in (("eager", eager), ("captured", captured)):
+        if r["launches"] != want:
+            fail(f"moe {what}: launches {r['launches']}, expected {want}")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"moe {what}: losses {r['losses']}")
+    if abs(eager["losses"][0] - math.log(GPT_VOCAB)) > 1.0:
+        fail(f"moe: first loss {eager['losses'][0]} is not near ln({GPT_VOCAB})")
+    if captured["captures"] != 1 or captured["losses"] != eager["losses"] or (
+            captured["digest"] != eager["digest"]):
+        fail(f"moe captured: {captured['captures']} captures, losses {captured['losses']} "
+             f"vs eager {eager['losses']}, or the weights differ")
+    e_ms = sorted(eager["step_ms"][1:])
+    rec = {"eager": eager, "captured": captured, "eager_step_ms": e_ms[len(e_ms) // 2],
+           "captured_step_ms": captured["step_ms"][-1]}
+    print(f"phase slice moe: GPT-2 small with MoE every 2nd block ({MOE_CFG['num_experts_local']} "
+          f"experts of {3072 // MOE_CFG['num_experts_local']}, top-{MOE_CFG['moe_k']}, capacity "
+          f"factor {MOE_CFG['moe_capacity_factor']}), world 1, batch {MOE_BATCH} x {GPT_SEQ}, "
+          f"bf16, AdamW capturable, Compression.bf16: losses "
+          f"{[round(v, 5) for v in eager['losses']]}; captured bitwise with eager over "
+          f"{MOE_STEPS} steps (losses and weights, 1 capture); launches {eager['launches']} "
+          f"(= expected, B2 12 per step); median eager step {rec['eager_step_ms']:.2f} ms, "
+          f"captured replay {rec['captured_step_ms']:.2f} ms (host clock); peak "
+          f"{eager['peak_gib']:.2f} GiB eager, {captured['peak_gib']:.2f} GiB captured on "
+          f"{card}", flush=True)
+    log["moe"] = rec
+    return rec
+
+
+def world_phase(kind, card, count, device="cuda", timeout=600):
+    """Start ``MESH_WORLD`` ranks of this script's ``kind`` worker (four
+    sharing one card on gloo, one per card on NCCL with four cards, or
+    on the CPU) and return rank 0's record, its layout and the wall
+    time."""
+    import tempfile
+
+    n = MESH_WORLD
+    backend = "nccl" if count >= n and device == "cuda" else "gloo"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.json")
+        cmd = [sys.executable, os.path.abspath(__file__), "--mesh-kind", kind,
+               "--mesh-size", str(n), "--mesh-backend", backend, "--mesh-store",
+               os.path.join(tmp, "store"), "--mesh-out", out, "--mesh-device", device]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--mesh-rank", str(r)], env=env) for r in range(n)]
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            fail(f"slice {kind}: ranks exited with {rcs}")
+        with open(out) as f:
+            rec = json.load(f)
+    layout = (f"{n} ranks on {n} cards, NCCL" if backend == "nccl"
+              else f"{n} ranks sharing the one card, gloo" if device == "cuda"
+              else f"{n} ranks on the CPU, gloo (gpt_tiny)")
+    rec.update(layout=layout, wall_s=wall)
+    return rec
+
+
+def mesh_worker(args) -> None:
+    """One rank of phase slice moe's meshes, slice pipeline or slice fsdp,
+    started by ``world_phase``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    hvd.init(args.mesh_device, init_method=f"file://{args.mesh_store}", rank=args.mesh_rank,
+             size=args.mesh_size, backend=args.mesh_backend)
+    try:
+        rec = {"moe": moe_mesh_worker, "pipeline": pipeline_worker,
+               "fsdp": fsdp_worker}[args.mesh_kind](hvd)
+        every = [None] * args.mesh_size  # every rank fails together, none waits on another
+        dist.all_gather_object(every, rec.pop("problems", []))
+        if any(every):
+            raise SystemExit(f"rank {args.mesh_rank}: {every}")
+        if args.mesh_rank == 0:
+            rec.update(world=args.mesh_size, backend=args.mesh_backend)
+            with open(args.mesh_out, "w") as f:
+                json.dump(rec, f)
+    finally:
+        os.environ.pop("HVD_TPU_SCHED_WIRE", None)
+        hvd.shutdown()
+
+
+def mesh_kernels():
+    from horovod_tpu_torch.ops import flash, kernels
+    from horovod_tpu_torch.ops import quant_kernels as qk
+    from horovod_tpu_torch.ops import ring_kernels as rk
+
+    return {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+            "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+            "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring, "flash_fwd": flash.flash_forward,
+            "flash_fwd_wgmma": flash.flash_forward_wgmma}
+
+
+def rel_err(got, want) -> float:
+    """Largest difference over the largest element of ``want``."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def moe_layer_check(mesh, e_loc, d, hidden, rows, seq, dev) -> dict:
+    """The MoE layer over ``ep`` of ``mesh`` in float32 on this rank's own
+    tokens against the layer this rank computes alone over every expert's
+    weights (what the JAX ``MoELayer`` computes per rank): output, aux and
+    the gradients of the input and router; of the experts, this rank's
+    slice of the sum over the ep group of the lone layers' gradients (each
+    expert serves every rank's tokens).  Returns each one's ``rel_err``."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.parallel import MoELayer
+
+    n = mesh.axis_size("ep")
+    e = n * e_loc
+    g = torch.Generator().manual_seed(9)  # the same weights on every rank
+    rk, rb = torch.randn(d, e, generator=g) * d ** -0.5, torch.randn(e, generator=g) * 0.1
+    wi = torch.randn(e, d, hidden, generator=g) * d ** -0.5
+    wo = torch.randn(e, hidden, d, generator=g) * hidden ** -0.5
+    g = torch.Generator().manual_seed(100 + mesh.rank)  # this rank's own tokens
+    x = torch.randn(rows, seq, d, generator=g).to(dev)
+    w = torch.randn(rows, seq, d, generator=g).to(dev)
+    r = mesh.axis_index("ep")
+    out = {}
+    for name, layer, mine in (
+            ("ep", MoELayer(d, e_loc, hidden, mesh=mesh, dtype=torch.float32),
+             slice(r * e_loc, (r + 1) * e_loc)),
+            ("alone", MoELayer(d, e, hidden, dtype=torch.float32), slice(0, e))):
+        layer.to(dev)
+        with torch.no_grad():
+            layer.router.kernel.copy_(rk)
+            layer.router.bias.copy_(rb)
+            layer.wi.copy_(wi[mine])
+            layer.wo.copy_(wo[mine])
+        xg = x.clone().requires_grad_()
+        y, aux = layer(xg)
+        ((y * w).sum() + aux).backward()
+        out[name] = {"out": y.detach(), "aux": aux.detach(), "dx": xg.grad,
+                     "drouter.kernel": layer.router.kernel.grad,
+                     "drouter.bias": layer.router.bias.grad,
+                     "dwi": layer.wi.grad, "dwo": layer.wo.grad}
+    for key in ("dwi", "dwo"):
+        total = out["alone"][key].contiguous()
+        dist.all_reduce(total, group=mesh.group("ep"))
+        out["alone"][key] = total[r * e_loc:(r + 1) * e_loc]
+    return {k: rel_err(v, out["alone"][k]) for k, v in out["ep"].items()}
+
+
+def shard_digests(model, mesh, tt) -> dict:
+    """Per parameter, (its shard's coordinates or None, its digest): a
+    replicated parameter must be the same on every rank, a sharded one
+    on every rank with the same coordinates on its axes."""
+    import hashlib
+
+    import torch
+
+    axes = tt.param_shard_axes(dict(model.named_parameters()), model.cfg)
+    out = {}
+    for name, p in model.named_parameters():
+        h = hashlib.sha256(p.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        coords = tuple(mesh.axis_index(a) for a in axes[name].split() if mesh.present(a))
+        out[name] = (coords or None, h.hexdigest())
+    return out
+
+
+def replicas_differ(mesh, model, tt) -> list:
+    import torch.distributed as dist
+
+    every = [None] * mesh.size
+    dist.all_gather_object(every, shard_digests(model, mesh, tt))
+    bad = []
+    for name in every[0]:
+        held = {}
+        for d in every:
+            held.setdefault(str(d[name][0]), set()).add(d[name][1])
+        if any(len(v) != 1 for v in held.values()):
+            bad.append(name)
+    return bad
+
+
+def moe_mesh_worker(hvd) -> dict:
+    """Phase slice moe's meshes on every rank: the layer check
+    (``moe_layer_check``), then GPT-2 small with MoE blocks on the mesh
+    through ``build_hybrid_lm_step`` on the bf16 wire for 1 +
+    ``MOE_MESH_TIMED`` steps: finite losses, replicas bitwise, B2 12 and B1
+    3 per bucket exchange per step."""
+    import torch
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+    from horovod_tpu_torch.utils.benchmarks import build_hybrid_lm_step
+
+    dev = hvd.device()
+    on_card = dev.type == "cuda"
+    build, seq, vocab, layers, d, ff = ((tt.gpt_small, GPT_SEQ, GPT_VOCAB, GPT_LAYERS, 768, 3072)
+                                        if on_card else (tt.gpt_tiny, 64, 256, 2, 64, 128))
+    counters = mesh_kernels()
+    steps = 1 + MOE_MESH_TIMED
+    runs, problems = {}, []
+    for kind, deg in MOE_MESHES.items():
+        os.environ["HVD_TPU_SCHED_WIRE"] = "bf16"
+        mesh = make_mesh(**deg)
+        try:
+            dp, ep = mesh.axis_size("dp"), mesh.axis_size("ep")
+            hidden = ff // MOE_MESH_EXPERTS
+            layer = moe_layer_check(mesh, MOE_MESH_EXPERTS, d, hidden, MOE_MESH_BATCH, seq, dev)
+            worst = max(layer.values())
+            if not worst <= MOE_LAYER_RTOL:
+                problems.append(f"{kind}: the layer over ep differs from the lone layer: "
+                                f"{layer}")
+            model = build(seed=0, device=dev, mesh=mesh, moe_every=2,
+                          num_experts_local=MOE_MESH_EXPERTS, moe_k=2,
+                          moe_capacity_factor=1.25)
+            step, _ = build_hybrid_lm_step(model, mesh)
+            data = hybrid_data(steps, MOE_MESH_BATCH * dp * ep, seq, vocab)
+            i = mesh.axis_index("dp") * ep + mesh.axis_index("ep")
+            rows = slice(i * MOE_MESH_BATCH, (i + 1) * MOE_MESH_BATCH)
+            for c in counters.values():
+                c.launches = 0
+            metrics.reset("sched.")
+            losses, times = [], []
+            for s in range(steps):
+                t0 = time.perf_counter()
+                toks = data[s, rows].to(dev)
+                losses.append(float(step(toks[:, :-1], toks[:, 1:])))
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: c.launches for k, c in counters.items()}
+            buckets = metrics.get_counter("sched.buckets")
+            want = {k: 0 for k in counters}
+            if on_card:
+                want.update(flash_fwd=layers * steps, flash_fwd_wgmma=layers * steps,
+                            scale_cast=3 * buckets)
+            if launches != want:
+                problems.append(f"{kind}: launches {launches}, expected {want}")
+            if not all(math.isfinite(v) for v in losses):
+                problems.append(f"{kind}: losses {losses}")
+            bad = replicas_differ(mesh, model, tt)
+            if bad:
+                problems.append(f"{kind}: replicas differ: {bad}")
+            ms = sorted(times[1:])
+            runs[kind] = {"layer": layer, "losses": losses, "launches": launches,
+                          "buckets": buckets, "step_ms": ms[len(ms) // 2],
+                          "experts": ep * MOE_MESH_EXPERTS, "hidden": hidden}
+            del model, step
+        finally:
+            mesh.shutdown()
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"runs": runs, "problems": problems}
+
+
+def print_moe_meshes(rec, card) -> None:
+    for kind, r in rec["runs"].items():
+        worst = max(r["layer"].values())
+        print(f"phase slice moe {kind}: {rec['layout']}; the MoE layer over ep ({r['experts']} "
+              f"experts of {r['hidden']}, {MOE_MESH_EXPERTS} a rank) in float32 on each rank's "
+              f"{MOE_MESH_BATCH} x {GPT_SEQ} tokens against the rank's lone layer over every "
+              f"expert: worst {worst:.3g} of the largest element (limit {MOE_LAYER_RTOL}; "
+              + ", ".join(f"{k} {v:.2g}" for k, v in r["layer"].items())
+              + f"); GPT-2 small with MoE every 2nd block, batch {MOE_MESH_BATCH} x {GPT_SEQ} "
+              f"per rank, bf16 wire: losses {[round(v, 5) for v in r['losses']]}, replicas "
+              f"bitwise, launches {r['launches']} (B2 12 per step, B1 3 x {r['buckets']} bucket "
+              f"exchanges); median step {r['step_ms']:.1f} ms on {card}", flush=True)
+    print(f"phase slice moe meshes: {rec['wall_s']:.0f} s with start-up", flush=True)
+
+
+def pipeline_worker(hvd) -> dict:
+    """Phase slice pipeline on every rank: ``pipeline_apply`` over ``pp4``,
+    this rank's stage the GPT blocks ``per·stage ... per·stage + per − 1``
+    of GPT-2 small (seed 0), ``PIPE_M`` microbatches of ``[PIPE_ROWS, 1024,
+    768]`` bf16, with ``remat_stage`` off and on, each after one warm-up
+    call (the first of each took 6.5 s on an H100: the ranks' first hops
+    and kernels); each against this rank applying all the blocks in
+    sequence, one microbatch at a time."""
+    import copy
+
+    import torch
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh, pipeline_apply
+
+    dev = hvd.device()
+    on_card = dev.type == "cuda"
+    if on_card:
+        full = tt.gpt_small(seed=0, device="cpu")
+        seq = GPT_SEQ
+    else:
+        full = tt.gpt_tiny(seed=0, device="cpu", num_layers=4)
+        seq = 64
+    cfg = full.cfg
+    counters = mesh_kernels()
+    problems = []
+    mesh = make_mesh(pp=MESH_WORLD)
+    try:
+        n, stage = mesh.axis_size("pp"), mesh.axis_index("pp")
+        per = cfg.num_layers // n
+        blocks = [getattr(full, f"block_{i}").to(dev) for i in range(cfg.num_layers)]
+        mine = torch.nn.ModuleList(copy.deepcopy(blocks[stage * per:(stage + 1) * per]))
+        g = torch.Generator().manual_seed(11)
+        x = torch.randn(PIPE_M, PIPE_ROWS, seq, cfg.model_dim, generator=g).to(cfg.dtype).to(dev)
+        wts = torch.randn(PIPE_M, PIPE_ROWS, seq, cfg.model_dim, generator=g).to(dev)
+
+        def stage_fn(mods, h):
+            for m in mods:
+                h = m(h)[0]
+            return h
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize()
+
+        for remat in (False, True):  # warm-up: the first call of each takes seconds
+            ((pipeline_apply(stage_fn, mine, x, mesh, remat_stage=remat).float() * wts).sum()
+             / n).backward()
+        runs = {}
+        for remat in (False, True):
+            mine.zero_grad(set_to_none=True)
+            sync()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            out = pipeline_apply(stage_fn, mine, x, mesh, remat_stage=remat)
+            ((out.float() * wts).sum() / n).backward()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: c.launches for k, c in counters.items()}
+            b2 = per * (PIPE_M + n - 1) * (2 if remat else 1) if on_card else 0
+            want = {k: (b2 if k in ("flash_fwd", "flash_fwd_wgmma") else 0) for k in counters}
+            if launches != want:
+                problems.append(f"remat_stage={remat}: launches {launches}, expected {want}")
+            runs[remat] = {"out": out.detach(), "ms": ms, "launches": launches,
+                           "grads": [p.grad.detach().clone() for p in mine.parameters()]}
+        t0 = time.perf_counter()
+        ref_out = []
+        for m in range(PIPE_M):
+            h = stage_fn(blocks, x[m])
+            (h.float() * wts[m]).sum().backward()
+            ref_out.append(h.detach())
+        sync()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        ref_out = torch.stack(ref_out)
+        ref_grads = [p.grad for b in blocks[stage * per:(stage + 1) * per]
+                     for p in b.parameters()]
+        rec = {"stage": stage, "blocks_per_stage": per, "ref_ms": ref_ms}
+        for remat, r in runs.items():
+            out_err = float((r["out"].float() - ref_out.float()).abs().max())
+            grad_err = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                           for a, b in zip(r["grads"], ref_grads))
+            if not out_err <= PIPE_OUT_ATOL or not grad_err <= PIPE_GRAD_RTOL:
+                problems.append(f"remat_stage={remat}: outputs {out_err} apart (limit "
+                                f"{PIPE_OUT_ATOL}), gradients {grad_err} of their norm "
+                                f"(limit {PIPE_GRAD_RTOL})")
+            rec[f"remat{int(remat)}"] = {"ms": r["ms"], "launches": r["launches"],
+                                        "out_err": out_err, "grad_err": grad_err}
+        rec["remat_bitwise"] = bool(
+            torch.equal(runs[False]["out"], runs[True]["out"])
+            and all(torch.equal(a, b) for a, b in zip(runs[False]["grads"], runs[True]["grads"])))
+        if not rec["remat_bitwise"]:
+            problems.append("remat_stage=True changed the outputs or the gradients")
+        import torch.distributed as dist
+
+        every = [None] * n
+        dist.all_gather_object(every, rec)
+        return {"stages": every, "problems": problems}
+    finally:
+        mesh.shutdown()
+
+
+def print_pipeline(rec, card) -> None:
+    worst_out = max(s[f"remat{k}"]["out_err"] for s in rec["stages"] for k in (0, 1))
+    worst_grad = max(s[f"remat{k}"]["grad_err"] for s in rec["stages"] for k in (0, 1))
+    per = rec["stages"][0]["blocks_per_stage"]
+    print(f"phase slice pipeline: {rec['layout']}; pp{rec['world']} over GPT-2 small's 12 "
+          f"blocks ({per} a stage, flash, bf16), {PIPE_M} microbatches of [{PIPE_ROWS}, "
+          f"{GPT_SEQ}, 768], broadcast outputs: against each rank applying the 12 blocks in "
+          f"sequence, outputs at most {worst_out:.3g} apart (limit {PIPE_OUT_ATOL}), every "
+          f"stage's gradients within {worst_grad:.3g} of their norm (limit {PIPE_GRAD_RTOL}); "
+          f"remat_stage bitwise with off; B2 launches per stage "
+          f"{[s['remat0']['launches']['flash_fwd'] for s in rec['stages']]} off, "
+          f"{[s['remat1']['launches']['flash_fwd'] for s in rec['stages']]} on "
+          f"(= {per} x (M + n - 1), doubled); forward + backward "
+          f"{[round(s['remat0']['ms'], 1) for s in rec['stages']]} ms off, "
+          f"{[round(s['remat1']['ms'], 1) for s in rec['stages']]} ms on, sequential "
+          f"reference {[round(s['ref_ms'], 1) for s in rec['stages']]} ms per rank (host "
+          f"clock) on {card}; {rec['wall_s']:.0f} s with start-up", flush=True)
+
+
+class KernelRecorder:
+    """Records every call of B3, B4 and B5 made through ``quant_kernels``
+    (inputs and outputs on the host) while active, to hold each against
+    its plain version afterwards."""
+
+    def __init__(self):
+        from horovod_tpu_torch.ops import quant_kernels as qk
+
+        self.qk, self.calls, self.saved = qk, [], {}
+
+    def __enter__(self):
+        for name in ("quant_packed", "dequant_accum", "dequant_rows"):
+            fn = getattr(self.qk, name)
+            self.saved[name] = fn
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                out = _fn(*a, **kw)
+                host = lambda v: v.detach().cpu() if hasattr(v, "detach") else v  # noqa: E731
+                res = tuple(host(o) for o in out) if isinstance(out, tuple) else host(out)
+                self.calls.append((_name, [host(v) for v in a], dict(kw), res))
+                return out
+            wrapped.launches = 0  # the kernel counts its launch on the module's name
+            setattr(self.qk, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            fn.launches += getattr(self.qk, name).launches
+            setattr(self.qk, name, fn)
+
+    def mismatches(self) -> list:
+        qk, bad = self.qk, []
+        for name, a, kw, res in self.calls:
+            want = getattr(qk, name + "_reference")(*a, **kw)
+            got = res if isinstance(res, tuple) else (res,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                if g is None and w is None:
+                    continue
+                if g is None or w is None or not torch_bits_equal(g, w):
+                    bad.append(name)
+        return bad
+
+
+def torch_bits_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def fsdp_worker(hvd) -> dict:
+    """Phase slice fsdp on every rank: GPT-2 small (flash, seq 1024, batch
+    ``FSDP_BATCH`` per rank, AdamW lr 3e-4, the same weights and tokens)
+    through the replicated data-parallel step (``DistributedOptimizer``,
+    dense and ``Compression.bf16``), ``fsdp_train_step`` (dense and
+    ``Compression.bf16``) and ``zero_train_step`` on the int8 wire with
+    error feedback, ``FSDP_STEPS`` steps each."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import transformer as tt
+
+    dev = hvd.device()
+    on_card = dev.type == "cuda"
+    n, rank = hvd.size(), hvd.rank()
+    build, seq, vocab = ((tt.gpt_small, GPT_SEQ, GPT_VOCAB) if on_card
+                         else (tt.gpt_tiny, 64, 256))
+    base = build(seed=0, device=dev)  # each run starts from a copy of it
+    start = {k: v.detach().float().cpu() for k, v in base.named_parameters()}
+    n_params = sum(p.numel() for p in base.parameters())
+    data = hybrid_data(FSDP_STEPS, FSDP_BATCH * n, seq, vocab)
+    mine = data[:, rank * FSDP_BATCH:(rank + 1) * FSDP_BATCH].to(dev)
+    counters = mesh_kernels()
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    def lm_loss(m, toks):
+        logits, aux = m(toks[:, :-1])
+        return tt.token_cross_entropy(logits, toks[:, 1:]) + 0.01 * aux
+
+    def fsdp_loss(params, toks):
+        logits, aux = functional_call(base, params, (toks[:, :-1],))
+        return tt.token_cross_entropy(logits, toks[:, 1:]) + 0.01 * aux
+
+    def mean_loss(loss):
+        t = loss.detach().reshape(1).clone()
+        dist.all_reduce(t)
+        return float(t[0] / n)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    runs, problems = {}, []
+    for kind in ("dp", "dp_bf16", "fsdp", "fsdp_bf16", "zero_int8"):
+        model = copy.deepcopy(base)  # no optimizer's hooks on it yet
+        os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+        comp = hvd.Compression.bf16 if kind.endswith("bf16") else hvd.Compression.none
+        check = {}
+        if kind.startswith("dp"):
+            opt = hvd.DistributedOptimizer(adamw(model.parameters()),
+                                           named_parameters=model.named_parameters(),
+                                           compression=comp)
+
+            def one(toks):
+                loss = lm_loss(model, toks)
+                loss.backward()
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+                return mean_loss(loss)
+            persistent = 3 * n_params * 4  # the weights and AdamW's two moments
+        elif kind.startswith("fsdp"):
+            step = hvd.fsdp_train_step(fsdp_loss, adamw,
+                                       compression=comp if kind == "fsdp_bf16" else None)
+            state = list(step.init(dict(model.named_parameters())))
+
+            def one(toks):
+                state[0], state[1], loss = step(state[0], state[1], toks)
+                return float(loss)
+            persistent = 3 * state[0].numel() * 4
+        else:
+            zstep = hvd.zero_train_step(lm_loss, adamw, wire="int8")
+            zstate = zstep.init(model)
+            persistent = (n_params + 3 * zstate.shard_len + zstate.padded) * 4
+
+            def one(toks):
+                return float(zstep(model, zstate, toks)[2])
+            # The first step's quantized exchange: every B3/B4/B5 call
+            # bitwise with its plain version, and the averaged gradient
+            # shard within the int8 grid of the dense mean.
+            lm_loss(model, mine[0]).backward()
+            gflat = zstate._flat([p.grad for p in model.parameters()])
+            model.zero_grad(set_to_none=True)
+            dense = torch.empty(zstate.shard_len, device=dev)
+            dist.reduce_scatter_tensor(dense, gflat)
+            with KernelRecorder() as recorder:
+                ef = zstate.ef.clone()
+                gshard = zstate._reduce_scatter(gflat)
+                zstate.ef = ef
+            bad = recorder.mismatches()
+            # Each rank's contribution is within half an int8 step of its
+            # block's largest element, G / 254 at most; the mean of n
+            # such errors too.  The bound is twice that.
+            g_max = gflat.abs().max().reshape(1)
+            dist.all_reduce(g_max, op=dist.ReduceOp.MAX)
+            grid = float(g_max[0]) / 127
+            err = float((gshard - dense / n).abs().max())
+            check = {"calls": len(recorder.calls), "plain_mismatches": bad,
+                     "rs_err": err, "rs_bound": grid}
+            if bad or not err <= grid:
+                problems.append(f"zero int8: kernels differing from their plain versions "
+                                f"{bad}; shard error {err} (bound {grid})")
+        for c in counters.values():
+            c.launches = 0
+        metrics.reset("quant.")
+        losses = [one(mine[s]) for s in range(FSDP_STEPS)]
+        launches = {k: c.launches for k, c in counters.items()}
+        modes = {"fallback": metrics.get_counter("quant.fused_fallback"),
+                 "fused": metrics.get_counter("quant.fused_collectives")}
+        params = (step.gather(state[0]) if kind.startswith("fsdp")
+                  else dict(model.named_parameters()))
+        weights = {k: v.detach().float().cpu().clone() for k, v in params.items()}
+        times = []
+        for s in range(FSDP_TIMED):  # warm steps, each ended by its loss's host read
+            sync()
+            t0 = time.perf_counter()
+            one(mine[s])
+            times.append((time.perf_counter() - t0) * 1e3)
+        want = {k: 0 for k in counters}
+        if on_card:
+            want.update(flash_fwd=GPT_LAYERS * FSDP_STEPS,
+                        flash_fwd_wgmma=GPT_LAYERS * FSDP_STEPS)
+            if kind == "zero_int8":  # one RS and one AG per step, not on the ring
+                ring = modes["fused"] > 0
+                per = ({"rs_ring": 1, "ag_ring": 1} if ring else
+                       {"quant_pack": 2, "dequant_accum": 1, "dequant_rows": 1})
+                want.update({k: v * FSDP_STEPS for k, v in per.items()})
+            if kind.startswith("dp"):  # the reference step's own scale and casts
+                want["scale_cast"] = launches["scale_cast"]
+        if launches != want:
+            problems.append(f"{kind}: launches {launches}, expected {want}")
+        ms = sorted(times)
+        runs[kind] = {"losses": losses, "launches": launches, "modes": modes,
+                      "step_ms": ms[len(ms) // 2], "persistent_bytes": persistent,
+                      "check": check, "weights": weights}
+        del one, model
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def compare(kind, ref):
+        a, b = runs[kind], runs[ref]
+        worst_abs, worst_ratio = 0.0, 0.0
+        for name, w in b["weights"].items():
+            diff = (a["weights"][name] - w).abs()
+            move = (w - start[name]).abs()
+            worst_abs = max(worst_abs, float(diff.max()))
+            if name.endswith("qkv.Dense_0.bias"):  # [3, H, D]: drop the key third
+                diff, move = diff.view(3, -1)[[0, 2]], move.view(3, -1)[[0, 2]]
+            worst_ratio = max(worst_ratio, float(diff.mean() / move.mean()))
+        return {"first_loss": (a["losses"][0], b["losses"][0]), "worst_abs": worst_abs,
+                "worst_mean_ratio": worst_ratio}
+
+    compared = {k: compare(k, ref) for k, ref in (("fsdp", "dp"), ("fsdp_bf16", "dp_bf16"),
+                                                  ("zero_int8", "dp"))}
+    for kind, c in compared.items():
+        first, want = c["first_loss"]
+        limit = FSDP_RATIO["int8" if kind == "zero_int8" else "dense"]
+        if abs(first - want) > FSDP_LOSS_RTOL * abs(want) or c["worst_abs"] > ADAM_APART or (
+                not c["worst_mean_ratio"] <= limit):
+            problems.append(f"{kind}: {c} (loss rtol {FSDP_LOSS_RTOL}, weights "
+                            f"{ADAM_APART:.2e}, mean ratio {limit})")
+    for r in runs.values():
+        del r["weights"]
+        if not all(math.isfinite(v) for v in r["losses"]):
+            problems.append(f"losses {r['losses']}")
+    return {"runs": runs, "compared": compared, "params": n_params, "problems": problems}
+
+
+def print_fsdp(rec, card) -> None:
+    runs = rec["runs"]
+    for kind, r in runs.items():
+        c = rec["compared"].get(kind)
+        vs = (f"; against {'dp_bf16' if kind == 'fsdp_bf16' else 'dp'}: first loss "
+              f"{c['first_loss'][0]:.6f} vs {c['first_loss'][1]:.6f}, weights after "
+              f"{FSDP_STEPS} steps at most {c['worst_abs']:.3g} apart (bound "
+              f"{ADAM_APART:.2e}), mean difference {c['worst_mean_ratio']:.3f} of the mean move"
+              if c else "")
+        chk = r["check"]
+        wire = (f"; first step's exchange: {chk['calls']} B3/B4/B5 calls bitwise with their "
+                f"plain versions, the averaged gradient shard within {chk['rs_err']:.3g} of "
+                f"the dense mean (bound {chk['rs_bound']:.3g}); dispatch: {r['modes']}"
+                if chk else "")
+        print(f"phase slice fsdp {kind}: {rec['layout']}; GPT-2 small ({rec['params']} "
+              f"parameters), flash, batch {FSDP_BATCH} x {GPT_SEQ} per rank, AdamW: losses "
+              f"{[round(v, 5) for v in r['losses']]}{vs}{wire}; persistent "
+              f"{r['persistent_bytes'] / 2 ** 20:.0f} MiB per rank (weights and moments; "
+              f"replicated {runs['dp']['persistent_bytes'] / 2 ** 20:.0f} MiB); launches "
+              f"{r['launches']} over {FSDP_STEPS} steps; median step {r['step_ms']:.1f} ms "
+              f"(host clock, {FSDP_TIMED} more steps) on {card}", flush=True)
+    print(f"phase slice fsdp: {rec['wall_s']:.0f} s with start-up", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
-    ap.add_argument("--only", choices=["ring", "kernel", "sets", "hybrid"],
+    ap.add_argument("--only", choices=["ring", "kernel", "sets", "hybrid", "moe", "pipeline",
+                                       "fsdp", "remat"],
                     help="ring: only the phases that need more than one card; "
                          "kernel: only the kernels against their plain versions; "
-                         "sets: only phase slice sets; hybrid: only phase slice "
-                         "hybrid")
+                         "sets, hybrid, moe, pipeline, fsdp, remat: only that phase "
+                         "(remat: phase slice gpt's remat runs)")
     for name, kind in (("rank", int), ("size", int), ("backend", str), ("store", str),
                        ("out", str)):
-        for worker in ("ring", "sets", "hybrid"):
+        for worker in ("ring", "sets", "hybrid", "mesh"):
             ap.add_argument(f"--{worker}-{name}", type=kind, help=argparse.SUPPRESS)
     ap.add_argument("--sets-batch", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--hybrid-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-kind", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ring_rank is not None:
         ring_worker(args)
@@ -3148,6 +3990,9 @@ def main() -> None:
         return
     if args.hybrid_rank is not None:
         hybrid_worker(args)
+        return
+    if args.mesh_rank is not None:
+        mesh_worker(args)
         return
 
     import torch
@@ -3226,7 +4071,13 @@ def main() -> None:
     print(f"phase kernel: ResNet-50 buckets (elements): {sizes}; padded to the "
           f"int8 block: {padded}; at the ring's 32 MiB threshold: {ring_sizes}",
           flush=True)
-    if args.only in ("ring", "sets", "hybrid"):
+    counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
+                "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
+                "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring,
+                "flash_fwd": flash.flash_forward,
+                "flash_fwd_wgmma": flash.flash_forward_wgmma,
+                "flash_fwd_mma": flash.flash_forward_mma}
+    if args.only in ("ring", "sets", "hybrid", "moe", "pipeline", "fsdp", "remat"):
         if args.only == "ring":
             ring_slice_phase(card, count, log)
         if args.only in ("ring", "sets"):
@@ -3235,6 +4086,14 @@ def main() -> None:
             gpt_world_phase(root, count, card, log)
         if args.only in ("ring", "hybrid"):
             hybrid_slice_phase(card, count, log)
+        if args.only == "remat":
+            g = torch.Generator(device="cuda").manual_seed(2)
+            remat_phase(hvd, tt, build_lm_step, counters, torch.randint(
+                0, GPT_VOCAB, (GPT_BATCH, GPT_SEQ), generator=g, device="cuda"), card, log)
+        if args.only == "moe":
+            moe_phase(hvd, tt, build_lm_step, counters, card, log)
+        mesh_phases(card, count, log, [k for k in ("moe", "pipeline", "fsdp")
+                                       if args.only in ("ring", k)])
         finish(args, log, card, kind, count, [])
         return
     record = kernel_phase(kernels, sizes, log)
@@ -3284,12 +4143,6 @@ def main() -> None:
 
     # Phase 7: the GPT slice, dense then packed rows; every count is set
     # to 0 just before each run.
-    counters = {"scale_cast": kernels.scale_cast, "quant_pack": qk.quant_packed,
-                "dequant_accum": qk.dequant_accum, "dequant_rows": qk.dequant_rows,
-                "rs_ring": rk.rs_ring, "ag_ring": rk.ag_ring,
-                "flash_fwd": flash.flash_forward,
-                "flash_fwd_wgmma": flash.flash_forward_wgmma,
-                "flash_fwd_mma": flash.flash_forward_mma}
     g = torch.Generator(device="cuda").manual_seed(2)
     dense_batch = torch.randint(0, GPT_VOCAB, (GPT_BATCH, GPT_SEQ), generator=g,
                                 device="cuda")
@@ -3308,17 +4161,61 @@ def main() -> None:
             gpt_runs[what], card)
     log["gpt"] = gpt_runs
     torch.cuda.empty_cache()
-    hybrid_slice_phase(card, count, log)
+    remat = remat_phase(hvd, tt, build_lm_step, counters, dense_batch, card, log)
+    hybrid = hybrid_slice_phase(card, count, log)
+    moe = moe_phase(hvd, tt, build_lm_step, counters, card, log)
+    meshes = mesh_phases(card, count, log, ["moe", "pipeline", "fsdp"])
     log["reference_gpt"] = reference_gpt_phase(hvd, tt, build_lm_step)
     torch.cuda.empty_cache()
     log["examples"] = examples_phase(root, card)
 
+    log["paths"] = path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes)
     entries = [("scale_cast", "scale_cast.cu", record, runs["bf16"])]
     entries += [(k, "quant.cu", qrecords[k], runs["int8"])
                 for k in ("quant_pack", "dequant_accum", "dequant_rows")]
     entries.append(("flash_fwd", "flash_attn_sm90.cu", frecord, gpt_runs["dense"]))
     entries += [(k, "quant_ring.cu", rrecords[k], ring_run) for k in ("rs_ring", "ag_ring")]
     finish(args, log, card, kind, count, entries)
+
+
+def mesh_phases(card, count, log, kinds) -> dict:
+    """Phase slice moe's meshes, slice pipeline and slice fsdp (those in
+    ``kinds``), each in a world of ``MESH_WORLD`` ranks."""
+    printers = {"moe": print_moe_meshes, "pipeline": print_pipeline, "fsdp": print_fsdp}
+    out = {}
+    for k in kinds:
+        out[k] = world_phase(k, card, count)
+        printers[k](out[k], card)
+        log[f"{k}_world"] = out[k]
+    return out
+
+
+def path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes) -> dict:
+    """Each kernel's launches on each path of the main run (rank 0 where
+    the path has several ranks), the counts set to 0 before each."""
+    paths = {}
+
+    def put(label, launches):
+        for name, v in launches.items():
+            if v:
+                paths.setdefault(name, {})[label] = v
+
+    for wire, r in runs.items():
+        put(f"resnet {wire}", r["launches"])
+    put("resnet int8 ring", ring_run["launches"])
+    for what, r in gpt_runs.items():
+        put(f"gpt {what}", r["launches"])
+    put("gpt remat", remat["runs"][0]["launches"])
+    for kind, r in hybrid["runs"].items():
+        put(f"hybrid {kind}", r["launches"])
+    put("moe world 1", moe["eager"]["launches"])
+    for kind, r in meshes["moe"]["runs"].items():
+        put(f"moe {kind}", r["launches"])
+    for key, what in (("remat0", ""), ("remat1", " remat_stage")):
+        put(f"pipeline stage 0{what}", meshes["pipeline"]["stages"][0][key]["launches"])
+    for kind, r in meshes["fsdp"]["runs"].items():
+        put(f"fsdp {kind}", r["launches"])
+    return paths
 
 
 def finish(args, log, card, kind, count, entries) -> None:
@@ -3339,6 +4236,7 @@ def finish(args, log, card, kind, count, entries) -> None:
         "bound_ms": rec["bound_ms"],
         "bound_by": rec.get("bound_by", "bytes"),
         "library_ms": rec["library_ms"],
+        "paths": log.get("paths", {}).get(name, {}),
     } for name, src, rec, run in entries]
     for k in log["kernels"]:
         if k["launches"] < 1:

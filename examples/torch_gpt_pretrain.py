@@ -56,7 +56,8 @@ def main(argv=None):
     parser.add_argument("--attn", default="ring",
                         choices=["ring", "ulysses", "flash", "full"])
     parser.add_argument("--remat", action="store_true",
-                        help="recompute each block in the backward (not ported)")
+                        help="recompute each block in the backward (long-context "
+                        "activation memory)")
     parser.add_argument("--packed", action="store_true",
                         help="sequence packing: variable-length documents share "
                         "fixed rows under segment-id attention masking (requires "
@@ -67,9 +68,6 @@ def main(argv=None):
     parser.add_argument("--rank", type=int, default=None)
     parser.add_argument("--world-size", type=int, default=None)
     args = parser.parse_args(argv)
-    if args.remat:
-        raise NotImplementedError(
-            "--remat is not ported to horovod_tpu_torch yet (ROADMAP Queue A entry A10)")
     if args.packed and (args.sp > 1 or args.attn not in ("flash", "full")):
         raise SystemExit(
             "--packed requires --sp 1 and --attn flash|full (packed rows "
@@ -99,7 +97,7 @@ def train(args, mesh):
     dev = hvd.device()
     build = tt.gpt_small if args.small else tt.gpt_tiny
     model = build(attn_impl=args.attn, max_len=args.seq_per_sp * args.sp, seed=0,
-                  device=dev, mesh=mesh)
+                  device=dev, mesh=mesh, remat=args.remat)
     cfg = model.cfg
     b = args.batch_per_dp * args.dp
     t = args.seq_per_sp * args.sp

@@ -38,6 +38,12 @@ reduces within each group of a set that tiles the world.
 ``is_homogeneous`` and the capability flags (``nccl_built``,
 ``cuda_built``, ...) answer from ``torch.distributed`` and ``torch.cuda``.
 
+ZeRO-1 and FSDP (``optim/zero.py``): ``zero_train_step`` over a
+``ShardedOptimizer``, ``fsdp_train_step``, ``global_norm`` and
+``clip_by_global_norm``.  Hybrid parallelism (``parallel``): the mesh,
+tensor parallelism, ring and Ulysses attention, the MoE layer over
+``ep`` and the GPipe pipeline over ``pp``.
+
 Importing it imports neither JAX nor ``horovod_tpu``.
 """
 
@@ -82,6 +88,13 @@ from .ops.eager import (
     synchronize,
 )
 from .optim.distributed_optimizer import DistributedOptimizer, TrainStep
+from .optim.zero import (
+    ShardedOptimizer,
+    clip_by_global_norm,
+    fsdp_train_step,
+    global_norm,
+    zero_train_step,
+)
 from .process_sets import ProcessSet
 from .runtime import (
     add_process_set,
@@ -116,7 +129,9 @@ from .version import __version__
 
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer", "Handle", "Max",
-    "Min", "ProcessSet", "Product", "ReduceOp", "Sum", "TrainStep", "__version__",
+    "Min", "ProcessSet", "Product", "ReduceOp", "ShardedOptimizer", "Sum", "TrainStep",
+    "__version__", "clip_by_global_norm", "fsdp_train_step", "global_norm",
+    "zero_train_step",
     "add_process_set", "allgather", "allgather_async", "allgather_object",
     "allgather_v", "allreduce", "allreduce_", "allreduce_async",
     "allreduce_async_", "alltoall", "alltoall_async", "barrier", "broadcast",

@@ -9,6 +9,10 @@ Counterpart of ``horovod_tpu/models/transformer.py``:
 (``:339``).  ``attn_impl`` "flash" (kernel B2, ``ops/flash.py``),
 "full", "ring" (``parallel/ring_attention.py``) or "ulysses"
 (``parallel/ulysses.py``, with B2 inside at ``[B, T_global, H/sp, D]``).
+Every ``moe_every``-th block's FFN is a ``parallel.moe.MoELayer`` (its
+experts sharded over ``ep_axis``), and ``remat=True`` recomputes each
+block in the backward (``torch.utils.checkpoint``, the counterpart of
+``nn.remat(Block)``), so B2's forward runs twice per block per step.
 
 The model, its layers and ``parallel.sync_gradients`` take a
 ``parallel.Mesh`` where the JAX model reads the axes ``shard_map`` binds:
@@ -19,8 +23,9 @@ order), the tokens are this rank's block of the sequence over
 ``sp_axis`` (positions offset by the block's index), and the model
 raises every error the JAX one raises: heads not divisible by tp,
 packed rows with ring/ulysses or over sp > 1, flash/full on an sp axis
-of size > 1, a global length over ``max_len``.  MoE and remat raise
-``NotImplementedError`` (ROADMAP Queue A entry A10).
+of size > 1, a global length over ``max_len``.  Over an ``ep`` axis each
+rank holds ``num_experts_local`` experts of the ``ep · num_experts_local``
+that a layer routes to (:func:`shard_of`).
 
 Kept from the flax model, on purpose:
 
@@ -45,9 +50,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash import flash_attention
 from ..parallel.mesh import EP_AXIS, SP_AXIS, TP_AXIS, Mesh
+from ..parallel.moe import MoELayer
 from ..parallel.ring_attention import full_attention, ring_attention
 from ..parallel.tensor import (
     ColumnParallelDense,
@@ -57,8 +64,6 @@ from ..parallel.tensor import (
     lecun_normal_,
 )
 from ..parallel.ulysses import ulysses_attention
-
-_QUEUE = "ROADMAP Queue A entry A10"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +81,8 @@ class TransformerConfig:
     attn_impl: str = "flash"     # "flash" | "full" | "ring" | "ulysses"
     sp_axis: str = SP_AXIS
     tp_axis: str = TP_AXIS
-    remat: bool = False          # not ported
-    # MoE (0: dense FFN everywhere; MoE is not ported):
+    remat: bool = False          # recompute each block in the backward
+    # MoE (0: dense FFN everywhere; else every moe_every-th block):
     moe_every: int = 0
     num_experts_local: int = 1
     moe_k: int = 2
@@ -85,17 +90,12 @@ class TransformerConfig:
     ep_axis: str = EP_AXIS
 
     def check(self) -> None:
-        """Raise for an unknown ``attn_impl`` and for what the port does
-        not run yet."""
+        """Raise for an unknown ``attn_impl``."""
         if self.attn_impl not in ("flash", "full", "ring", "ulysses"):
             raise ValueError(
                 f"unknown attn_impl {self.attn_impl!r}; expected 'flash', "
                 "'full', 'ring', or 'ulysses'"
             )
-        if self.moe_every > 0:
-            raise NotImplementedError(f"MoE (moe_every > 0) is not ported yet: {_QUEUE}")
-        if self.remat:
-            raise NotImplementedError(f"remat is not ported yet: {_QUEUE}")
 
 
 class LayerNorm(nn.Module):
@@ -183,23 +183,37 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block with the tensor-parallel dense MLP."""
+    """Pre-LN transformer block; the FFN is the tensor-parallel dense MLP,
+    or with ``use_moe`` a ``MoELayer`` of ``experts_local`` experts
+    (default ``cfg.num_experts_local``) of width ``ff_dim //
+    num_experts_local``."""
 
-    def __init__(self, cfg: TransformerConfig, mesh: Optional[Mesh] = None):
+    def __init__(self, cfg: TransformerConfig, mesh: Optional[Mesh] = None,
+                 use_moe: bool = False, experts_local: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.ln_attn = LayerNorm(cfg.model_dim)
         self.attn = Attention(cfg, mesh)
         self.ln_mlp = LayerNorm(cfg.model_dim)
-        self.mlp = TensorParallelMLP(cfg.model_dim, cfg.ff_dim, cfg.model_dim,
-                                     cfg.tp_axis, dtype=cfg.dtype, mesh=mesh)
+        if use_moe:
+            self.moe = MoELayer(cfg.model_dim, experts_local or cfg.num_experts_local,
+                                cfg.ff_dim // max(1, cfg.num_experts_local), k=cfg.moe_k,
+                                capacity_factor=cfg.moe_capacity_factor,
+                                axis=cfg.ep_axis, dtype=cfg.dtype, mesh=mesh)
+        else:
+            self.mlp = TensorParallelMLP(cfg.model_dim, cfg.ff_dim, cfg.model_dim,
+                                         cfg.tp_axis, dtype=cfg.dtype, mesh=mesh)
 
     def forward(self, x: torch.Tensor, segment_ids: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype = self.cfg.dtype
         x = x + self.attn(self.ln_attn(x).to(dtype), segment_ids)
-        y = self.mlp(self.ln_mlp(x).to(dtype))
-        return x + y.to(x.dtype), torch.zeros((), device=x.device)
+        h = self.ln_mlp(x).to(dtype)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h)
+        else:
+            y, aux = self.mlp(h), torch.zeros((), device=x.device)
+        return x + y.to(x.dtype), aux
 
 
 class Transformer(nn.Module):
@@ -207,12 +221,13 @@ class Transformer(nn.Module):
     packed ``segment_ids``) -> ``(logits [B, T_local, vocab] float32, aux
     loss)``; ``T_local = T_global / sp`` over a mesh with a sequence axis.
     Weights are drawn from ``seed`` on the CPU with flax's initialisers
-    at full width (over a tensor-parallel mesh this rank keeps its shard
-    of them, :func:`load_jax_params`'s slicing), then moved to
-    ``device``."""
+    at full width (over a tensor- or expert-parallel mesh this rank keeps
+    its shard of them, :func:`load_jax_params`'s slicing; the full width
+    of an MoE layer over ``ep`` is ``ep · num_experts_local`` experts,
+    ``experts_local`` of the mesh-free draw), then moved to ``device``."""
 
     def __init__(self, cfg: TransformerConfig, *, seed: int = 0, device="cuda",
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, experts_local: Optional[int] = None):
         super().__init__()
         cfg.check()
         self.cfg = cfg
@@ -220,10 +235,13 @@ class Transformer(nn.Module):
         self.wte = Embed(cfg.vocab_size, cfg.model_dim)
         self.wpe = nn.Parameter(torch.empty(cfg.max_len, cfg.model_dim))
         for i in range(cfg.num_layers):
-            self.add_module(f"block_{i}", Block(cfg, mesh))
+            use_moe = cfg.moe_every > 0 and (i + 1) % cfg.moe_every == 0
+            self.add_module(f"block_{i}", Block(cfg, mesh, use_moe, experts_local))
         self.ln_f = LayerNorm(cfg.model_dim)
-        if axis_degree(mesh, cfg.tp_axis) > 1:
-            full = Transformer(cfg, seed=seed, device="cpu")
+        ep = axis_degree(mesh, cfg.ep_axis) if cfg.moe_every > 0 else 1
+        if axis_degree(mesh, cfg.tp_axis) > 1 or ep > 1:
+            full = Transformer(cfg, seed=seed, device="cpu",
+                               experts_local=ep * cfg.num_experts_local)
             _copy_full(self, {n: p.detach() for n, p in full.named_parameters()})
         else:
             g = torch.Generator().manual_seed(seed)
@@ -231,8 +249,11 @@ class Transformer(nn.Module):
                 self.wte.embedding.normal_(0.0, 0.02, generator=g)
                 self.wpe.normal_(0.0, 0.02, generator=g)
                 for name, p in self.named_parameters():
-                    if name.endswith(".kernel"):
+                    if name.endswith(".kernel") and ".moe." not in name:
                         lecun_normal_(p, g)
+                for module in self.modules():
+                    if isinstance(module, MoELayer):
+                        module.reset_parameters(g)
         self.to(device)
 
     def forward(self, tokens: torch.Tensor,
@@ -272,7 +293,12 @@ class Transformer(nn.Module):
             x = (x + self.wpe[pos][None]).to(cfg.dtype)
         aux_total = torch.zeros((), device=x.device)
         for i in range(cfg.num_layers):
-            x, aux = getattr(self, f"block_{i}")(x, segment_ids)
+            block = getattr(self, f"block_{i}")
+            if cfg.remat and torch.is_grad_enabled():
+                x, aux = checkpoint(block, x, segment_ids, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = block(x, segment_ids)
             aux_total = aux_total + aux
         x = self.ln_f(x)
         # Tied head in the compute dtype, cast up for the float32 loss.
@@ -361,17 +387,23 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Te
 
 
 def shard_of(name: str, full: torch.Tensor, cfg: TransformerConfig, tp: int,
-             r: int) -> torch.Tensor:
-    """Rank r's shard (of ``tp``) of the full-width parameter ``name``.
+             r: int, ep: int = 1, re: int = 0) -> torch.Tensor:
+    """Rank r's shard (of ``tp``) of the full-width parameter ``name``,
+    or for an expert weight, the shard of the rank at ``re`` on an ``ep``
+    axis of ``ep`` ranks.
 
     qkv (``[D, 3·H·hd]`` kernel, ``[3·H·hd]`` bias): heads
     ``r·H/tp:(r+1)·H/tp`` of each of q, k and v, the local columns in
     ``[3, H/tp, hd]`` order.  The MLP's ``wi`` (kernel and bias): columns
     ``r·ff/tp:(r+1)·ff/tp``.  The kernels of ``proj`` and of the MLP's
-    ``wo``: the rows of those heads / columns.  Every other parameter
-    (replicated) whole."""
-    axes = param_shard_axes([name], cfg)[name]
-    if tp == 1 or cfg.tp_axis not in axes.split():
+    ``wo``: the rows of those heads / columns.  An MoE layer's ``wi`` and
+    ``wo`` (``[E, ...]``): experts ``re·E/ep:(re+1)·E/ep``.  Every other
+    parameter (replicated) whole."""
+    axes = param_shard_axes([name], cfg)[name].split()
+    if cfg.ep_axis in axes:
+        n = full.shape[0] // ep
+        return full[re * n:(re + 1) * n]
+    if tp == 1 or cfg.tp_axis not in axes:
         return full
     parts = name.split(".")
     if "qkv" in parts:
@@ -397,14 +429,15 @@ def _copy_full(model: Transformer, flat: Mapping) -> None:
             f"{sorted(set(own) - set(flat))}"
         )
     mesh, cfg = model.mesh, model.cfg
-    tp = axis_degree(mesh, cfg.tp_axis)
+    tp, ep = axis_degree(mesh, cfg.tp_axis), axis_degree(mesh, cfg.ep_axis)
     r = 0 if mesh is None else mesh.axis_index(cfg.tp_axis)
+    re = 0 if mesh is None else mesh.axis_index(cfg.ep_axis)
     with torch.no_grad():
         for name, p in own.items():
             val = flat[name]
             full = (val.detach().float().cpu() if torch.is_tensor(val)
                     else torch.from_numpy(np.array(val, np.float32)))
-            part = shard_of(name, full, cfg, tp, r)
+            part = shard_of(name, full, cfg, tp, r, ep, re)
             if tuple(part.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(part.shape)} != {tuple(p.shape)}")
             p.copy_(part)
@@ -418,8 +451,9 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
     tp-sharded leaf is cut to this rank's shard (:func:`shard_of`: rank r
     of tp takes heads ``r·H/tp:(r+1)·H/tp`` of each of q, k and v in qkv,
     the rows of ``proj`` and ``wo`` and the columns of ``wi`` that go
-    with them), and replicated leaves are copied whole.  Raises if the
-    two sets of names differ."""
+    with them), over an ``ep`` axis each MoE layer's ``[E, ...]`` expert
+    weights to this rank's ``E/ep`` experts, and replicated leaves are
+    copied whole.  Raises if the two sets of names differ."""
     tree = params.get("params", params)
     flat = {}
 

@@ -1,1 +1,9 @@
-"""Distributed optimizer and train step."""
+"""Distributed optimizer and train step; ZeRO-1 and FSDP (``zero.py``)."""
+
+from .zero import (  # noqa: F401
+    ShardedOptimizer,
+    clip_by_global_norm,
+    fsdp_train_step,
+    global_norm,
+    zero_train_step,
+)

@@ -85,27 +85,28 @@ def _post(sends, recvs, to: int, frm: int, group) -> list:
 
 
 class _Hop(torch.autograd.Function):
-    """``lax.ppermute`` of k and v one step along the ring (rank at
-    position j sends to j+1 and receives from j-1).  The forward posts the
-    transfers and returns the receive buffers at once; their works go to
+    """``lax.ppermute`` of tensors one step along a ring (rank at
+    position j sends to j+1 and receives from j-1): ``_Hop.apply(to,
+    frm, group, pending, *tensors)``.  The forward posts the transfers
+    and returns the receive buffers at once; their works go to
     ``pending``, which the caller waits on before it reads them.  The
     backward sends the cotangents the other way (the inverse permute)."""
 
     @staticmethod
-    def forward(ctx, k, v, to, frm, group, pending: List):
+    def forward(ctx, to, frm, group, pending: List, *ts):
         ctx.to, ctx.frm, ctx.group = to, frm, group
-        k, v = k.contiguous(), v.contiguous()
-        kn, vn = torch.empty_like(k), torch.empty_like(v)
-        pending.extend(_post([k, v], [kn, vn], to, frm, group))
-        return kn, vn
+        ts = [t.contiguous() for t in ts]
+        out = [torch.empty_like(t) for t in ts]
+        pending.extend(_post(ts, out, to, frm, group))
+        return tuple(out)
 
     @staticmethod
-    def backward(ctx, gk, gv):
-        gk, gv = gk.contiguous(), gv.contiguous()  # autograd gives zeros, not None
-        ok, ov = torch.empty_like(gk), torch.empty_like(gv)
-        for w in _post([gk, gv], [ok, ov], ctx.frm, ctx.to, ctx.group):
+    def backward(ctx, *gs):
+        gs = [g.contiguous() for g in gs]  # autograd gives zeros, not None
+        out = [torch.empty_like(g) for g in gs]
+        for w in _post(gs, out, ctx.frm, ctx.to, ctx.group):
             w.wait()
-        return ok, ov, None, None, None, None
+        return (None, None, None, None) + tuple(out)
 
 
 def ring_attention(
@@ -159,7 +160,7 @@ def ring_attention(
     # block's products, and the last block computes with no hop after it.
     for i in range(n - 1):
         pending: list = []
-        k_next, v_next = _Hop.apply(k, v, to, frm, group, pending)
+        k_next, v_next = _Hop.apply(to, frm, group, pending, k, v)
         o, l, m = block_update(o, l, m, k, v, i)
         for w in pending:
             w.wait()

@@ -11,10 +11,9 @@ the rank at position j, and the chunks received are concatenated along
 the concat axis in the senders' order.  Its backward is the inverse
 flip (:class:`_Flip`).
 
-The JAX package sends each flip through its exchange IR, whose wire
-``HVD_TPU_XIR_WIRE`` defaults to ``off``: the dense flip, which is what
-this is.  A compressed wire is not ported (the exchange IR is ROADMAP
-Queue A entry A12 (rest)) and raises.
+The JAX package sends each flip through its exchange IR, which runs a
+flip dense on every wire request but ``bf16`` on a wider floating
+payload (``parallel/wire.py``): there the port raises.
 """
 
 from __future__ import annotations
@@ -24,25 +23,9 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from ..utils import env
 from .mesh import SP_AXIS, Mesh, refuse_in_capture
 from .ring_attention import full_attention
-
-_WIRES = ("off", "bf16", "int8", "fp8")
-
-
-def xir_wire() -> str:
-    """``HVD_TPU_XIR_WIRE`` as the JAX package reads it
-    (``horovod_tpu/xir/interp.py`` ``wire_request``; default ``off``)."""
-    raw = env.get_env("XIR_WIRE", "off") or "off"
-    w = raw.strip().lower()
-    if w in ("none", "0", "false", "no"):
-        w = "off"
-    if w == "e4m3":
-        w = "fp8"
-    if w not in _WIRES:
-        raise ValueError(f"HVD_TPU_XIR_WIRE must be one of {_WIRES}, got {raw!r}")
-    return w
+from .wire import dense_shuffle
 
 
 def _all_to_all(x: torch.Tensor, n: int, split: int, concat: int, group) -> torch.Tensor:
@@ -86,13 +69,7 @@ def ulysses_attention(
     h = q.shape[2]
     if h % n != 0:
         raise ValueError(f"heads ({h}) must be divisible by axis size {n}")
-    wire = xir_wire()
-    if wire != "off":
-        raise NotImplementedError(
-            f"HVD_TPU_XIR_WIRE={wire}: the Ulysses flip's compressed wire runs "
-            "through the exchange IR, which is not ported yet (ROADMAP Queue A "
-            "entry A12 (rest)); unset it for the dense flip"
-        )
+    dense_shuffle("the Ulysses flip", q.dtype)
     group = mesh.group(axis)
     if n > 1:
         refuse_in_capture("ulysses_attention")

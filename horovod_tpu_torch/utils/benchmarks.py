@@ -177,7 +177,8 @@ def build_hybrid_lm_step(model: torch.nn.Module, mesh, *, packed: bool = False,
     weights are on a card), and a step that runs the forward on this
     rank's block of the batch, the backward, ``sync_gradients`` with the
     model's ``param_shard_axes``, the update, and returns the loss
-    averaged over every mesh axis among dp, sp and tp.
+    averaged over every mesh axis among dp, sp, tp and ep (``ep`` ranks
+    hold different tokens, as ``dp`` ranks do).
 
     Dense rows: ``step(tokens, targets)`` (the next tokens); packed rows
     (``packed=True``): ``step(tokens, segment_ids)``.  The step runs
@@ -195,7 +196,7 @@ def build_hybrid_lm_step(model: torch.nn.Module, mesh, *, packed: bool = False,
     on_card = next(model.parameters()).is_cuda
     opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.95), eps=1e-8,
                             weight_decay=0.1, capturable=on_card)
-    loss_axes = tuple(a for a in ("dp", "sp", "tp")
+    loss_axes = tuple(a for a in ("dp", "sp", "tp", "ep")
                       if mesh is not None and mesh.present(a))
 
     def step(tokens: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:

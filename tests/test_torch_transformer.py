@@ -136,14 +136,60 @@ def test_losses_match_jax():
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    ({"moe_every": 2}, NotImplementedError),
-    ({"remat": True}, NotImplementedError),
     ({"attn_impl": "sparse"}, ValueError),
 ])
 def test_unported_options_raise(kwargs, exc):
-    with pytest.raises(exc, match="Queue A entry A10" if exc is NotImplementedError
-                       else "unknown attn_impl"):
+    with pytest.raises(exc, match="unknown attn_impl"):
         tt.gpt_tiny(device="cpu", **kwargs)
+
+
+def _logits_and_grads(model, toks):
+    model.zero_grad(set_to_none=True)
+    logits, aux = model(torch.from_numpy(toks[:, :-1]))
+    (tt.token_cross_entropy(logits, torch.from_numpy(toks[:, 1:])) + 0.01 * aux).backward()
+    return logits.detach().numpy(), {n: p.grad.numpy().copy()
+                                     for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("impl,moe", [("flash", 0), ("full", 0), ("flash", 2)])
+def test_remat_is_bitwise_with_no_remat(impl, moe):
+    """``remat=True`` recomputes each block in the backward: on the CPU
+    the same operations on the same inputs, so the logits and every
+    gradient are bitwise those of ``remat=False``."""
+    toks = _tokens(2, 33, seed=9)
+    got = [_logits_and_grads(tt.gpt_tiny(device="cpu", attn_impl=impl, moe_every=moe,
+                                         remat=remat), toks) for remat in (False, True)]
+    np.testing.assert_array_equal(got[0][0], got[1][0])
+    for name, g in got[0][1].items():
+        np.testing.assert_array_equal(got[1][1][name], g, err_msg=name)
+
+
+def test_remat_matches_the_jax_remat_model():
+    """Against ``nn.remat(Block)`` through ``jax.grad``: the logits to 2e-6
+    absolute (as the dense model's) and each gradient to 1e-5 of its
+    largest element (float32 sums in another order over the backward)."""
+    toks = _tokens(2, 33, seed=10)
+    jm = jax_gpt_tiny(attn_impl="flash", remat=True)
+    params = _jax_init(jm, 32)
+
+    def loss(p):
+        logits, aux = jm.apply(p, jnp.asarray(toks[:, :-1]))
+        return jax_ce(logits, jnp.asarray(toks[:, 1:])) + 0.01 * aux, logits
+    (_, want), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    model = tt.load_jax_params(tt.gpt_tiny(device="cpu", attn_impl="flash", remat=True), params)
+    logits, got = _logits_and_grads(model, toks)
+    np.testing.assert_allclose(logits, np.asarray(want), rtol=0, atol=2e-6)
+    flat = {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            name = f"{prefix}.{k}" if prefix else k
+            walk(name, v) if isinstance(v, dict) else flat.__setitem__(name, np.asarray(v))
+    walk("", grads["params"])
+    assert set(flat) == set(got)
+    for name, g in got.items():
+        w = flat[name]
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max(), err_msg=name)
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
@@ -344,6 +390,8 @@ def test_new_modules_import_no_jax():
         "import horovod_tpu_torch.data.packing, horovod_tpu_torch.utils.benchmarks\n"
         "import horovod_tpu_torch.parallel, horovod_tpu_torch.parallel.grad_sync\n"
         "import horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.parallel.ulysses\n"
+        "import horovod_tpu_torch.parallel.moe, horovod_tpu_torch.parallel.pipeline\n"
+        "import horovod_tpu_torch.parallel.wire, horovod_tpu_torch.optim.zero\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "assert not bad, bad\n"
