@@ -212,6 +212,30 @@ exits non-zero):
    the int8 grid of the dense mean, B3 2, B4 1 and B5 1 per step (or B6
    and B7 once where the ring serves; the dispatch printed); persistent
    bytes per rank and step ms.
+   Then slice topo: a world of four ranks (the same layouts) with
+   ``HVD_TPU_TOPO=2x2`` (domains {0,1} and {2,3}).  The hierarchical
+   allreduce (``topo/hierarchical.py``) of 16,489,448 dyadic float32
+   elements (the largest ResNet-50 bucket) on the off, bf16 and int8
+   cross-domain hops: bitwise with the plain kernels' chain on the CPU
+   and, off and bf16, with the flat allreduce; B1 exactly twice on bf16;
+   B3 twice, B4 and B5 once on int8, each call bitwise with its plain
+   version, two ``quant.fused_fallback`` (groups never take the ring);
+   every rank equal; ms per call against the flat allreduce.  Adasum of
+   4,194,305 normal float32 elements flat over the world, over {0,1,2}
+   (rank 3 keeps its input) and ``hier_adasum``, each on rank 0 within
+   ``TOPO_ADASUM_RTOL`` of a float64 NumPy Adasum written as the
+   recursive pairwise definition, the members bitwise equal; ms per
+   call.  Then full-width ResNet-50 (224x224, batch 32 per rank, seed 0,
+   each rank its own batch) for 2 warm-up + 3 steps: the replicated
+   step's first loss, then ``op=Adasum`` on bf16 (every bucket
+   ``hier_adasum``), ``sync_bn=True`` on bf16 (flat) and
+   ``HVD_TPU_TOPO_LOWER=hier`` on int8: exact launches per bucket per
+   step (``topo_expected``), replicas bitwise, the first loss equal to
+   the replicated step's (SyncBatchNorm's: within
+   ``TOPO_SYNC_BN_RTOL`` of one forward over the four batches
+   concatenated), step ms; on NCCL each run captured
+   (``HVD_TPU_ONESTEP=on``) bitwise with eager, one capture; on gloo
+   ``on`` refuses, its reason printed.
 9. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
    seq 256) for three steps on the card against the CPU path, to stated
    tolerances.
@@ -238,9 +262,10 @@ cards or more, the GPT step at world min(count, 4) eager and captured
 (``tools/torch_lm_multi.py``: every rank bitwise, captured bitwise with
 eager, exact launches, a pair of windows) and slice hybrid (the phases
 that need more than one card, for a run on several), then the
-four-rank worlds of slice moe, slice pipeline and slice fsdp; ``--only
+four-rank worlds of slice moe, slice pipeline, slice fsdp and slice topo; ``--only
 sets``, ``hybrid``, ``moe`` (world one and the meshes), ``pipeline``,
-``fsdp`` and ``remat`` phases 1, 2 and that phase, ``--only kernel``
+``fsdp``, ``remat`` and ``topo`` phases 1, 2 and that phase (``topo``
+is also among ``--only ring``'s four-rank worlds), ``--only kernel``
 phases 1 to 3; none prints a kernels line.
 """
 
@@ -3397,7 +3422,7 @@ def mesh_worker(args) -> None:
              size=args.mesh_size, backend=args.mesh_backend)
     try:
         rec = {"moe": moe_mesh_worker, "pipeline": pipeline_worker,
-               "fsdp": fsdp_worker}[args.mesh_kind](hvd)
+               "fsdp": fsdp_worker, "topo": topo_worker}[args.mesh_kind](hvd)
         every = [None] * args.mesh_size  # every rank fails together, none waits on another
         dist.all_gather_object(every, rec.pop("problems", []))
         if any(every):
@@ -3964,14 +3989,443 @@ def print_fsdp(rec, card) -> None:
     print(f"phase slice fsdp: {rec['wall_s']:.0f} s with start-up", flush=True)
 
 
+# Phase slice topo: the topology forced to two domains of two ranks
+# (``HVD_TPU_TOPO=2x2``), in the same layouts as the mesh phases.  The
+# hierarchical collectives at the largest ResNet-50 bucket's size
+# (16,489,448 float32 elements, dyadic: every sum is exact, so each
+# lowering must give the flat sum's bits); Adasum at 4,194,305 elements
+# (ragged: the halving pads it) of normal noise.  Adasum against a
+# float64 NumPy Adasum on rank 0: the float32 dot products and norms of
+# 4M elements are summed in another order than float64's (torch's
+# pairwise reductions, and the all-reduce of each level's scalars), a
+# few ulps of each coefficient, and the results agree to 2e-5 of the
+# largest element; a wrong pairing or a lost half moves whole elements.
+# The ResNet-50 runs start from seed 0, each rank its own batch; the
+# first loss of a run whose forward is the replicated step's equals it
+# to 1e-6 (the same forward; the mean of four losses).  SyncBatchNorm's
+# forward normalises by the global batch's moments: its first loss is
+# held, on rank 0, against one forward of the plain model over the four
+# batches concatenated (plain BatchNorm's moments are then the global
+# ones), to 1e-2: in bf16 the synced norm applies x·mult + shift with
+# two bf16 roundings where the plain one normalises in float32 and
+# rounds once, at each of the 53 norms (float32 off the card: 1e-5).
+TOPO_SPEC = "2x2"
+TOPO_ELEMS = 16_489_448
+TOPO_ADASUM_ELEMS = 4_194_305
+TOPO_ADASUM_RTOL = 2e-5
+TOPO_LOSS_RTOL = 1e-6
+TOPO_SYNC_BN_RTOL = {"cuda": 1e-2, "cpu": 1e-5}
+TOPO_WARMUP, TOPO_TIMED = 2, 3
+TOPO_RUNS = {  # label: (wire, HVD_TPU_TOPO_LOWER, op, sync_bn)
+    "replicated": ("bf16", "flat", "average", False),
+    "adasum": ("bf16", "auto", "adasum", False),
+    "sync_bn": ("bf16", "flat", "average", True),
+    "hier_int8": ("int8", "hier", "average", False),
+}
+
+
+def adasum64(vs):
+    """Adasum as the recursive pairwise definition, in float64 (numpy): a
+    non-power-of-two count folds its stragglers into the first members,
+    then pairs combine level by level."""
+    import numpy as np
+
+    vs = [np.asarray(v, np.float64) for v in vs]
+
+    def pair(a, b):
+        dot, na, nb = a @ b, a @ a, b @ b
+        ca = 1 - dot / (2 * na) if na > 0 else 1.0
+        cb = 1 - dot / (2 * nb) if nb > 0 else 1.0
+        return ca * a + cb * b
+
+    p = 1 << (len(vs).bit_length() - 1)
+    vs = [pair(vs[i], vs[p + i]) for i in range(len(vs) - p)] + vs[len(vs) - p:p]
+    while len(vs) > 1:
+        vs = [pair(vs[2 * i], vs[2 * i + 1]) for i in range(len(vs) // 2)]
+    return vs[0]
+
+
+def plain_quantized_sum(xs, wire, block=BLOCK):
+    """The NCCL lowering of ``ops/quantized.py`` ``quantized_allreduce``
+    (Sum) over one group, on the CPU through the plain versions of B3,
+    B4 (arrivals in group order) and B5: ``xs`` the members' float32
+    vectors; returns the result every member holds."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import quant_kernels as qk
+
+    n, V = len(xs), xs[0].numel()
+    c = -(-V // (n * block)) * block
+    packed = [qk.quant_packed_reference(F.pad(x.float(), (0, c * n - V)).view(
+        n, c // block, block), wire)[0] for x in xs]
+    shards = [qk.dequant_accum_reference(torch.stack([packed[m][j] for m in range(n)]),
+                                         wire).view(c) for j in range(n)]
+    rows = torch.cat([qk.quant_packed_reference(s.view(1, c // block, block), wire)[0]
+                      for s in shards])
+    return qk.dequant_rows_reference(rows, wire).reshape(-1)[:V]
+
+
+def plain_hier(xs, wire, s=2, k=2):
+    """``topo/hierarchical.py`` ``hierarchical_all_reduce`` (Sum) of the
+    ranks' vectors ``xs`` over ``s`` domains of ``k`` consecutive ranks,
+    on the CPU through the plain kernels: each domain's sum (exact on
+    dyadic inputs, in any order), split in k shards; rail i sums shard i
+    across the domains (bf16: B1's plain cast down, a bf16 sum, the cast
+    up; int8/fp8: :func:`plain_quantized_sum`); the shards concatenated."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import kernels
+
+    V = xs[0].numel()
+    Vp = -(-V // k) * k
+    doms = [F.pad(sum(xs[j * k:(j + 1) * k]), (0, Vp - V)) for j in range(s)]
+    L = Vp // k
+    out = []
+    for i in range(k):
+        parts = [d[i * L:(i + 1) * L] for d in doms]
+        if wire == "bf16":
+            down = [kernels.scale_cast_reference(p, 1.0, torch.bfloat16) for p in parts]
+            acc = down[0]
+            for p in down[1:]:
+                acc = acc + p
+            out.append(kernels.scale_cast_reference(acc, 1.0, torch.float32))
+        elif wire in ("int8", "fp8"):
+            out.append(plain_quantized_sum(parts, wire))
+        else:
+            out.append(sum(parts))
+    return torch.cat(out)[:V]
+
+
+def topo_expected(label, buckets, steps) -> dict:
+    """Launches on rank 0 of ``steps`` steps of a ``TOPO_RUNS`` run with
+    ``buckets`` buckets: bf16 flat at world 4, B1 three times per bucket
+    per step (the cast, the 1/4 postscale of the bf16 buffer, the cast
+    back); ``hier_adasum`` on bf16 twice (the cross-domain gather's casts;
+    the domain mean is a float32 multiply); hier on int8, B3 twice, B4 and
+    B5 once (the cross-domain quantized allreduce of the 1/2 shard), B1
+    never (the 1/4 is a float32 multiply)."""
+    m = buckets * steps
+    zero = {"scale_cast": 0, "quant_pack": 0, "dequant_accum": 0, "dequant_rows": 0,
+            "rs_ring": 0, "ag_ring": 0}
+    if label == "hier_int8":
+        return dict(zero, quant_pack=2 * m, dequant_accum=m, dequant_rows=m)
+    return dict(zero, scale_cast=(2 if label == "adasum" else 3) * m)
+
+
+def timed_collective(fn, iters: int = 5) -> float:
+    """Host ms per call of a collective, every rank aligned by a barrier
+    first and each call's device work waited for."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def topo_worker(hvd) -> dict:
+    """Phase slice topo on every rank: ``HVD_TPU_TOPO=2x2`` (domains {0,1}
+    and {2,3}), the set {0,1,2} registered.  The hierarchical allreduce on
+    the off, bf16 and int8 cross-domain hops; Adasum flat, on {0,1,2} and
+    ``hier_adasum``; then the full-width ResNet-50 step (``TOPO_RUNS``).
+    Off the card (a rehearsal) the sizes are cut: 8,198 and 4,099
+    elements, a narrow ResNet (stages [1,1,1,1], 8 filters, 32x32, batch
+    2, float32)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import resnet as tresnet
+    from horovod_tpu_torch.exceptions import HorovodTpuError
+    from horovod_tpu_torch.topo import hierarchical as th
+    from horovod_tpu_torch.topo import model as topo_model
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step, timed_throughput
+
+    os.environ["HVD_TPU_TOPO"] = TOPO_SPEC
+    os.environ["HVD_TPU_QUANT_BACKEND"] = "fused"
+    dev, n, rank = hvd.device(), hvd.size(), hvd.rank()
+    on_card = dev.type == "cuda"
+    nccl = dist.get_backend() == "nccl"
+    topo = topo_model.current()
+    counters = mesh_kernels()
+    elems, aelems = (TOPO_ELEMS, TOPO_ADASUM_ELEMS) if on_card else (8198, 4099)
+    problems, rec = [], {"topology": [topo.num_slices, topo.slice_size], "elems": elems,
+                         "adasum_elems": aelems}
+
+    def resnet(sync_bn):
+        if on_card:
+            return tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                                    device=dev, sync_bn=sync_bn)
+        return tresnet.ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
+                              dtype=torch.float32, seed=0, device=dev, sync_bn=sync_bn)
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = 0
+        metrics.reset("quant.")
+        metrics.reset("xir.")
+
+    def counts():
+        out = {k: c.launches for k, c in counters.items() if not k.startswith("flash")}
+        out["fallback"] = metrics.get_counter("quant.fused_fallback")
+        return out
+
+    def same_on_every_rank(t, what):
+        every = [None] * n
+        dist.all_gather_object(every, hashlib_digest(t))
+        if len(set(every)) != 1:
+            problems.append(f"{what}: the ranks differ")
+
+    # The hierarchical allreduce on every hop, against the flat sum and
+    # the plain kernels' chain on the CPU.
+    cpu = [(torch.randint(-64, 65, (elems,), generator=torch.Generator().manual_seed(
+        500 + r)) / 8).float() for r in range(n)]
+    x = cpu[rank].to(dev)
+    flat = hvd.allreduce(x, op=hvd.Sum)
+    exact = sum(cpu)
+    hier = {}
+    for wire in ("off", "bf16", "int8"):
+        zero_counts()
+        with KernelRecorder() as recorder:
+            y = th.hierarchical_all_reduce(x, op=hvd.Sum, wire=wire)
+            torch.cuda.synchronize() if on_card else None
+        got = counts()
+        want = {"scale_cast": 0, "quant_pack": 0, "dequant_accum": 0, "dequant_rows": 0,
+                "rs_ring": 0, "ag_ring": 0, "fallback": 0}
+        if wire == "bf16":
+            want["scale_cast"] = 2
+        if wire == "int8":
+            want.update(quant_pack=2, dequant_accum=1, dequant_rows=1, fallback=2)
+        if on_card and got != want:
+            problems.append(f"hier {wire}: launches {got}, expected {want}")
+        bad = recorder.mismatches()
+        if bad:
+            problems.append(f"hier {wire}: {bad} differ from their plain versions")
+        plain = plain_hier(cpu, wire)
+        if not torch_bits_equal(y.cpu(), plain):
+            problems.append(f"hier {wire}: not bitwise with the plain kernels' chain")
+        if wire != "int8" and not (torch_bits_equal(y, flat)
+                                   and torch_bits_equal(y.cpu(), exact)):
+            problems.append(f"hier {wire}: not bitwise with the flat allreduce")
+        hier[wire] = {"launches": got, "calls_checked": len(recorder.calls),
+                      "max_abs_err_vs_exact": float((y.cpu() - exact).abs().max())}
+        same_on_every_rank(y, f"hier {wire}")
+    rec["hier"] = hier
+    if on_card:
+        ms = {"flat": timed_collective(lambda: hvd.allreduce(x, op=hvd.Sum))}
+        for wire in ("off", "bf16", "int8"):
+            ms[f"hier {wire}"] = timed_collective(
+                lambda w=wire: th.hierarchical_all_reduce(x, op=hvd.Sum, wire=w))
+        rec["hier_ms"] = ms
+    del x, flat, y
+
+    # Adasum: flat over the world, over {0,1,2}, and hier_adasum.
+    xa_cpu = [torch.randn(aelems, generator=torch.Generator().manual_seed(600 + r))
+              for r in range(n)]
+    xa = xa_cpu[rank].to(dev)
+    os.environ["HVD_TPU_DYNAMIC_PROCESS_SETS"] = "1"
+    s012 = hvd.add_process_set([0, 1, 2])  # every rank alike
+    adasum = {}
+    cases = {"flat": (lambda: hvd.allreduce(xa, op=hvd.Adasum), list(range(n)),
+                      lambda: adasum64([v.numpy() for v in xa_cpu])),
+             "set012": (lambda: hvd.allreduce(xa, op=hvd.Adasum, process_set=s012),
+                        [0, 1, 2], lambda: adasum64([v.numpy() for v in xa_cpu[:3]])),
+             "hier_adasum": (lambda: th.hierarchical_adasum_all_reduce(xa, op=hvd.Average),
+                             list(range(n)),
+                             lambda: adasum64([((xa_cpu[0] + xa_cpu[1]) / 2).numpy(),
+                                               ((xa_cpu[2] + xa_cpu[3]) / 2).numpy()]))}
+    for name, (fn, members, ref) in cases.items():
+        y = fn()
+        if rank not in members:
+            if not torch_bits_equal(y, xa):
+                problems.append(f"adasum {name}: rank {rank}, off the set, changed its input")
+        every = [None] * n
+        dist.all_gather_object(every, hashlib_digest(y) if rank in members else None)
+        if len({every[m] for m in members}) != 1:
+            problems.append(f"adasum {name}: the members differ")
+        entry = {"members": members}
+        if rank == 0:
+            want = ref()
+            err = float(np.abs(y.double().cpu().numpy() - want).max())
+            entry["rel_err"] = err / float(np.abs(want).max())
+            if entry["rel_err"] > TOPO_ADASUM_RTOL:
+                problems.append(f"adasum {name}: {entry['rel_err']:.3g} of the largest "
+                                f"element from float64 (limit {TOPO_ADASUM_RTOL})")
+        if on_card:
+            entry["ms"] = timed_collective(fn, iters=3)
+        adasum[name] = entry
+    rec["adasum"] = adasum
+    del xa
+
+    # The full-width ResNet-50 step, each rank its own batch.
+    g = torch.Generator(device=dev).manual_seed(300 + rank)
+    rows, size, classes = (SET_BATCH, 224, 1000) if on_card else (2, 32, 10)
+    batch = (torch.rand(rows, size, size, 3, generator=g, device=dev),
+             torch.randint(0, classes, (rows,), generator=g, device=dev))
+    steps = TOPO_WARMUP + TOPO_TIMED
+    runs = {}
+    for label, (wire, lower, op, sync_bn) in TOPO_RUNS.items():
+        os.environ["HVD_TPU_SCHED_WIRE"] = wire
+        os.environ["HVD_TPU_TOPO_LOWER"] = lower
+        modes = ("off", "on") if nccl and label != "replicated" else ("off",)
+        r = {}
+        for mode in modes:
+            os.environ["HVD_TPU_ONESTEP"] = mode
+            model = resnet(sync_bn)
+            step, opt = build_dp_step(hvd, model, op=hvd.Adasum if op == "adasum" else None)
+            zero_counts()
+            # The replicated step gives the first loss only; a captured
+            # run's clock starts after its warm-up steps and its capture.
+            extra = int(mode == "on")
+            timed = 0 if label == "replicated" else TOPO_TIMED - extra
+            seconds, losses = timed_throughput(
+                step, batch, iters=timed,
+                warmup=1 if label == "replicated" else TOPO_WARMUP + extra)
+            got = counts()
+            run = {"losses": losses, "step_ms": seconds / max(timed, 1) * 1e3,
+                   "buckets": len(opt.schedule.buckets),
+                   "lowerings": sorted({b.lowering for b in opt.schedule.buckets}),
+                   "launches": got, "captures": metrics.get_counter("xir.onestep.steps"),
+                   "digest": param_digest(model), "blocker": step.blocker()}
+            nsteps = 1 if label == "replicated" else steps
+            want = topo_expected(label, run["buckets"], nsteps)
+            want["fallback"] = 2 * run["buckets"] * nsteps if label == "hier_int8" else 0
+            if mode == "on":  # a replay counts its kernels, not Python's metrics
+                want.pop("fallback")
+                got = dict(got)
+                got.pop("fallback")
+            if on_card and got != want:
+                problems.append(f"{label} {mode}: launches {got}, expected {want}")
+            if not all(math.isfinite(v) for v in losses):
+                problems.append(f"{label} {mode}: losses {losses}")
+            if run["captures"] != int(mode == "on"):
+                problems.append(f"{label} {mode}: {run['captures']} captures")
+            every = [None] * n
+            dist.all_gather_object(every, run["digest"])
+            if len(set(every)) != 1:
+                problems.append(f"{label} {mode}: the ranks' weights differ")
+            r[mode] = run
+            del model, step, opt
+            torch.cuda.empty_cache() if on_card else None
+        if "on" in r and r["on"]["digest"] != r["off"]["digest"]:
+            problems.append(f"{label}: the captured step differs from the eager step")
+        if on_card and not nccl and label != "replicated":  # capture refuses: its reason
+            os.environ["HVD_TPU_ONESTEP"] = "on"
+            model = resnet(sync_bn)
+            step, _ = build_dp_step(hvd, model, op=hvd.Adasum if op == "adasum" else None)
+            try:
+                step(batch)
+                problems.append(f"{label}: HVD_TPU_ONESTEP=on did not refuse on gloo")
+            except HorovodTpuError as e:
+                r["refused"] = str(e)
+            del model, step
+            torch.cuda.empty_cache() if on_card else None
+        runs[label] = r
+    for k in ("HVD_TPU_SCHED_WIRE", "HVD_TPU_TOPO_LOWER"):
+        os.environ.pop(k, None)
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    first = runs["replicated"]["off"]["losses"][0]
+    for label, r in runs.items():
+        gap = abs(r["off"]["losses"][0] - first) / abs(first)
+        r["first_loss_gap"] = gap
+        if label != "sync_bn" and gap > TOPO_LOSS_RTOL:
+            problems.append(f"{label}: first loss {r['off']['losses'][0]} is {gap:.3g} from "
+                            f"the replicated step's {first} (limit {TOPO_LOSS_RTOL})")
+    if rank == 0:  # SyncBatchNorm's first loss: the global batch's moments
+        import torch.nn.functional as F
+
+        whole = []
+        for r in range(n):
+            gr = torch.Generator(device=dev).manual_seed(300 + r)
+            whole.append((torch.rand(rows, size, size, 3, generator=gr, device=dev),
+                           torch.randint(0, classes, (rows,), generator=gr, device=dev)))
+        model = resnet(False)
+        model.train()
+        with torch.no_grad():
+            want = float(F.cross_entropy(model(torch.cat([b[0] for b in whole])),
+                                         torch.cat([b[1] for b in whole])))
+        got = runs["sync_bn"]["off"]["losses"][0]
+        rtol = TOPO_SYNC_BN_RTOL[dev.type]
+        runs["sync_bn"]["global_batch_loss"] = want
+        runs["sync_bn"]["global_batch_gap"] = gap = abs(got - want) / abs(want)
+        if gap > rtol:
+            problems.append(f"sync_bn: first loss {got} is {gap:.3g} from one forward over "
+                            f"the concatenated batches, {want} (limit {rtol})")
+        del model, whole
+        torch.cuda.empty_cache() if on_card else None
+    rec["runs"] = runs
+    rec["problems"] = problems
+    return rec
+
+
+def hashlib_digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().contiguous().cpu().reshape(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def print_topo(rec, card) -> None:
+    """The lines of a slice topo run (rank 0's record)."""
+    s, k = rec["topology"]
+    print(f"phase slice topo: {rec['layout']}; HVD_TPU_TOPO={TOPO_SPEC} ({s} domains of {k}); "
+          f"hierarchical allreduce of {rec['elems']} dyadic float32 elements, bitwise with the "
+          f"plain kernels' chain on every hop and with the flat allreduce on off and bf16, "
+          f"every rank equal: "
+          + "; ".join(f"{w} launches {v['launches']}"
+                      + (f" ({v['calls_checked']} B3-B5 calls each held bitwise against its "
+                         f"plain version)" if v["calls_checked"] else "")
+                      for w, v in rec["hier"].items()),
+          flush=True)
+    if "hier_ms" in rec:
+        print("phase slice topo: ms per call (host clock, synchronized) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in rec["hier_ms"].items())
+              + f" on {card}", flush=True)
+    for name, a in rec["adasum"].items():
+        print(f"phase slice topo: Adasum {name} over {a['members']}, {rec['adasum_elems']} "
+              f"elements: {a['rel_err']:.3g} of the largest element from float64 NumPy (limit "
+              f"{TOPO_ADASUM_RTOL}), members bitwise equal"
+              + (f"; {a['ms']:.3f} ms per call on {card}" if "ms" in a else ""), flush=True)
+    for label, r in rec["runs"].items():
+        off = r["off"]
+        cap = ("the reference, eager" if label == "replicated"
+               else "captured bitwise with eager (one capture)" if "on" in r
+               else f"capture refused: {r['refused']}" if "refused" in r
+               else "eager (no capture off the card)")
+        ms = (f"step {off['step_ms']:.2f} ms"
+              + (f", captured {r['on']['step_ms']:.2f} ms (replays)" if "on" in r else "")
+              + f" on {card}; " if label != "replicated" else "")
+        first = (f"first loss {r['global_batch_gap']:.3g} from one forward over the four "
+                 f"batches concatenated, {r['first_loss_gap']:.3g} from the replicated step's"
+                 if label == "sync_bn" else
+                 f"first loss {r['first_loss_gap']:.3g} from the replicated step's")
+        print(f"phase slice topo {label}: ResNet-50 224x224 batch {SET_BATCH} per rank "
+              f"(on the card), "
+              f"wire {TOPO_RUNS[label][0]}, lowering {off['lowerings']}, {off['buckets']} "
+              f"buckets: losses {[round(v, 5) for v in off['losses']]} ({first}), replicas "
+              f"bitwise, "
+              f"rank 0 launches {off['launches']} (= expected); {ms}{cap}", flush=True)
+    print(f"phase slice topo: {rec['wall_s']:.0f} s with start-up", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
     ap.add_argument("--only", choices=["ring", "kernel", "sets", "hybrid", "moe", "pipeline",
-                                       "fsdp", "remat"],
+                                       "fsdp", "remat", "topo"],
                     help="ring: only the phases that need more than one card; "
                          "kernel: only the kernels against their plain versions; "
-                         "sets, hybrid, moe, pipeline, fsdp, remat: only that phase "
+                         "sets, hybrid, moe, pipeline, fsdp, remat, topo: only that phase "
                          "(remat: phase slice gpt's remat runs)")
     for name, kind in (("rank", int), ("size", int), ("backend", str), ("store", str),
                        ("out", str)):
@@ -4077,7 +4531,7 @@ def main() -> None:
                 "flash_fwd": flash.flash_forward,
                 "flash_fwd_wgmma": flash.flash_forward_wgmma,
                 "flash_fwd_mma": flash.flash_forward_mma}
-    if args.only in ("ring", "sets", "hybrid", "moe", "pipeline", "fsdp", "remat"):
+    if args.only in ("ring", "sets", "hybrid", "moe", "pipeline", "fsdp", "remat", "topo"):
         if args.only == "ring":
             ring_slice_phase(card, count, log)
         if args.only in ("ring", "sets"):
@@ -4092,7 +4546,7 @@ def main() -> None:
                 0, GPT_VOCAB, (GPT_BATCH, GPT_SEQ), generator=g, device="cuda"), card, log)
         if args.only == "moe":
             moe_phase(hvd, tt, build_lm_step, counters, card, log)
-        mesh_phases(card, count, log, [k for k in ("moe", "pipeline", "fsdp")
+        mesh_phases(card, count, log, [k for k in ("moe", "pipeline", "fsdp", "topo")
                                        if args.only in ("ring", k)])
         finish(args, log, card, kind, count, [])
         return
@@ -4164,7 +4618,7 @@ def main() -> None:
     remat = remat_phase(hvd, tt, build_lm_step, counters, dense_batch, card, log)
     hybrid = hybrid_slice_phase(card, count, log)
     moe = moe_phase(hvd, tt, build_lm_step, counters, card, log)
-    meshes = mesh_phases(card, count, log, ["moe", "pipeline", "fsdp"])
+    meshes = mesh_phases(card, count, log, ["moe", "pipeline", "fsdp", "topo"])
     log["reference_gpt"] = reference_gpt_phase(hvd, tt, build_lm_step)
     torch.cuda.empty_cache()
     log["examples"] = examples_phase(root, card)
@@ -4181,7 +4635,8 @@ def main() -> None:
 def mesh_phases(card, count, log, kinds) -> dict:
     """Phase slice moe's meshes, slice pipeline and slice fsdp (those in
     ``kinds``), each in a world of ``MESH_WORLD`` ranks."""
-    printers = {"moe": print_moe_meshes, "pipeline": print_pipeline, "fsdp": print_fsdp}
+    printers = {"moe": print_moe_meshes, "pipeline": print_pipeline, "fsdp": print_fsdp,
+                "topo": print_topo}
     out = {}
     for k in kinds:
         out[k] = world_phase(k, card, count)
@@ -4215,6 +4670,11 @@ def path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes) -> dict:
         put(f"pipeline stage 0{what}", meshes["pipeline"]["stages"][0][key]["launches"])
     for kind, r in meshes["fsdp"]["runs"].items():
         put(f"fsdp {kind}", r["launches"])
+    for label, r in meshes["topo"]["runs"].items():
+        put(f"topo {label}", {k: v for k, v in r["off"]["launches"].items() if k != "fallback"})
+    for wire, r in meshes["topo"]["hier"].items():
+        put(f"topo hier {wire} (one call)",
+            {k: v for k, v in r["launches"].items() if k != "fallback"})
     return paths
 
 

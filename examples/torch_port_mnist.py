@@ -12,7 +12,9 @@ reference's ``examples/pytorch/pytorch_mnist.py``: rank 0's initial
 weights broadcast, ``DistributedOptimizer`` averaging the gradients of
 every step (each bucket launched from the backward), the learning rate
 scaled by the world size, the loss averaged across ranks.  Each rank
-trains on its shard of every global batch.
+trains on its shard of every global batch.  ``--use-adasum`` combines
+the gradients with Adasum (``op=hvd.Adasum``) and scales the learning
+rate by ``local_size()`` instead, as ``examples/mnist.py`` does.
 """
 
 import argparse
@@ -46,7 +48,7 @@ def main(argv=None):
     parser.add_argument("--lr", type=float, default=0.01)
     parser.add_argument("--momentum", type=float, default=0.5)
     parser.add_argument("--use-adasum", action="store_true",
-                        help="use Adasum gradient combining (not ported)")
+                        help="use Adasum gradient combining")
     parser.add_argument("--num-samples", type=int, default=8192,
                         help="synthetic dataset size (shrink for smoke tests)")
     parser.add_argument("--log-every", type=int, default=10,
@@ -57,11 +59,6 @@ def main(argv=None):
     parser.add_argument("--rank", type=int, default=None)
     parser.add_argument("--world-size", type=int, default=None)
     args = parser.parse_args(argv)
-    if args.use_adasum:
-        raise NotImplementedError(
-            "Adasum is not ported to horovod_tpu_torch yet (ROADMAP Queue A "
-            "item 8)"
-        )
 
     hvd.init(args.device, init_method=args.init_method, rank=args.rank,
              size=args.world_size)
@@ -79,11 +76,13 @@ def train(args):
     model = MnistCNN(seed=0, device=dev)
     # reference: hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    # reference: the learning rate scaled by hvd.size()
+    # reference: the learning rate scaled by hvd.size(); Adasum uses local_size
+    lr_scale = hvd.local_size() if args.use_adasum else size
     opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=args.lr * size,
+        torch.optim.SGD(model.parameters(), lr=args.lr * lr_scale,
                         momentum=args.momentum),
         named_parameters=model.named_parameters(),
+        op=hvd.Adasum if args.use_adasum else hvd.Average,
     )
     step = hvd.TrainStep(model, opt, lambda m, b: F.cross_entropy(m(b[0]), b[1]))
 

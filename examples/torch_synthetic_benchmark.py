@@ -7,7 +7,9 @@ on synthetic ImageNet-shaped data.  Run: ``python
 examples/torch_synthetic_benchmark.py [--model resnet50]`` on a card;
 several processes as ``examples/torch_port_mnist.py`` says.  Without a
 card, and without ``--device cpu``, it prints one JSON line saying so and
-exits with 1: it never falls back to the CPU.
+exits with 1: it never falls back to the CPU.  ``--sync-bn`` reduces the
+BatchNorm moments across ranks (``ResNet(sync_bn=True)``);
+``--use-adasum`` combines the gradients with Adasum (``op=hvd.Adasum``).
 """
 
 import argparse
@@ -40,6 +42,10 @@ def main(argv=None):
     parser.add_argument("--num-batches-per-iter", type=int, default=10)
     parser.add_argument("--num-iters", type=int, default=10)
     parser.add_argument("--fp16-allreduce", action="store_true")
+    parser.add_argument("--sync-bn", action="store_true",
+                        help="BatchNorm moments reduced across ranks")
+    parser.add_argument("--use-adasum", action="store_true",
+                        help="use Adasum gradient combining")
     parser.add_argument("--stem", default="conv7",
                         choices=["conv7", "space_to_depth"],
                         help="ResNet stem: space_to_depth folds the 7x7/2 "
@@ -72,11 +78,12 @@ def run(args):
     dev = hvd.device()
     rank, size = hvd.rank(), hvd.size()
     model = MODELS[args.model](num_classes=1000, dtype=torch.bfloat16,
-                               stem=args.stem, seed=0, device=dev)
+                               stem=args.stem, seed=0, device=dev, sync_bn=args.sync_bn)
     step, _ = build_dp_step(
         hvd, model,
         compression=hvd.Compression.fp16 if args.fp16_allreduce
         else hvd.Compression.none,
+        op=hvd.Adasum if args.use_adasum else hvd.Average,
     )
 
     global_batch = args.batch_size * size
@@ -92,7 +99,8 @@ def run(args):
     unit = "card" if dev.type == "cuda" else "rank"
     if rank == 0:
         print(f"Model: {args.model}, batch {args.batch_size}/{unit} x {size} "
-              f"{unit}(s) on {where}", flush=True)
+              f"{unit}(s) on {where}; sync_bn={args.sync_bn}, "
+              f"adasum={args.use_adasum}", flush=True)
     loss = None
     for _ in range(args.num_warmup_batches):
         loss = step(batch)

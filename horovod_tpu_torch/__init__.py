@@ -15,16 +15,24 @@ transformer with flash attention and its language-model step
 ``utils.benchmarks.build_lm_step``).
 
 The eager collectives (``ops.eager``), each rank passing its own
-tensor: ``allreduce`` with every ``ReduceOp`` but ``Adasum`` (``Average``,
-``Sum``, ``Min``, ``Max``, ``Product``), ``grouped_allreduce``,
+tensor: ``allreduce`` with every ``ReduceOp`` (``Average``, ``Sum``,
+``Adasum``, ``Min``, ``Max``, ``Product``), ``grouped_allreduce``,
 ``allgather``, ``allgather_v``, ``broadcast``, ``reducescatter``,
 ``alltoall`` (even or uneven splits), ``barrier`` and ``join``; the
 in-place ``allreduce_``, ``grouped_allreduce_`` and ``broadcast_``; the
 ``*_async`` forms (and ``allreduce_async_``, ``grouped_allreduce_async_``,
 ``broadcast_async_``), each returning a ``Handle`` for ``synchronize``
 and ``poll``.  Allreduce, grouped allreduce, allgather, broadcast and
-alltoall are differentiable.  ``op=Adasum`` raises
-``NotImplementedError`` (ROADMAP Queue A entry A8).
+alltoall are differentiable.
+
+Topology and hierarchical lowering (``topo``): one NVLink domain per
+host, or ``HVD_TPU_TOPO``; ``HVD_TPU_TOPO_LOWER`` and
+``DistributedOptimizer(lowering=...)`` take each bucket ``hier`` or
+``hier_adasum``.  Adasum (``ops/adasum.py``): ``op=Adasum`` in every
+allreduce and in ``DistributedOptimizer``, and
+``DistributedAdasumOptimizer``.  ``SyncBatchNorm`` (``sync_batch_norm``)
+and sparse gradients (``ops/sparse.py``: ``sparse_allreduce``, and
+``DistributedOptimizer`` on ``nn.Embedding(sparse=True)``).
 
 Process sets (``process_sets.py``): ``ProcessSet``, registered by
 ``init(process_sets=[...])``, ``HVD_TPU_PROCESS_SETS`` or, after
@@ -87,6 +95,8 @@ from .ops.eager import (
     reducescatter_async,
     synchronize,
 )
+from .ops.sparse import sparse_allreduce, sparse_allreduce_eager
+from .optim.adasum_optimizer import DistributedAdasumOptimizer
 from .optim.distributed_optimizer import DistributedOptimizer, TrainStep
 from .optim.zero import (
     ShardedOptimizer,
@@ -125,11 +135,13 @@ from .runtime import (
     tpu_enabled,
     xla_built,
 )
+from .sync_batch_norm import SyncBatchNorm
 from .version import __version__
 
 __all__ = [
-    "Adasum", "Average", "Compression", "DistributedOptimizer", "Handle", "Max",
-    "Min", "ProcessSet", "Product", "ReduceOp", "ShardedOptimizer", "Sum", "TrainStep",
+    "Adasum", "Average", "Compression", "DistributedAdasumOptimizer",
+    "DistributedOptimizer", "Handle", "Max", "Min", "ProcessSet", "Product", "ReduceOp",
+    "ShardedOptimizer", "Sum", "SyncBatchNorm", "TrainStep",
     "__version__", "clip_by_global_norm", "fsdp_train_step", "global_norm",
     "zero_train_step",
     "add_process_set", "allgather", "allgather_async", "allgather_object",
@@ -144,5 +156,6 @@ __all__ = [
     "join", "local_rank", "local_size", "mpi_built", "mpi_enabled",
     "mpi_threads_supported", "nccl_built", "poll", "rank", "reducescatter",
     "reducescatter_async", "remove_process_set", "rocm_built", "shutdown",
-    "size", "synchronize", "tpu_enabled", "xla_built",
+    "size", "sparse_allreduce", "sparse_allreduce_eager", "synchronize", "tpu_enabled",
+    "xla_built",
 ]

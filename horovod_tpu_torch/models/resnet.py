@@ -20,6 +20,10 @@ What is kept from the flax model, on purpose:
   function with 4x the input channels; it refuses odd input sizes.
 * Parameter layouts follow torch (conv OIHW, linear (out, in));
   :func:`load_jax_params` carries the flax tree across.
+* ``sync_bn=True`` (``:68``, ``:86``): every norm is
+  ``sync_batch_norm.FlaxSyncBatchNorm``, whose moments are reduced
+  across ranks (flax names its block norms ``SyncBatchNorm_<i>`` then,
+  and :func:`load_jax_params` reads either name).
 """
 
 from __future__ import annotations
@@ -108,10 +112,11 @@ class BatchNorm(nn.Module):
 
 
 class BottleneckBlock(nn.Module):
-    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype):
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype,
+                 norm_cls=None):
         super().__init__()
         conv = partial(Conv, dtype=dtype)
-        norm = partial(BatchNorm, dtype=dtype)
+        norm = partial(norm_cls or BatchNorm, dtype=dtype)
         self.conv0, self.bn0 = conv(cin, filters, 1), norm(filters)
         self.conv1, self.bn1 = conv(filters, filters, 3, stride), norm(filters)
         self.conv2 = conv(filters, filters * 4, 1)
@@ -146,25 +151,30 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 *, seed: int = 0, device="cuda", stem: str = "conv7"):
+                 *, seed: int = 0, device="cuda", stem: str = "conv7",
+                 sync_bn: bool = False):
         super().__init__()
         if stem not in ("conv7", "space_to_depth"):
             raise ValueError(
                 f"unknown stem {stem!r}; expected 'conv7' or 'space_to_depth'"
             )
         self.dtype, self.stem = dtype, stem
+        if sync_bn:
+            from ..sync_batch_norm import FlaxSyncBatchNorm as norm_cls
+        else:
+            norm_cls = BatchNorm
         if stem == "conv7":
             self.conv_init = Conv(3, num_filters, 7, 2, padding=3, dtype=dtype)
         else:
             self.conv_init_s2d = Conv(12, num_filters, 4, 1, padding=0, dtype=dtype)
-        self.bn_init = BatchNorm(num_filters, dtype=dtype)
+        self.bn_init = norm_cls(num_filters, dtype=dtype)
         blocks = []
         cin = num_filters
         for i, count in enumerate(stage_sizes):
             for j in range(count):
                 filters = num_filters * 2 ** i
                 stride = 2 if i > 0 and j == 0 else 1
-                blocks.append(BottleneckBlock(cin, filters, stride, dtype))
+                blocks.append(BottleneckBlock(cin, filters, stride, dtype, norm_cls))
                 cin = filters * 4
         self.blocks = nn.ModuleList(blocks)
         self.fc = nn.Linear(cin, num_classes)
@@ -237,8 +247,8 @@ def load_jax_params(
         for j in range(3):
             put(f"blocks.{i}.conv{j}.weight", bp[f"Conv_{j}"]["kernel"],
                 (3, 2, 0, 1))
-            norm(f"blocks.{i}.bn{j}", bp[f"BatchNorm_{j}"],
-                 bs.get(f"BatchNorm_{j}"))
+            key = f"BatchNorm_{j}" if f"BatchNorm_{j}" in bp else f"SyncBatchNorm_{j}"
+            norm(f"blocks.{i}.bn{j}", bp[key], bs.get(key))
         if "conv_proj" in bp:
             put(f"blocks.{i}.conv_proj.weight", bp["conv_proj"]["kernel"],
                 (3, 2, 0, 1))

@@ -2,7 +2,8 @@
 
 Counterpart of ``horovod_tpu/ops/traced.py``: the
 reduce ops (``:49-63``), ``_scale`` (``:94-105``), ``allreduce_`` over
-every op but Adasum (``:313-400``), ``allgather`` (``:439``),
+every op (``:313-400``; Adasum through ``ops/adasum.py``, ``:338-345``),
+``allgather`` (``:439``),
 ``broadcast_`` (``:479``), ``reducescatter`` (``:526-566``), ``alltoall``
 (``:569-600``), ``barrier`` (``:603``) and ``join_average``
 (``:610-633``).  Where the JAX package emits XLA collectives inside the
@@ -139,18 +140,20 @@ def allreduce_(
 ):
     """Allreduce over the world or ``process_set``; may reduce ``x`` in
     place.  Returns the result, which is ``x`` itself unless a scale or
-    the op (Product) produced a new tensor; ``x`` unchanged on a
-    non-member."""
-    if op == Adasum:
-        raise NotImplementedError(
-            "op=Adasum is not ported to horovod_tpu_torch yet (ROADMAP Queue A "
-            "entry A8)"
-        )
-    if op not in (Average, Sum, Min, Max, Product):
+    the op (Product, Adasum) produced a new tensor; ``x`` unchanged on a
+    non-member.  Adasum scales, combines (``ops/adasum.py``
+    ``adasum_allreduce``, which runs at once: an ``async_op`` gets a
+    finished :class:`Pending`) and scales again, with no average."""
+    if op not in (Average, Sum, Adasum, Min, Max, Product):
         raise ValueError(f"unknown reduce op {op}")
     group, ranks, member = member_group(resolve(process_set))
     if not member:
         return _run([], lambda: x, async_op)
+    if op == Adasum:
+        from .adasum import adasum_allreduce
+
+        y = adasum_allreduce(_scale(x, prescale_factor), process_set=process_set)
+        return _run([], lambda: _scale(y, postscale_factor), async_op)
     size = runtime.size() if ranks is None else len(ranks)
     x = _scale(x, prescale_factor)
     if op == Average:

@@ -12,7 +12,8 @@ module adds what the JAX eager layer adds around them:
   ``torch.distributed``'s async work (``synchronize``/``poll``,
   ``:37-74``); the ``*_async_`` forms write the result into their input
   when it is waited for, as ``interop/torch.py`` ``TorchHandle`` does;
-- the ops of ``:389-817``: ``allreduce`` over every op but Adasum,
+- the ops of ``:389-817``: ``allreduce`` over every op (Adasum through
+  ``ops/adasum.py``; its point-to-point hops refuse under a capture),
   ``grouped_allreduce`` (one fused buffer per dtype, or one op per
   tensor under ``HVD_TPU_DISABLE_GROUP_FUSION``), ``allgather``,
   ``allgather_v`` (first dims may differ: the row counts are gathered
@@ -44,8 +45,7 @@ A synchronous op may run inside a captured CUDA graph on NCCL.  What
 waits on the host refuses there (``runtime.refuse_in_capture``): an
 async op, ``synchronize``, ``poll``, ``barrier``, ``join``, the
 consistency check, and the count exchanges of ``allgather_v`` and of an
-uneven ``alltoall``.  Adasum waits for ROADMAP Queue A entry A8: it
-raises ``NotImplementedError``.
+uneven ``alltoall``, and Adasum's point-to-point hops.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Distributed optimizer and train step; ZeRO-1 and FSDP (``zero.py``)."""
+"""Distributed optimizer and train step; the delta-Adasum optimizer
+(``adasum_optimizer.py``); ZeRO-1 and FSDP (``zero.py``)."""
 
 from .zero import (  # noqa: F401
     ShardedOptimizer,

@@ -63,6 +63,25 @@ wires every rank reduces within its tile of a set that tiles the world
 (``ops/quantized.py``), and a set that does not tile raises
 :class:`QuantizedWireError` (``:192-205``).  The plan, the loss and the
 BatchNorm statistics of :class:`TrainStep` stay world-wide.
+
+Lowering (``lowering=``, else ``HVD_TPU_TOPO_LOWER``; ``:97``,
+``:411-479``): each bucket is planned ``flat``, ``hier`` or
+``hier_adasum`` (``sched/plan.py`` ``resolve_lowering``).  ``hier``
+serves Average and Sum on the world: an intra-domain reduce-scatter,
+the cross-domain allreduce of the 1/k shard (the bucket's wire on that
+hop only, without error feedback) and an intra-domain all-gather
+(``topo/hierarchical.py``), whose groups the plan makes.  ``op=Adasum``
+combines the gradients adaptively (``ops/adasum.py``): ``hier_adasum``
+on the world (a sum inside each domain, Adasum across), unless the
+lowering is ``flat``, and the flat tree otherwise.  On one host, with no
+``HVD_TPU_TOPO``, every bucket resolves ``flat``.  The quantized wire
+serves Adasum only where ``hier_adasum`` does (``:162-190``, ``:379-391``).
+
+Sparse gradients (``nn.Embedding(sparse=True)``; ``:208-270``): unless
+``sparse_as_dense``, a sparse gradient leaves its bucket (a zero-length
+placeholder there) and is reduced as an allgather of its indices and
+rows (``ops/sparse.py``), compressed and scaled as the dense wire is,
+then densified; a non-member of the set keeps its own gradient.
 """
 
 from __future__ import annotations
@@ -81,8 +100,9 @@ from .. import metrics, runtime
 from ..compression import Compression, Compressor
 from ..exceptions import HorovodTpuError, ProcessSetTilingError, QuantizedWireError
 from ..ops import LAUNCH_COUNTED, collectives, fusion
-from ..ops.collectives import Average, Sum
+from ..ops.collectives import Adasum, Average, Sum
 from ..ops.quantized import quantized_allreduce
+from ..ops.sparse import densify
 from ..process_sets import ProcessSet, resolve
 from ..sched import execute
 from ..sched.hooks import GradOrder, ScheduleLauncher
@@ -90,21 +110,13 @@ from ..sched.plan import (
     QUANTIZED_WIRES,
     BucketSchedule,
     SchedConfig,
+    _canon_lowering,
     build_schedule,
     dtype_name,
+    resolve_lowering,
 )
 from ..utils import env
 from ..xir.interp import onestep_engaged, onestep_mode
-
-
-def densify(grad: torch.Tensor) -> torch.Tensor:
-    """A sparse COO gradient as a dense tensor: its values scatter-added
-    into zeros in index order (``horovod_tpu/ops/sparse.py`` ``densify``,
-    ``:94``)."""
-    if grad.sparse_dim() != 1:
-        return grad.to_dense()
-    out = torch.zeros(grad.shape, dtype=grad.dtype, device=grad.device)
-    return out.index_add_(0, grad._indices()[0], grad._values())
 
 
 class _DistributedOptimizer:
@@ -126,19 +138,28 @@ class _DistributedOptimizer:
         groups: Optional[Sequence[Sequence[torch.Tensor]]] = None,
         sparse_as_dense: bool = False,
         process_set: Optional[ProcessSet] = None,
+        lowering: Optional[str] = None,
     ):
         cfg = SchedConfig.from_env()
         self._quantized = getattr(compression, "quantized_wire", False)
         quantized_req = self._quantized or (
             cfg.enabled and cfg.wire in QUANTIZED_WIRES
         )
-        if op not in (Average, Sum):
+        self._lowering = None if lowering is None else _canon_lowering(lowering)
+        if op not in (Average, Sum, Adasum):
             if quantized_req:
                 raise QuantizedWireError(
                     "the quantized wire requires op=Average or Sum; unset "
                     "HVD_TPU_SCHED_WIRE or use a cast compressor"
                 )
-            raise ValueError("DistributedOptimizer supports op=Average or Sum")
+            raise ValueError("DistributedOptimizer supports op=Average, Sum or Adasum")
+        if op == Adasum and quantized_req and not self._adasum_hier_eligible(
+                cfg, process_set):
+            raise QuantizedWireError(
+                "the quantized wire requires op=Average/Sum; flat Adasum has no "
+                "quantized lowering — on a multi-domain topology hier_adasum "
+                "quantizes just the cross-domain hop"
+            )
         if gradient_predivide_factor != 1.0:
             if op != Average:
                 raise ValueError(
@@ -210,9 +231,52 @@ class _DistributedOptimizer:
         self._launcher: Optional[ScheduleLauncher] = None
         self._leaves: Dict[int, torch.Tensor] = {}
         self._ctx: Dict[int, object] = {}
+        self._sparse: Dict[int, torch.Tensor] = {}
         self._pending: List[tuple] = []
         self._marked: set = set()
         self._overlap_plan: Optional[BucketSchedule] = None
+
+    def _adasum_hier_eligible(self, cfg: SchedConfig, process_set) -> bool:
+        """Whether ``op=Adasum`` takes ``hier_adasum`` (JAX ``:97``): the
+        scheduler on, the world (not a set), a multi-domain topology that
+        factors the world, and a lowering that is not forced ``flat``."""
+        if not cfg.enabled or resolve(process_set) is not None:
+            return False
+        return resolve_lowering(self._lower_request(cfg, Adasum, None), 0,
+                                runtime.size(), ("float32",)) == "hier_adasum"
+
+    def _lower_request(self, cfg: SchedConfig, op: int, ps) -> str:
+        """The lowering the plan asks of each bucket (JAX ``:430-463``):
+        the requested one (``lowering=``, else ``HVD_TPU_TOPO_LOWER``) for
+        Average and Sum on the world, ``hier_adasum`` for Adasum on the
+        world unless ``flat`` is asked for, else ``flat``."""
+        req = cfg.lowering if self._lowering is None else self._lowering
+        if ps is not None:
+            return "flat"
+        if op in (Average, Sum):
+            return req
+        if op == Adasum:
+            return "flat" if req == "flat" else "hier_adasum"
+        return "flat"
+
+    @property
+    def lowering(self) -> Optional[str]:
+        """The lowering asked for at construction (None: the knob's)."""
+        return self._lowering
+
+    @property
+    def point_to_point(self) -> bool:
+        """Whether a bucket of the exchange runs Adasum's flat tree, whose
+        halves go point to point (``ops/adasum.py``): ``op=Adasum`` over
+        more than one rank with a lowering that resolves ``flat``."""
+        if self._op != Adasum:
+            return False
+        ps = resolve(self._process_set)
+        if (runtime.size() if ps is None else len(ps.ranks)) == 1:
+            return False
+        cfg = self._config()
+        lower = self._lower_request(cfg, self._op, ps) if cfg.enabled else "flat"
+        return resolve_lowering(lower, 0, runtime.size(), ("float32",)) == "flat"
 
     def _check_names(self, named_parameters) -> None:
         """The reference's check: unique names covering every parameter
@@ -334,10 +398,11 @@ class _DistributedOptimizer:
                   for w in wire),
             tuple(dtype_name(w.dtype) for w in wire),
             cfg,
+            env.get_env(env.TOPO),
         )
 
     def _plan(self, key: tuple) -> BucketSchedule:
-        sizes, dtypes, cfg = key
+        sizes, dtypes, cfg, _ = key
         observed = self._order.consume() if self._order is not None else None
         if not cfg.capture_order:
             observed = None
@@ -349,8 +414,16 @@ class _DistributedOptimizer:
             # quantized compressor wins over HVD_TPU_SCHED_WIRE.
             order = runtime.broadcast_object(observed, root_rank=0)
             wire = self._compression.wire_format if self._quantized else None
-            schedule = build_schedule(sizes, dtypes, cfg, order=order,
-                                      pinned=self._pinned, wire=wire)
+            schedule = build_schedule(
+                sizes, dtypes, cfg, order=order, pinned=self._pinned, wire=wire,
+                lowering=self._lower_request(cfg, self._op, resolve(self._process_set)),
+                axis_size=runtime.size())
+            if any(b.lowering != "flat" for b in schedule.buckets):
+                from ..topo import hierarchical
+
+                # The intra and cross groups, made here on every rank (never
+                # on the exchange worker or in a backward hook).
+                hierarchical.phase_context()
         else:
             # HVD_TPU_SCHED=off: in-order buckets on the dense wire.
             schedule = build_schedule(
@@ -418,12 +491,15 @@ class _DistributedOptimizer:
             if self._k > 1 and self._avg_agg:
                 g.mul_(1.0 / self._k)
             if g.is_sparse:
-                g = self._densify(g)
+                g = self._densify(i, g)
         w, self._ctx[i] = self._compression.compress(g)
         self._leaves[i] = w
         return w
 
-    def _densify(self, g: torch.Tensor) -> torch.Tensor:
+    def _densify(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        """A sparse gradient's stand-in on the bucket's wire: densified
+        under ``sparse_as_dense``, else kept for :meth:`_sparse_reduce` and
+        replaced by a zero-length placeholder."""
         if self._sparse_as_dense:
             return densify(g)
         if self._quantized_req:
@@ -432,15 +508,51 @@ class _DistributedOptimizer:
                 "quantizer lives inside the dense two-phase reduction); "
                 "use sparse_as_dense=True or a cast compressor"
             )
-        raise NotImplementedError(
-            "sparse gradients are exchanged by the allgather path of "
-            "ops/sparse.py, not yet ported (ROADMAP Queue A item 8); pass "
-            "sparse_as_dense=True"
-        )
+        if self._op not in (Average, Sum):
+            raise ValueError(
+                "sparse gradients support op=Average or Sum only (the "
+                "reference's sparse path is allgather-based and has no Adasum "
+                "variant); pass sparse_as_dense=True to adasum embedding "
+                "gradients as dense tensors"
+            )
+        self._sparse[i] = g
+        return torch.zeros(0, dtype=g.dtype, device=g.device)
+
+    def _sparse_reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """A sparse gradient reduced as the JAX package's ``reduce_sparse``
+        (``:229-252``): its rows compressed and prescaled, gathered with its
+        indices over the set (``ops/sparse.py``), decompressed, postscaled
+        and densified; a non-member keeps its own gradient, densified."""
+        from ..ops.sparse import sparse_allreduce
+
+        ps = resolve(self._process_set)
+        if ps is not None and runtime.rank() not in ps.ranks:
+            return densify(g)
+        wire, ctx = self._compression.compress(g._values())
+        if self._prescale != 1.0:
+            wire = wire * self._prescale
+        out = sparse_allreduce(
+            torch.sparse_coo_tensor(g._indices(), wire, g.shape, check_invariants=False),
+            self._op, self._process_set)
+        vals = self._compression.decompress(out._values(), ctx)
+        if self._postscale != 1.0:
+            vals = vals * self._postscale
+        return densify(torch.sparse_coo_tensor(out._indices(), vals, g.shape,
+                                               check_invariants=False))
 
     def _reduce_bucket(self, f: torch.Tensor, bucket) -> torch.Tensor:
-        """One bucket's flat buffer through its wire; a non-member of the
-        set keeps it as it is on the dense wires."""
+        """One bucket's flat buffer through its lowering and wire; a
+        non-member of the set keeps it as it is on the dense wires."""
+        if f.numel() == 0:  # only sparse gradients' placeholders
+            return f
+        if bucket.lowering == "hier_adasum":
+            return execute.hier_adasum_flat(
+                f, average=self._op != Sum, wire=bucket.wire,
+                prescale_factor=self._prescale, postscale_factor=self._postscale)
+        if bucket.lowering == "hier":
+            return execute.hier_allreduce_flat(
+                f, average=self._op == Average, wire=bucket.wire,
+                prescale_factor=self._prescale, postscale_factor=self._postscale)
         if bucket.wire in QUANTIZED_WIRES:
             return self._quantized_bucket(f, bucket)
         if not self._member and not (self._quantized and f.is_floating_point()):
@@ -484,6 +596,9 @@ class _DistributedOptimizer:
                 key = self._key([self._leaves[i] for i in range(n)], cfg)
                 grads, outs = [], []
                 for i, p in enumerate(self._params):
+                    if i in self._sparse:
+                        p.grad = self._sparse_reduce(self._sparse[i]).to(p.dtype)
+                        continue
                     out = self._compression.decompress(reduced[i], self._ctx[i])
                     if p.grad is None or p.grad.is_sparse:
                         p.grad = out.to(p.dtype).clone()
@@ -508,7 +623,7 @@ class _DistributedOptimizer:
 
     def _close(self) -> None:
         self._chain, self._launcher = None, None
-        self._leaves, self._ctx, self._pending = {}, {}, []
+        self._leaves, self._ctx, self._pending, self._sparse = {}, {}, [], {}
         self._marked = set()
 
     def _discard(self) -> None:
@@ -640,7 +755,8 @@ def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
 
 
 def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
-                    optimizer_capturable: bool = True) -> Optional[str]:
+                    optimizer_capturable: bool = True,
+                    point_to_point: bool = False) -> Optional[str]:
     """Why a data-parallel step on a card cannot be captured as one CUDA
     graph, from static facts alone (None: it can).  ``backend`` is the
     process group's (None without a runtime: no collective runs);
@@ -648,7 +764,8 @@ def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
     ``sparse`` whether the model has a sparse-gradient module;
     ``optimizer_capturable`` False when a parameter group of the
     optimizer has ``capturable=False`` (Adam, AdamW: their step count is
-    read on the host)."""
+    read on the host); ``point_to_point`` whether the exchange runs
+    Adasum's flat tree (the optimizer's ``point_to_point``)."""
     if backend is not None and backend != "nccl":
         return (f"its process group is {backend}, not NCCL: each collective "
                 "waits on the host")
@@ -660,6 +777,10 @@ def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
     if not optimizer_capturable:
         return ("the optimizer was built with capturable=False: its update "
                 "reads its step count on the host")
+    if point_to_point:
+        return ("op=Adasum's flat tree exchanges its halves point to point "
+                "(batch_isend_irecv), which is not captured; the hier_adasum "
+                "lowering is")
     return None
 
 
@@ -810,7 +931,7 @@ class TrainStep:
             return self._eager(batch, mode)
         leaves, spec = tree_flatten(batch)
         key = (mode, SchedConfig.from_env(), host_state(self.optimizer),
-               self._set_key())
+               self._set_key(), env.get_env(env.TOPO))
         if key != self._key:
             self.drop()
             self._key = key
@@ -860,7 +981,8 @@ class TrainStep:
         return capture_blocker(
             rt.backend if rt is not None else None,
             getattr(self.optimizer, "backward_passes_per_step", 1), sparse,
-            all(g.get("capturable", True) for g in self.optimizer.param_groups))
+            all(g.get("capturable", True) for g in self.optimizer.param_groups),
+            getattr(self.optimizer, "point_to_point", False))
 
     def drop(self) -> None:
         """Drop every captured graph and give their memory pools back to

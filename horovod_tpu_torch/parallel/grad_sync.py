@@ -65,19 +65,14 @@ def _rebuild(out: list, names):
 
 
 def lowering() -> str:
-    """The exchange lowering ``HVD_TPU_TOPO_LOWER`` asks for.  ``auto``
-    resolves to ``flat`` on one host, as the JAX package's resolves on a
-    single-slice topology (``sched/plan.py`` ``resolve_lowering``); the
-    hierarchical lowerings are not ported and raise."""
-    raw = env.get_env("TOPO_LOWER", "auto") or "auto"
-    lo = raw.strip().lower()
-    if lo in ("off", "none", "0", "false", "no", "", "auto", "flat"):
-        return "flat"
-    raise NotImplementedError(
-        f"HVD_TPU_TOPO_LOWER={raw}: only the flat lowering of sync_gradients is "
-        "ported; the hierarchical ones wait for the topology model (ROADMAP "
-        "Queue A entry A8)"
-    )
+    """The exchange lowering ``HVD_TPU_TOPO_LOWER`` asks for, canonical
+    (``auto``, ``flat``, ``hier`` or ``hier_adasum``).  The scheduled
+    form resolves it per bucket through the topology model over the
+    mean's axis (``sched/plan.py`` ``resolve_lowering``): on one host, or
+    an axis the topology does not factor, every request is ``flat``."""
+    from ..sched.plan import _canon_lowering
+
+    return _canon_lowering(env.get_env("TOPO_LOWER", "auto") or "auto")
 
 
 def pmean_(f: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]) -> torch.Tensor:
@@ -169,6 +164,14 @@ def sync_gradients_bucketed(
     the sharded axes' sizes stays per gradient.  On the dense wire this
     is bitwise :func:`sync_gradients` (a mean is elementwise).
 
+    ``cfg.lowering`` (``HVD_TPU_TOPO_LOWER``): a group whose mean is over
+    one axis is planned with it over that axis
+    (``horovod_tpu/sched/execute.py:888-941``), so a bucket may go
+    ``hier`` (``topo/hierarchical.py`` ``hierarchical_all_reduce`` on the
+    mesh axis, its wire on the cross-domain hop only, without error
+    feedback) or ``hier_adasum`` (the domains' means combined by Adasum);
+    the intra and cross groups are made here, before the buckets run.
+
     ``cfg.wire`` (``HVD_TPU_SCHED_WIRE``): ``bf16`` casts each bucket
     around its mean (kernel B1); ``int8``/``fp8`` send a bucket whose
     mean is over one axis through the quantized reduce-scatter +
@@ -176,12 +179,13 @@ def sync_gradients_bucketed(
     kernels B3-B5), with error feedback when ``residuals`` is given,
     while a group over several axes stays dense, as in the JAX
     package."""
+    from ..ops.collectives import Average
     from ..sched import execute
     from ..sched.plan import QUANTIZED_WIRES, SchedConfig, build_schedule, dtype_name
+    from ..topo import hierarchical
 
     if cfg is None:
         cfg = SchedConfig.from_env()
-    lowering()
     leaves, shards, names = _flat(grads, param_shard_axes)
     res_leaves = None
     if residuals is not None:
@@ -203,12 +207,23 @@ def sync_gradients_bucketed(
         wire = cfg.wire
         if wire in QUANTIZED_WIRES and len(mean_over) != 1:
             wire = "off"  # the quantized exchange has one axis's groups
+        one_axis = len(mean_over) == 1
         schedule = build_schedule(
             [out[i].numel() * out[i].element_size() for i in idxs],
-            [dtype_name(out[i].dtype) for i in idxs], cfg, wire=wire)
+            [dtype_name(out[i].dtype) for i in idxs], cfg, wire=wire,
+            lowering=cfg.lowering if one_axis else "flat",
+            axis_size=mesh.axis_size(mean_over[0]) if one_axis else None)
         where = wire_groups(mesh, mean_over)
+        if any(b.lowering != "flat" for b in schedule.buckets):
+            hierarchical.phase_context(mean_over[0], mesh=mesh)
 
         def reduce_flat(f, bucket, _m=mean_over, _idxs=idxs, _where=where):
+            if bucket.lowering == "hier_adasum":
+                return hierarchical.hierarchical_adasum_all_reduce(
+                    f, _m[0], op=Average, wire=bucket.wire, mesh=mesh)
+            if bucket.lowering == "hier":
+                return hierarchical.hierarchical_all_reduce(
+                    f, _m[0], op=Average, wire=bucket.wire, mesh=mesh)
             if bucket.wire in QUANTIZED_WIRES:
                 res_flat = rmeta = None
                 if res_leaves is not None:

@@ -81,6 +81,10 @@ class Runtime:
         # torch.distributed group per tile, made on every rank at first
         # use, by the tiles.
         self.wire_groups: dict = {}
+        # The hierarchical collectives' intra and cross groups
+        # (topo/hierarchical.py), per factored layout: made on every rank
+        # the first time the layout is asked for.
+        self.topo_groups: dict = {}
         self.process_set_table = ProcessSetTable(
             size, rank,
             new_group=(lambda ranks: dist.new_group(
@@ -121,6 +125,10 @@ class Runtime:
                     if group is not None and self.rank in ranks:
                         dist.destroy_process_group(group)
             self.wire_groups = {}
+            for made in self.topo_groups.values():
+                for kind in ("intra", "cross"):
+                    dist.destroy_process_group(made[kind][0])
+            self.topo_groups = {}
             if self._owns_group:
                 dist.destroy_process_group()
 

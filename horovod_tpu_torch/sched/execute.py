@@ -51,7 +51,7 @@ import torch
 
 from .. import metrics, runtime
 from ..ops import fusion
-from ..ops.collectives import Sum
+from ..ops.collectives import Sum, _scale
 from ..ops.kernels import cast_buffer, scale_cast
 from ..ops.quantized import _axis_groups, quantized_all_gather, quantized_reduce_scatter
 from .plan import Bucket, BucketSchedule, wire_bytes
@@ -302,3 +302,50 @@ def quantized_exchange_flat(
     shard = _scale_f32(shard, postscale_factor)
     out = quantized_all_gather(shard, process_set, wire=wire, groups=groups)[:f.numel()]
     return out.to(f.dtype), r_new
+
+
+
+def hier_allreduce_flat(
+    f: torch.Tensor,
+    *,
+    average: bool,
+    wire: str = "off",
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+) -> torch.Tensor:
+    """One bucket's hierarchical allreduce over the world (the
+    ``lowering="hier"`` bucket, ``horovod_tpu/sched/execute.py:736``):
+    intra-domain reduce_scatter, cross-domain all_reduce of the 1/k
+    shard, intra-domain all_gather (``topo/hierarchical.py``); a
+    quantized or bf16 ``wire`` compresses only the cross-domain hop.
+    The scales are the dense path's (``collectives._scale``).  The
+    world's groups were made when the bucket was planned."""
+    from ..topo import hierarchical
+
+    out = hierarchical.hierarchical_all_reduce(_scale(f, prescale_factor), op=Sum,
+                                               wire=wire)
+    if average:
+        postscale_factor = postscale_factor / runtime.size()
+    return _scale(out, postscale_factor)
+
+
+def hier_adasum_flat(
+    f: torch.Tensor,
+    *,
+    average: bool,
+    wire: str = "off",
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+) -> torch.Tensor:
+    """One bucket's hierarchical Adasum exchange (the
+    ``lowering="hier_adasum"`` bucket, ``:746``): intra-domain sum,
+    Adasum across domains on the 1/k shard, intra-domain all_gather.
+    ``average=True`` combines per-domain *mean* gradients (the reference
+    postscale semantics); a quantized or bf16 ``wire`` compresses only
+    the cross-domain gather."""
+    from ..ops.collectives import Average
+    from ..topo import hierarchical
+
+    out = hierarchical.hierarchical_adasum_all_reduce(
+        _scale(f, prescale_factor), op=Average if average else Sum, wire=wire)
+    return _scale(out, postscale_factor)

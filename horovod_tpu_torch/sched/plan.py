@@ -1,8 +1,13 @@
 """Plan stage: build a :class:`BucketSchedule` from gradient metadata.
 
 Counterpart of ``horovod_tpu/sched/plan.py`` (``:80-388``): the same
-config, buckets, schedule and wire rules, for the flat lowering and the
-``off``/``bf16``/``int8``/``fp8`` wires.  Buckets are emitted in
+config, buckets, schedule and wire rules, for the ``off``/``bf16``/
+``int8``/``fp8`` wires, and each bucket's lowering (``LOWER_CHOICES``
+``:45-60``, ``SchedConfig.lowering`` ``:90``, ``resolve_lowering``
+``:311``, ``_make_bucket`` ``:346-365``): ``flat``, ``hier`` or
+``hier_adasum`` (``topo/hierarchical.py``).  On one host every
+request resolves ``flat`` (the topology has one domain), so the
+schedule is the one the flat-only plan built.  Buckets are emitted in
 reverse-backward order: the readiness order ``sched/hooks.py``
 observed, else the reversed registration order.  The plan is a pure
 function of its arguments, so every rank plans the same collectives in
@@ -26,6 +31,33 @@ from ..utils import env
 # exchange (ops/quantized.py).
 WIRE_CHOICES = ("off", "bf16", "int8", "fp8")
 QUANTIZED_WIRES = ("int8", "fp8")
+
+# Per-bucket lowerings.  "flat" is the single-collective exchange;
+# "hier" stages it as intra-domain reduce_scatter -> cross-domain
+# all_reduce of the 1/k shard -> intra-domain all_gather
+# (topo/hierarchical.py); "hier_adasum" keeps hier's staging but
+# combines across domains with Adasum: float buckets on multi-domain
+# topologies only, and never picked by "auto" (it changes the
+# reduction; it is asked for by the knob, op=Adasum or the Adasum
+# optimizer).  Under HVD_TPU_TOPO_LOWER=auto the cost model picks
+# between the sum-preserving pair per bucket.
+LOWER_CHOICES = ("flat", "hier", "hier_adasum")
+
+
+def _canon_lowering(lowering: str) -> str:
+    lo = (lowering or "auto").strip().lower()
+    if lo in ("off", "none", "0", "false", "no", ""):
+        lo = "flat"
+    if lo in ("on", "1", "true", "yes", "hierarchical"):
+        lo = "hier"
+    if lo == "adasum":
+        lo = "hier_adasum"
+    if lo not in LOWER_CHOICES + ("auto",):
+        raise ValueError(
+            f"HVD_TPU_TOPO_LOWER must be auto|flat|hier|hier_adasum, "
+            f"got {lowering!r}"
+        )
+    return lo
 
 
 def _canon_wire_choice(wire: str) -> str:
@@ -61,9 +93,12 @@ class SchedConfig:
     capture_order: bool = True
     wire: str = "off"  # "off" | "bf16" | "int8" | "fp8"
     wire_ef: bool = True  # error-feedback residuals for quantized wires
+    # "auto" | "flat" | "hier" | "hier_adasum" (HVD_TPU_TOPO_LOWER)
+    lowering: str = "auto"
 
     def __post_init__(self):
         object.__setattr__(self, "wire", _canon_wire_choice(self.wire))
+        object.__setattr__(self, "lowering", _canon_lowering(self.lowering))
 
     @classmethod
     def from_env(cls) -> "SchedConfig":
@@ -77,6 +112,7 @@ class SchedConfig:
             capture_order=env.get_bool(env.SCHED_CAPTURE_ORDER, True),
             wire=env.get_env(env.SCHED_WIRE, "off") or "off",
             wire_ef=env.get_bool(env.SCHED_WIRE_EF, True),
+            lowering=env.get_env(env.TOPO_LOWER, "auto") or "auto",
         )
 
 
@@ -90,6 +126,7 @@ class Bucket:
     wire_dtypes: Tuple[str, ...]  # distinct dtypes, index order
     pinned: bool = False  # from an explicit user group
     wire: str = "off"
+    lowering: str = "flat"  # "flat" | "hier" | "hier_adasum"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +141,7 @@ class BucketSchedule:
 
     def signature(self) -> Tuple:
         return tuple(
-            (b.indices, b.nbytes, b.wire_dtypes, b.pinned, b.wire)
+            (b.indices, b.nbytes, b.wire_dtypes, b.pinned, b.wire, b.lowering)
             for b in self.buckets
         )
 
@@ -122,6 +159,8 @@ def build_schedule(
     order: Optional[Sequence[int]] = None,
     pinned: Sequence[Sequence[int]] = (),
     wire: Optional[str] = None,
+    lowering: str = "flat",
+    axis_size: Optional[int] = None,
 ) -> BucketSchedule:
     """Plan the exchange for leaves of ``sizes_bytes``/``dtypes``.
 
@@ -130,7 +169,11 @@ def build_schedule(
     leaf exactly once, means the reversed index order.  ``pinned`` groups
     fuse atomically and are emitted where their earliest-ready member
     falls.  ``wire`` overrides ``cfg.wire``; each bucket gets it only when
-    :func:`eligible_wire` allows."""
+    :func:`eligible_wire` allows.  ``lowering`` is the requested lowering
+    (the caller's choice between ``cfg.lowering`` and ``flat``, as the
+    JAX package's ``_reduce_gradients`` makes it), resolved per bucket by
+    :func:`resolve_lowering` over an axis of ``axis_size`` ranks (None:
+    the topology's world)."""
     if cfg is None:
         cfg = SchedConfig.from_env()
     wire = _canon_wire_choice(cfg.wire if wire is None else wire)
@@ -151,7 +194,8 @@ def build_schedule(
         pinned_set.update(idx)
         placed.append((
             min(rank_of[i] for i in idx),
-            _make_bucket(idx, sizes_bytes, dtypes, pinned=True, wire=wire),
+            _make_bucket(idx, sizes_bytes, dtypes, pinned=True, wire=wire,
+                         lowering=lowering, axis_size=axis_size),
         ))
 
     free = [i for i in order if i not in pinned_set]
@@ -164,7 +208,8 @@ def build_schedule(
         idx = tuple(sorted(free[j] for j in b))
         placed.append((
             min(rank_of[i] for i in idx),
-            _make_bucket(idx, sizes_bytes, dtypes, wire=wire),
+            _make_bucket(idx, sizes_bytes, dtypes, wire=wire, lowering=lowering,
+                         axis_size=axis_size),
         ))
 
     ordered = [b for _, b in sorted(placed, key=lambda p: p[0])]
@@ -192,20 +237,54 @@ def eligible_wire(wire: str, wire_dtypes: Sequence[str]) -> str:
     return wire
 
 
+def resolve_lowering(
+    requested: str, nbytes: int, axis_size: Optional[int] = None,
+    wire_dtypes: Sequence[str] = (),
+) -> str:
+    """Resolve a requested lowering ("auto"/"flat"/"hier"/"hier_adasum")
+    to the concrete per-bucket choice (``:311``).  "auto" asks the
+    topology cost model (flat against hier only); a single-domain
+    topology, or an axis that does not factor, always resolves flat, so
+    the flat-only schedule is reproduced exactly; a hier_adasum request
+    on a non-floating bucket resolves flat too (the coefficients divide
+    by norms)."""
+    requested = _canon_lowering(requested)
+    if requested == "flat":
+        return "flat"
+    from ..topo import model as topo_model
+
+    topo = topo_model.current()
+    n = topo.world if axis_size is None else axis_size
+    s, _ = topo.factor_axis(n)
+    if s == 1:
+        return "flat"
+    if requested == "hier_adasum":
+        if wire_dtypes and not all(_is_floating(d) for d in wire_dtypes):
+            return "flat"
+        return "hier_adasum"
+    if requested == "hier":
+        return "hier"
+    return topo.choose_lowering("all_reduce", nbytes, n)
+
+
 def _make_bucket(
     indices: Tuple[int, ...],
     sizes_bytes: Sequence[int],
     dtypes: Sequence[str],
     pinned: bool = False,
     wire: str = "off",
+    lowering: str = "flat",
+    axis_size: Optional[int] = None,
 ) -> Bucket:
     wire_dtypes = tuple(dict.fromkeys(dtypes[i] for i in indices))
+    nbytes = sum(int(sizes_bytes[i]) for i in indices)
     return Bucket(
         indices=indices,
-        nbytes=sum(int(sizes_bytes[i]) for i in indices),
+        nbytes=nbytes,
         wire_dtypes=wire_dtypes,
         pinned=pinned,
         wire=eligible_wire(wire, wire_dtypes),
+        lowering=resolve_lowering(lowering, nbytes, axis_size, wire_dtypes),
     )
 
 

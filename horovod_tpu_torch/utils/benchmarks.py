@@ -30,12 +30,15 @@ def _loss_fn(model, batch):
 
 def build_dp_step(hvd, model: torch.nn.Module, *, compression=None,
                   lr: float = 0.01,
-                  momentum: Optional[float] = 0.9, process_set=None) -> Tuple:
+                  momentum: Optional[float] = 0.9, process_set=None,
+                  op: Optional[int] = None, lowering: Optional[str] = None) -> Tuple:
     """Build the data-parallel step: rank 0's weights and buffers are
     broadcast (to the world), SGD (``lr``, ``momentum``; dampening 0, no
     Nesterov: the update of ``optax.sgd``) is wrapped in
-    ``hvd.DistributedOptimizer`` (over ``process_set`` when given), and
-    the step minimises the mean softmax cross-entropy.
+    ``hvd.DistributedOptimizer`` (over ``process_set`` when given; ``op``
+    Average unless given, e.g. ``hvd.Adasum``; ``lowering`` as
+    ``HVD_TPU_TOPO_LOWER`` unless given), and the step minimises the
+    mean softmax cross-entropy.
 
     Returns ``(step, optimizer)``; ``step(batch)`` runs one step on this
     rank's ``(images NHWC, labels)`` and returns the loss averaged across
@@ -47,6 +50,8 @@ def build_dp_step(hvd, model: torch.nn.Module, *, compression=None,
         compression=compression if compression is not None
         else hvd.Compression.none,
         process_set=process_set,
+        op=hvd.Average if op is None else op,
+        lowering=lowering,
     )
     return hvd.TrainStep(model, opt, _loss_fn), opt
 

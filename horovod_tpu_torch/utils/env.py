@@ -39,6 +39,30 @@ DISABLE_GROUP_FUSION = "DISABLE_GROUP_FUSION"
 DYNAMIC_PROCESS_SETS = "DYNAMIC_PROCESS_SETS"
 # Sets registered at init, "0,1;2,3": one set per ";", ranks by ",".
 PROCESS_SETS = "PROCESS_SETS"
+# Log level of utils/logging.py: trace|debug|info|warning (default)|error|fatal.
+LOG_LEVEL = "LOG_LEVEL"
+# Adasum's two-level schedule (reference HOROVOD_HIERARCHICAL_ALLREDUCE):
+# a sum inside each host, Adasum across hosts (ops/adasum.py; default off).
+HIERARCHICAL_ALLREDUCE = "HIERARCHICAL_ALLREDUCE"
+# Topology (topo/model.py): a forced shape, "SxK" / "SxK1xK2" (S domains
+# of K ranks) or a JSON object ({"slices": 2, "ici_shape": [2], ...});
+# unset: one NVLink domain per host (backend/gpu_topo.py).
+TOPO = "TOPO"
+# Lowering of the gradient exchange over a multi-domain world: auto
+# (default; the cost model picks flat or hier per bucket) | flat/off |
+# hier/on | hier_adasum/adasum (topo/hierarchical.py).
+TOPO_LOWER = "TOPO_LOWER"
+# The cost model's link parameters: bandwidth GB/s, per-hop latency us,
+# per-collective overhead us.
+TOPO_ICI_GBPS = "TOPO_ICI_GBPS"
+TOPO_DCN_GBPS = "TOPO_DCN_GBPS"
+TOPO_ICI_LAT_US = "TOPO_ICI_LAT_US"
+TOPO_DCN_LAT_US = "TOPO_DCN_LAT_US"
+TOPO_PHASE_OVERHEAD_US = "TOPO_PHASE_OVERHEAD_US"
+# The measured cost model (on by default in the JAX package): the port
+# has no fit yet (it waits for the dispatch histograms of ROADMAP Queue A
+# entry A1), so it prices with the static fields whatever this says.
+TOPO_FIT = "TOPO_FIT"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 # Fusion buffers are padded to this many bytes (ops/fusion.py
@@ -69,6 +93,16 @@ def get_int(name: str, default: int) -> int:
         return default
     try:
         return int(val)
+    except ValueError:
+        return default
+
+
+def get_float(name: str, default: float) -> float:
+    val = get_env(name)
+    if val is None or val == "":
+        return default
+    try:
+        return float(val)
     except ValueError:
         return default
 

@@ -1427,3 +1427,88 @@ def test_hybrid_meshes_on_the_card():
     for mesh in ("dp2_tp2 (flash)", "sp2_tp2 (ring)", "sp4 (ulysses)"):
         assert f"phase slice hybrid {mesh}: " in proc.stdout, proc.stdout[-3000:]
     assert proc.stdout.count("gradients after sync_gradients") == 3, proc.stdout[-3000:]
+
+
+_HIER_CAPTURE = textwrap.dedent("""
+    import os, sys
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    rank, n, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    os.environ["HVD_TPU_TOPO"] = "2x2"
+    hvd.init("cuda", init_method="file://" + store, rank=rank, size=n, timeout_s=100)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for label, wire, lowering, op in (("hier bf16", "bf16", "hier", hvd.Average),
+                                          ("hier int8", "int8", "hier", hvd.Average),
+                                          ("hier_adasum bf16", "bf16", None, hvd.Adasum)):
+            os.environ["HVD_TPU_SCHED_WIRE"] = wire
+            runs = []
+            for mode in ("off", "on"):
+                os.environ["HVD_TPU_ONESTEP"] = mode
+                metrics.reset("xir.")
+                model = ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
+                               dtype=torch.float32, seed=0, device=hvd.device())
+                step, opt = build_dp_step(hvd, model, op=op, lowering=lowering)
+                g = torch.Generator(device="cuda").manual_seed(10 + rank)
+                losses = []
+                for _ in range(5):
+                    batch = (torch.randn(4, 32, 32, 3, generator=g, device="cuda"),
+                             torch.randint(0, 10, (4,), generator=g, device="cuda"))
+                    losses.append(step(batch))
+                torch.cuda.synchronize()
+                runs.append((torch.stack(losses).cpu(),
+                             [p.detach().cpu().clone() for p in model.parameters()],
+                             metrics.get_counter("xir.onestep.steps"),
+                             {b.lowering for b in opt.schedule.buckets}))
+                step.drop()
+            (l0, p0, c0, lo0), (l1, p1, c1, lo1) = runs
+            want = {"hier_adasum" if op == hvd.Adasum else "hier"}
+            assert lo0 == lo1 == want, (label, lo0, lo1)
+            assert (c0, c1) == (0, 1), (label, c0, c1)
+            assert torch.equal(l0.view(torch.int32), l1.view(torch.int32)), label
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(p0, p1)), label
+            print("HIER CAPTURE OK", rank, label, flush=True)
+    finally:
+        hvd.shutdown()
+""")
+
+
+@pytest.mark.cuda
+def test_hierarchical_buckets_captured_bitwise_with_eager(tmp_path):
+    """Four cards, NCCL, ``HVD_TPU_TOPO=2x2``: the narrow ResNet's step
+    with every bucket ``hier`` (bf16 and int8 cross-domain hops) and with
+    ``op=Adasum`` (every bucket ``hier_adasum``), five steps eager and
+    five under ``HVD_TPU_ONESTEP=on`` (one capture; the intra and cross
+    groups made by the first warm-up step's plan), from one seed: every
+    rank's losses and weights bitwise equal across the two.  Below four
+    cards it skips: a ``2x1`` topology is not multi-domain
+    (``topo/model.py`` ``multi_slice``), so every bucket would be flat."""
+    _cuda()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: two domains of two ranks, one rank a card")
+    n = 4
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, HVD_TPU_QUANT_BACKEND="fused")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HVD_TPU_TOPO_LOWER"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, "-c", _HIER_CAPTURE, str(r), str(n),
+                               str(tmp_path / "store")],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"HIER CAPTURE OK {r} hier_adasum bf16" in out, out

@@ -29,8 +29,8 @@ Also: ``barrier``, ``join`` (the rank that sleeps 0.2 s before it joins
 is the answer on every rank), the counters, the consistency check (a
 shape mismatch raises on every rank), the errors of a reducescatter or
 even alltoall whose dim 0 the world does not divide, and, in this
-process at world one, the errors for an unregistered ``process_set``, Adasum and
-``average`` with ``op``, and ``runtime.refuse_in_capture`` for every op
+process at world one, the errors for an unregistered ``process_set`` and
+``average`` with ``op``, Adasum returning the input, and ``runtime.refuse_in_capture`` for every op
 that waits on the host, with the capture faked.
 """
 
@@ -535,9 +535,10 @@ def test_barrier_join_counters_and_errors_in_the_world(worlds, n):
 
 def test_errors_at_world_one():
     """A ``process_set`` that is not a registered ``ProcessSet`` raises
-    ``HorovodTpuError`` (the JAX package's ``_ps_id``), Adasum raises
-    naming A8, and ``average`` with ``op`` a ``ValueError``, as the JAX
-    eager API does."""
+    ``HorovodTpuError`` (the JAX package's ``_ps_id``), and ``average``
+    with ``op`` a ``ValueError``, as the JAX eager API does.  Adasum,
+    which raised before it was ported, returns a world of one's input
+    (``tests/test_torch_adasum.py`` holds it at worlds three and four)."""
     thvd.init("cpu")
     try:
         x = torch.ones(4)
@@ -550,10 +551,8 @@ def test_errors_at_world_one():
                     fn(arg, process_set=bad)
         with pytest.raises(thvd.exceptions.HorovodTpuError, match="not registered"):
             thvd.barrier(process_set=thvd.ProcessSet([0]))
-        with pytest.raises(NotImplementedError, match="Queue A entry A8"):
-            thvd.allreduce(x, op=thvd.Adasum)
-        with pytest.raises(NotImplementedError, match="Queue A entry A8"):
-            thvd.grouped_allreduce([x], op=thvd.Adasum)
+        assert torch.equal(thvd.allreduce(x, op=thvd.Adasum), x)
+        assert torch.equal(thvd.grouped_allreduce([x], op=thvd.Adasum)[0], x)
         with pytest.raises(ValueError, match="either average or op"):
             thvd.allreduce(x, average=True, op=thvd.Sum)
         with pytest.raises(ValueError, match="either average or op"):

@@ -10,7 +10,13 @@
   shards, gives the same losses to rtol 1e-4: eight steps of SGD with
   momentum pass the float32 differences through the updates (measured
   under 1e-6).
-* ``--use-adasum`` raises ``NotImplementedError`` naming Queue A item 8.
+* ``--use-adasum`` (``op=Adasum``, the learning rate scaled by
+  ``local_size()``) in the same gloo world of two against the JAX
+  ``DistributedOptimizer(op=Adasum)`` of ``examples/mnist.py
+  --use-adasum`` on two virtual devices, to the same rtol 1e-4 (the
+  float32 dot products of Adasum's coefficients are summed in other
+  orders too); at a world of one Adasum changes nothing, so the run's
+  losses are the plain run's.
 """
 
 import importlib.util
@@ -76,16 +82,18 @@ def _to_flax(model):
     return {"params": jax.tree.map(jnp.asarray, tree)}
 
 
-def _jax_losses(samples, batch, lr, momentum):
+def _jax_losses(samples, batch, lr, momentum, adasum=False):
     """``examples/mnist.py``'s loop on two virtual devices from the
-    port's seed-0 weights: one loss per step."""
+    port's seed-0 weights: one loss per step (``adasum``: ``op=Adasum``
+    and the learning rate scaled by the local size, 2 here)."""
     synthetic_mnist = _example().synthetic_mnist
     params = _to_flax(tmnist.MnistCNN(seed=0, device="cpu"))
     hvd.shutdown()
     hvd.init(devices=jax.devices()[:2])
     try:
         model = JaxCNN()
-        tx = hvd.DistributedOptimizer(optax.sgd(lr * 2, momentum=momentum))
+        tx = hvd.DistributedOptimizer(optax.sgd(lr * 2, momentum=momentum),
+                                      op=hvd.Adasum if adasum else hvd.Average)
 
         def loss_fn(p, b):
             logits = model.apply(p, b[0])
@@ -106,15 +114,14 @@ def _jax_losses(samples, batch, lr, momentum):
         hvd.shutdown()
 
 
-def test_example_world2_losses_match_jax(tmp_path):
-    samples, batch = 512, 32
+def _world2_losses(tmp_path, samples, batch, *extra):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    for k in ("RANK", "WORLD_SIZE", "HVD_TPU_SCHED_WIRE"):
+    for k in ("RANK", "WORLD_SIZE", "HVD_TPU_SCHED_WIRE", "HVD_TPU_TOPO"):
         env.pop(k, None)
     cmd = [sys.executable, EXAMPLE, "--device", "cpu", "--epochs", "1",
            "--num-samples", str(samples), "--batch-size", str(batch),
            "--log-every", "1", "--world-size", "2",
-           "--init-method", f"file://{tmp_path / 'store'}"]
+           "--init-method", f"file://{tmp_path / 'store'}", *extra]
     procs = []
     try:
         for r in range(2):
@@ -129,15 +136,35 @@ def test_example_world2_losses_match_jax(tmp_path):
                 p.wait()
     for p, text in zip(procs, outs):
         assert p.returncode == 0, text
-    got = [float(v) for v in re.findall(r"step \d+/\d+ loss ([0-9.]+)", outs[0])]
     assert "2 rank(s) on cpu" in outs[0] and outs[1].strip() == ""
+    return [float(v) for v in re.findall(r"step \d+/\d+ loss ([0-9.]+)", outs[0])]
+
+
+def test_example_world2_adasum_losses_match_jax(tmp_path):
+    samples, batch = 256, 32
+    got = _world2_losses(tmp_path, samples, batch, "--use-adasum")
+    want = _jax_losses(samples, batch, 0.01, 0.5, adasum=True)
+    assert len(got) == len(want) == samples // (2 * batch)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_example_world2_losses_match_jax(tmp_path):
+    samples, batch = 512, 32
+    got = _world2_losses(tmp_path, samples, batch)
     want = _jax_losses(samples, batch, 0.01, 0.5)
     assert len(got) == len(want) == samples // (2 * batch)
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[-1] < got[0]
 
 
-def test_example_refuses_adasum():
+def test_example_refuses_adasum(capsys):
+    """Kept under its first name: ``--use-adasum`` runs now; at a world of
+    one it gives the plain run's losses."""
     main = _example().main
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        main(["--use-adasum", "--device", "cpu"])
+    args = ["--device", "cpu", "--num-samples", "128", "--epochs", "1", "--batch-size",
+            "32", "--log-every", "1"]
+    losses = []
+    for extra in ([], ["--use-adasum"]):
+        main(args + extra)
+        losses.append(re.findall(r"loss ([0-9.]+)", capsys.readouterr().out))
+    assert losses[0] == losses[1] and len(losses[0]) == 4

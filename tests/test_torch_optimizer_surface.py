@@ -9,8 +9,9 @@ collectives, against the JAX package or the reference's contract.
   (``nn.Embedding(sparse=True)``) is densified as the JAX ``densify``
   scatter-adds (bitwise on dyadic values with repeated indices), and
   the step then equals the dense embedding's bitwise.  Without the flag
-  a sparse gradient raises ``QuantizedWireError`` under a quantized wire
-  and ``NotImplementedError`` naming Queue A item 8 otherwise.
+  a sparse gradient raises ``QuantizedWireError`` under a quantized wire;
+  otherwise it takes the allgather path of ``ops/sparse.py`` (at a world
+  of one, the step equals the dense embedding's bitwise).
 * ``backward_passes_per_step`` (and its setter): the update of every
   second step equals the JAX ``DistributedOptimizer(backward_passes_per_
   step=2)``'s bitwise on a dyadic linear problem.
@@ -173,10 +174,19 @@ def test_sparse_gradient_without_sparse_as_dense_raises(world1, monkeypatch,
         else thvd.Compression.none,
     )
     model(torch.tensor([[1, 2]])).backward()
-    with pytest.raises(error) as info:
-        opt.step()
     if error is NotImplementedError:
-        assert "Queue A item 8" in str(info.value)
+        # Kept under its first name: the sparse path is ported now, and
+        # the step equals the dense embedding's.
+        opt.step()
+        dense = _Embed(False)
+        dopt = thvd.DistributedOptimizer(torch.optim.SGD(dense.parameters(), lr=0.5))
+        dense(torch.tensor([[1, 2]])).backward()
+        dopt.step()
+        for a, b in zip(model.parameters(), dense.parameters()):
+            assert torch.equal(a, b)
+        return
+    with pytest.raises(error):
+        opt.step()
 
 
 def _dyadic_linear():
