@@ -243,7 +243,27 @@ exits non-zero):
    samples), ``examples/torch_synthetic_benchmark.py --num-iters 1`` and
    ``examples/torch_fsdp_gpt.py --steps 3`` run as a user starts them,
    each checked for its last lines.
-11. result: the card line, the kernels JSON line (each kernel with its
+11. slice tune: the native core built (``native.available()``) and
+   taking ResNet-50's bucket plan; the full-width ResNet-50 (bf16 wire,
+   world of one) under ``HVD_TPU_AUTOTUNE=1`` until the driver converges:
+   each window's threshold, lowering, wire, score and device ms per step
+   (CUDA events), every timed step a replay, B1 exactly twice per bucket
+   per replay of each variant, graphs held while exploring (at most
+   ``MAX_GRAPHS``) and after the drop (1) with the reserved memory
+   before and after it, and the frozen variant's captured step bitwise
+   with a fresh step at ``HVD_TPU_FUSION_THRESHOLD`` of the frozen
+   threshold from the same state over three batches; then
+   ``ScheduleTuner`` with ``HVD_TPU_TUNE_DB`` in a temporary directory:
+   the first tuner explores and stores, a second hits
+   (``sched.tune.db_hit`` 1, converged at window 0), each window's
+   registry score beside its device time.  On four cards
+   (``--only tune``) four NCCL ranks instead: the autotuned step with
+   the int8 probe (exact B3-B7 launches per replay, replicas bitwise),
+   ``HVD_TPU_HIERARCHICAL_ALLREDUCE`` Sum and Average of 16,489,448
+   float32 on ``HVD_TPU_TOPO=2x2`` bitwise with flat, the measured cost
+   model's fit beside CUDA-event times, a ``topo.dcn_phase`` fault plan
+   (capture refused, fired on rank 1 only) and ``metric_average``.
+12. result: the card line, the kernels JSON line (each kernel with its
    launches on every path, ``paths``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -265,8 +285,9 @@ that need more than one card, for a run on several), then the
 four-rank worlds of slice moe, slice pipeline, slice fsdp and slice topo; ``--only
 sets``, ``hybrid``, ``moe`` (world one and the meshes), ``pipeline``,
 ``fsdp``, ``remat`` and ``topo`` phases 1, 2 and that phase (``topo``
-is also among ``--only ring``'s four-rank worlds), ``--only kernel``
-phases 1 to 3; none prints a kernels line.
+is also among ``--only ring``'s four-rank worlds), ``--only tune``
+phases 1, 2 and 11 (its four-rank world with four cards or more),
+``--only kernel`` phases 1 to 3; none prints a kernels line.
 """
 
 import argparse
@@ -3422,7 +3443,8 @@ def mesh_worker(args) -> None:
              size=args.mesh_size, backend=args.mesh_backend)
     try:
         rec = {"moe": moe_mesh_worker, "pipeline": pipeline_worker,
-               "fsdp": fsdp_worker, "topo": topo_worker}[args.mesh_kind](hvd)
+               "fsdp": fsdp_worker, "topo": topo_worker,
+               "tune": tune_worker}[args.mesh_kind](hvd)
         every = [None] * args.mesh_size  # every rank fails together, none waits on another
         dist.all_gather_object(every, rec.pop("problems", []))
         if any(every):
@@ -4418,15 +4440,593 @@ def print_topo(rec, card) -> None:
     print(f"phase slice topo: {rec['wall_s']:.0f} s with start-up", flush=True)
 
 
+# Phase slice tune: the autotune driver's sub-knobs at world 1, and the
+# timed steps of each ScheduleTuner window.
+TUNE_SAMPLES, TUNE_WINDOW = 4, 5
+TUNE_STORE_WINDOWS, TUNE_STORE_STEPS = 3, 5
+TUNE_CHECK_STEPS = 3
+# Four ranks: the autotune sub-knobs of the int8 probe run (window steps,
+# threshold samples), the hierarchical buffer (ResNet-50's largest bf16
+# bucket, float32 elements), the fit's payload sizes in bytes and calls per
+# size, and the fault's delay.
+TUNE_WORLD_SAMPLES, TUNE_WORLD_WINDOW = 3, 4
+TUNE_HIER_ELEMS = 16489448
+TUNE_FIT_SIZES = [1 << 16, 1 << 18, 1 << 20, 1 << 21, 1 << 22, 1 << 23, 1 << 24, 1 << 26]
+TUNE_FIT_CALLS = 5
+TUNE_FAULT_SECS = 0.25
+
+
+def tune_env(samples, window, **extra) -> dict:
+    """Set the knobs of an autotuned run; returns what they were."""
+    knobs = {"HVD_TPU_AUTOTUNE": "1", "HVD_TPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": str(samples),
+             "HVD_TPU_AUTOTUNE_WINDOW": str(window), "HVD_TPU_ONESTEP": "auto", **extra}
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    return old
+
+
+def restore_env(old) -> None:
+    for k, v in old.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def tuned_run(step, batches, counters, max_calls, on_card):
+    """Call the autotuned ``step`` until its driver converges, recording
+    per call: the variant it ran, whether it was settled (a replay, or
+    any eager step), the graphs held, each kernel's launches, and on a
+    card its device ms (CUDA events)."""
+    import torch
+    from horovod_tpu_torch import metrics
+
+    at = step.autotune
+    calls = []
+    for i in range(max_calls):
+        if at.converged:
+            break
+        variant = (at.threshold_bytes(), at.hierarchical(), at.quantized())
+        before = {k: c.launches for k, c in counters.items()}
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+        loss = step(batches[i % len(batches)])
+        if on_card:
+            end.record()
+        graph = None
+        for sig, g in step._graphs.items():
+            if sig[0] == variant:
+                graph = g
+        calls.append({"variant": variant, "settled": step.last_settled,
+                      "engaged": metrics.get_gauge("sched.onestep.engaged", {"mode": "auto"}),
+                      "graphs": step.graphs, "buckets": graph.buckets if graph else None,
+                      "launches": {k: c.launches - before[k] for k, c in counters.items()},
+                      "events": (start, end) if on_card else None, "loss": loss})
+    if not at.converged:
+        fail(f"slice tune: the autotune driver did not converge in {max_calls} calls")
+    if on_card:
+        torch.cuda.synchronize()
+    for c in calls:
+        c["loss"] = float(c["loss"])
+        ev = c.pop("events")
+        c["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+    return calls
+
+
+def tune_windows(at, calls):
+    """Each closed window with the device ms per step of the calls it
+    timed, and whether every one of them was a replay."""
+    out = []
+    for w in at.windows:
+        first, last = w["calls"]
+        timed = calls[first - 1:last]
+        ms = [c["device_ms"] for c in timed if c["device_ms"] is not None]
+        out.append({"threshold": w["threshold"],
+                    "lowering": "hier" if w["hierarchical"] else "flat",
+                    "wire": "int8" if w["quantized"] else "fp",
+                    "score": w["score"], "host_ms": w["seconds"] / w["timed_steps"] * 1e3,
+                    "device_ms": sum(ms) / len(ms) if ms else None,
+                    "replays": all(c["settled"] and c["engaged"] == 1.0 for c in timed),
+                    "timed": len(timed)})
+    return out
+
+
+def fmt_tune_windows(windows) -> str:
+    return "; ".join(
+        f"{w['threshold']} B {w['lowering']} {w['wire']}: {w['score']:.3f} steps/s "
+        f"(host {w['host_ms']:.2f} ms"
+        + (f", device {w['device_ms']:.2f} ms" if w["device_ms"] is not None else "")
+        + f" per step, {w['timed']} steps, "
+        + ("all replays)" if w["replays"] else "not all replays)") for w in windows)
+
+
+def tune_phase(hvd, tresnet, counters, card, log):
+    """Phase slice tune at world one: ResNet-50 under ``HVD_TPU_AUTOTUNE=1``
+    on the bf16 wire, until the driver converges; the frozen variant's
+    captured step against a fresh ``TrainStep`` at its threshold; then
+    ``ScheduleTuner`` exploring and storing, and a second tuner hitting
+    the store; and the native core's plan."""
+    import copy
+    import tempfile
+
+    import torch
+    from horovod_tpu_torch import metrics, native
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP, MAX_GRAPHS
+    from horovod_tpu_torch.sched import tune as stune
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("slice tune: the native core did not build (native.available() is False)")
+    meta = tresnet.ResNet50(num_classes=1000, device="meta")
+    sizes = [p.numel() * 4 for p in meta.parameters()][::-1]
+    for thr in (1 << 16, 1 << 22, 64 << 20):
+        planned = native.fusion_plan(sizes, [0] * len(sizes), thr)
+        if planned is None or fusion.bucket_plan(sizes, ["float32"] * len(sizes),
+                                                 thr) != planned:
+            fail(f"slice tune: bucket_plan of the ResNet-50 gradients at {thr} B did not "
+                 f"take the native plan")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batches = [(torch.rand(32, 224, 224, 3, generator=g, device="cuda"),
+                torch.randint(0, 1000, (32,), generator=g, device="cuda"))
+               for _ in range(TUNE_CHECK_STEPS)]
+    old = tune_env(TUNE_SAMPLES, TUNE_WINDOW, HVD_TPU_SCHED_WIRE="bf16")
+    rec = {}
+    hvd.init("cuda")
+    try:
+        dev = hvd.device()
+        model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device=dev)
+        step, opt = build_dp_step(hvd, model)
+        at = step.autotune
+        if at is None:
+            fail("slice tune: HVD_TPU_AUTOTUNE=1 built no autotune driver")
+        for c in counters.values():
+            c.launches = 0
+        calls = tuned_run(step, batches, counters, 120, True)
+        rec["launches"] = {k: c.launches for k, c in counters.items()}
+        windows = tune_windows(at, calls)
+        frozen = (at.threshold_bytes(), at.hierarchical(), at.quantized())
+        explored = max(c["graphs"] for c in calls)
+        reserved_before = torch.cuda.memory_reserved()
+        graphs_before = step.graphs
+        step(batches[0])  # drops the losing variants' graphs
+        torch.cuda.synchronize()
+        reserved_after = torch.cuda.memory_reserved()
+        if explored > MAX_GRAPHS or step.graphs != 1:
+            fail(f"slice tune: {explored} graphs held while exploring (limit {MAX_GRAPHS}), "
+                 f"{step.graphs} after convergence (want 1)")
+        if not all(w["replays"] for w in windows):
+            fail(f"slice tune: a window timed a step that was not a replay: {windows}")
+        b1 = {}
+        for c in calls:
+            if c["settled"] and c["engaged"] == 1.0:
+                want = 2 * c["buckets"]
+                if c["launches"]["scale_cast"] != want:
+                    fail(f"slice tune: variant {c['variant']}: {c['launches']['scale_cast']} "
+                         f"B1 launches in a replay, want 2 x {c['buckets']} buckets")
+                b1[c["variant"][0]] = (c["launches"]["scale_cast"], c["buckets"])
+        # The frozen variant's captured step against a fresh step at its
+        # threshold, from the same state, on the same batches.
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        opt_state = copy.deepcopy(opt.state_dict())
+        tuned = [float(step(b)) for b in batches]
+        tuned_digest = state_digest(model)
+        if step.graphs != 1 or not step.last_settled:
+            fail("slice tune: the converged step did not replay its one graph")
+        del step, opt
+        restore_env(old)
+        os.environ["HVD_TPU_FUSION_THRESHOLD"] = str(frozen[0])
+        os.environ["HVD_TPU_ONESTEP"] = "auto"
+        os.environ["HVD_TPU_SCHED_WIRE"] = "bf16"
+        fresh_model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                                       device=dev)
+        fresh_model.load_state_dict(state)
+        fresh_step, fresh_opt = build_dp_step(hvd, fresh_model)
+        fresh_opt.load_state_dict(opt_state)
+        fresh = [float(fresh_step(b)) for b in batches]
+        if fresh != tuned or state_digest(fresh_model) != tuned_digest:
+            fail(f"slice tune: the frozen variant's captured step is not bitwise with a "
+                 f"fresh step at HVD_TPU_FUSION_THRESHOLD={frozen[0]}: losses {tuned} "
+                 f"against {fresh}")
+        del fresh_step, fresh_opt, fresh_model, model
+        os.environ.pop("HVD_TPU_FUSION_THRESHOLD")
+        torch.cuda.empty_cache()
+        rec.update(windows=windows, frozen=list(frozen), explored_graphs=explored,
+                   graphs_before=graphs_before, reserved_before=reserved_before,
+                   reserved_after=reserved_after, b1_per_variant=b1, tuned_losses=tuned,
+                   calls=len(calls))
+        rec["store"] = tune_store(hvd, tresnet, build_dp_step, stune, metrics,
+                                  batches[0], tempfile, CAPTURE_WARMUP)
+    finally:
+        restore_env(old)
+        os.environ["HVD_TPU_ONESTEP"] = "off"
+        for k in ("HVD_TPU_SCHED_BUCKET_BYTES", "HVD_TPU_TUNE_DB", "HVD_TPU_SCHED_WIRE",
+                  "HVD_TPU_FUSION_THRESHOLD"):
+            os.environ.pop(k, None)
+        hvd.shutdown()
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"phase slice tune: native core built (native.available() True), bucket_plan of "
+          f"the ResNet-50 gradients took the native plan", flush=True)
+    print(f"phase slice tune: ResNet-50 224x224 batch 32 bf16 wire, world 1, "
+          f"HVD_TPU_AUTOTUNE=1 (BAYES_OPT_MAX_SAMPLES {TUNE_SAMPLES}, WINDOW {TUNE_WINDOW}): "
+          f"windows {fmt_tune_windows(rec['windows'])} on {card}", flush=True)
+    print(f"phase slice tune: converged after {rec['calls']} calls to threshold "
+          f"{rec['frozen'][0]} B, lowering {'hier' if rec['frozen'][1] else 'flat'}, wire "
+          f"{'int8' if rec['frozen'][2] else 'fp'}; every timed step a replay; graphs held "
+          f"{rec['explored_graphs']} at most while exploring (limit {MAX_GRAPHS}), "
+          f"{rec['graphs_before']} at convergence, 1 after the drop; reserved memory "
+          f"{rec['reserved_before'] / 2 ** 30:.2f} GiB before the drop, "
+          f"{rec['reserved_after'] / 2 ** 30:.2f} GiB after; B1 launches per replay "
+          f"(= 2 x buckets) by threshold "
+          + ", ".join(f"{k}: {v[0]} ({v[1]} buckets)" for k, v in rec["b1_per_variant"].items())
+          + f"; the frozen variant's captured step bitwise with a fresh step at "
+          f"HVD_TPU_FUSION_THRESHOLD={rec['frozen'][0]} over {TUNE_CHECK_STEPS} steps "
+          f"(losses {[round(v, 5) for v in rec['tuned_losses']]})", flush=True)
+    s = rec["store"]
+    print(f"phase slice tune: ScheduleTuner with HVD_TPU_TUNE_DB: first run "
+          f"{len(s['windows'])} windows, stored bucket_bytes {s['stored']} "
+          f"(sched.tune.db_miss {s['first']['db_miss']}, db_store {s['first']['db_store']}); "
+          f"second tuner: sched.tune.db_hit {s['second']['db_hit']}, converged at window 0, "
+          f"no exploration window; window_score (host dispatch, train.step_seconds) against "
+          f"the synchronized window: "
+          + "; ".join(f"{w['bucket_bytes']} B: score {w['score']:.4g} "
+                      f"(host {w['host_ms']:.2f} ms, device {w['device_ms']:.2f} ms per step)"
+                      for w in s["windows"] + [s["hit_window"]])
+          + f" on {card}", flush=True)
+    print(f"phase slice tune: {rec['wall_s']:.0f} s", flush=True)
+    log["tune"] = rec
+    return rec
+
+
+def tune_store(hvd, tresnet, build_dp_step, stune, metrics, batch, tempfile, warmup):
+    """``ScheduleTuner`` over the ResNet-50 step with ``HVD_TPU_TUNE_DB``
+    in a temporary directory: the first tuner explores and stores, a
+    second with the same signature hits and converges at window 0.  Each
+    window: the bucket size set (``HVD_TPU_SCHED_BUCKET_BYTES``), the new
+    plan's warm-up steps and capture, then the timed replays, scored
+    from the registry (``train.step_seconds``, host dispatch) beside
+    CUDA events around them."""
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="tune_db_")
+    os.environ["HVD_TPU_TUNE_DB"] = os.path.join(tmp, "db.json")
+    os.environ["HVD_TPU_ONESTEP"] = "auto"
+    os.environ["HVD_TPU_SCHED_WIRE"] = "bf16"
+    model = tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                             device=hvd.device())
+    step, opt = build_dp_step(hvd, model)
+    step(batch)
+    sig = opt.schedule.signature()
+
+    def window(bucket_bytes, tuner):
+        os.environ["HVD_TPU_SCHED_BUCKET_BYTES"] = str(bucket_bytes)
+        for _ in range(warmup + 1):
+            step(batch)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if tuner is not None:
+            tuner.begin_window()
+        view = stune.registry_view()
+        start.record()
+        for _ in range(TUNE_STORE_STEPS):
+            step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        after = stune.registry_view()
+        score = tuner.end_window() if tuner is not None else stune.window_score(view, after)
+        return {"bucket_bytes": bucket_bytes, "score": score,
+                "host_ms": (after["step_seconds_sum"] - view["step_seconds_sum"])
+                / TUNE_STORE_STEPS * 1e3,
+                "device_ms": start.elapsed_time(end) / TUNE_STORE_STEPS}
+
+    metrics.reset("sched.tune")
+    first = stune.ScheduleTuner(store_key=sig, warmup_windows=TUNE_STORE_WINDOWS)
+    windows = []
+    while not first.converged:
+        windows.append(window(first.bucket_bytes(), first))
+    counts_first = {k: metrics.get_counter(f"sched.tune.{k}")
+                    for k in ("db_miss", "db_store", "db_hit")}
+    # The knob fingerprint folds in HVD_TPU_SCHED_*: the second tuner is
+    # made, as the first was, before the bucket size is set.
+    os.environ.pop("HVD_TPU_SCHED_BUCKET_BYTES")
+    second = stune.ScheduleTuner(store_key=sig, warmup_windows=TUNE_STORE_WINDOWS)
+    counts_second = {k: metrics.get_counter(f"sched.tune.{k}") - counts_first[k]
+                     for k in ("db_miss", "db_store", "db_hit")}
+    if not second.converged or counts_second["db_hit"] != 1 or counts_first["db_store"] != 1:
+        fail(f"slice tune: the second ScheduleTuner did not hit the store: converged "
+             f"{second.converged}, counters {counts_first} then {counts_second}")
+    if second.bucket_bytes() != first.bucket_bytes():
+        fail(f"slice tune: the store hit gave {second.bucket_bytes()}, the first run "
+             f"stored {first.bucket_bytes()}")
+    hit = window(second.bucket_bytes(), None)
+    del step, opt, model
+    os.environ.pop("HVD_TPU_SCHED_BUCKET_BYTES", None)
+    torch.cuda.empty_cache()
+    return {"windows": windows, "stored": first.bucket_bytes(), "first": counts_first,
+            "second": counts_second, "hit_window": hit,
+            "warm_start": metrics.get_gauge("sched.tune.warm_start")}
+
+
+def tune_worker(hvd) -> dict:
+    """Phase slice tune on each of four ranks: the autotuned ResNet-50
+    step with the int8 probe (``HVD_TPU_AUTOTUNE_EXPLORE_QUANTIZED=1``),
+    then the hierarchical Sum and Average against flat on a 2x2 grid
+    (``HVD_TPU_TOPO=2x2``), the measured cost model, a fault plan on the
+    hierarchical step, and ``metric_average``.  Off the card (a
+    rehearsal) the sizes are cut: a narrow ResNet at 32x32, batch 2,
+    float32, 65,543 hierarchical elements, the fit's sizes up to 1 MiB."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import faults, metrics, native
+    from horovod_tpu_torch.models import resnet as tresnet
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.optim.distributed_optimizer import CAPTURE_WARMUP
+    from horovod_tpu_torch.topo import fit
+    from horovod_tpu_torch.topo import model as topo_model
+    from horovod_tpu_torch.utils.benchmarks import build_dp_step
+
+    dev, n, rank = hvd.device(), hvd.size(), hvd.rank()
+    on_card = dev.type == "cuda"
+    counters = mesh_kernels()
+    problems, rec = [], {"native": native.available()}
+    if not native.available():
+        problems.append("the native core did not build")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def resnet():
+        if on_card:
+            return tresnet.ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0, device=dev)
+        return tresnet.ResNet([1, 1, 1, 1], num_classes=10, num_filters=8,
+                              dtype=torch.float32, seed=0, device=dev)
+
+    g = torch.Generator(device=dev).manual_seed(7 + rank)
+    shape, classes = ((SET_BATCH, 224, 224, 3), 1000) if on_card else ((2, 32, 32, 3), 10)
+    batches = [(torch.rand(shape, generator=g, device=dev),
+                torch.randint(0, classes, (shape[0],), generator=g, device=dev))
+               for _ in range(3)]
+
+    # 1. The autotuned step with the int8 probe: explored, then frozen at
+    # the first threshold the search suggests (64 KiB: buckets under the
+    # ring's cap).  Each int8 replay launches B6/B7 once per bucket the
+    # ring serves and B3 twice, B4 and B5 once per bucket past its cap.
+    runs = []
+    for samples in (TUNE_WORLD_SAMPLES, 1):
+        old = tune_env(samples, TUNE_WORLD_WINDOW, HVD_TPU_SCHED_WIRE="bf16",
+                       HVD_TPU_AUTOTUNE_EXPLORE_QUANTIZED="1",
+                       HVD_TPU_AUTOTUNE_HIER_WINDOWS="1", HVD_TPU_QUANT_BACKEND="fused")
+        try:
+            model = resnet()
+            step, opt = build_dp_step(hvd, model)
+            for c in counters.values():
+                c.launches = 0
+            calls = tuned_run(step, batches, counters, 80, on_card)
+            at = step.autotune
+            run = {"samples": samples, "windows": tune_windows(at, calls),
+                   "frozen": [at.threshold_bytes(), at.hierarchical(), at.quantized()],
+                   "int8_calls": sum(1 for c in calls if c["variant"][2]),
+                   "int8_launches": {}}
+            for c in calls:
+                if not (c["variant"][2] and c["settled"] and c["engaged"] == 1.0):
+                    continue
+                got = {k: c["launches"][k] for k in ("quant_pack", "dequant_accum",
+                                                     "dequant_rows", "rs_ring", "ag_ring")}
+                ring, rest = got["rs_ring"], c["buckets"] - got["rs_ring"]
+                want = {"quant_pack": 2 * rest, "dequant_accum": rest, "dequant_rows": rest,
+                        "rs_ring": ring, "ag_ring": ring}
+                if got != want:
+                    problems.append(f"int8 probe replay: launches {got}, want {want} "
+                                    f"({c['buckets']} buckets)")
+                run["int8_launches"] = dict(got, buckets=c["buckets"])
+            if not run["int8_calls"]:
+                problems.append("the int8 probe never ran")
+            elif on_card and not run["int8_launches"]:
+                problems.append("the int8 probe was never replayed")
+            step(batches[0])
+            sync()
+            every = [None] * n
+            dist.all_gather_object(every, state_digest(model))
+            if len(set(every)) != 1:
+                problems.append("the replicas differ after convergence")
+            run["graphs_after"] = step.graphs
+            runs.append(run)
+            del step, opt, model
+        finally:
+            restore_env(old)
+            os.environ["HVD_TPU_ONESTEP"] = "off"
+        if on_card:
+            torch.cuda.empty_cache()
+    rec["runs"] = runs
+    launched = {k for r in runs for k, v in r["int8_launches"].items() if v and k != "buckets"}
+    rec["int8_kernels"] = sorted(launched)
+    if on_card and not {"rs_ring", "ag_ring"} <= launched:
+        problems.append(f"the int8 probe at 64 KiB did not take the ring: {runs[-1]}")
+
+    # 2. The hierarchical Sum and Average against flat on the 2x2 grid.
+    os.environ["HVD_TPU_TOPO"] = TOPO_SPEC
+    topo_model.reset()
+    elems = TUNE_HIER_ELEMS if on_card else 65543
+    x = (torch.randint(-64, 65, (elems,), generator=torch.Generator().manual_seed(
+        900 + rank)) / 8).float().to(dev)
+    rec["hier"] = {"elems": elems, "grid": [list(map(list, collectives.host_groups()[0])),
+                                            list(map(list, collectives.host_groups()[1]))]}
+    for op, name in ((hvd.Sum, "sum"), (hvd.Average, "avg")):
+        flat = hvd.allreduce(x, op=op)
+        os.environ["HVD_TPU_HIERARCHICAL_ALLREDUCE"] = "1"
+        hier = hvd.allreduce(x, op=op)
+        sync()
+        if hashlib_digest(hier) != hashlib_digest(flat):
+            problems.append(f"hierarchical {name} differs from flat")
+        rec["hier"][name + "_ms"] = timed_collective(lambda: hvd.allreduce(x, op=op)) \
+            if on_card else None
+        os.environ.pop("HVD_TPU_HIERARCHICAL_ALLREDUCE")
+        rec["hier"][name + "_flat_ms"] = timed_collective(lambda: hvd.allreduce(x, op=op)) \
+            if on_card else None
+    del x
+
+    # 4. A fault plan arming the cross-domain hop, on every rank; it fires
+    # on rank 1 only.  The step on the hier lowering does not capture.
+    faults.set_plan(f"topo.dcn_phase:slow:rank=1,secs={TUNE_FAULT_SECS},times=0")
+    os.environ["HVD_TPU_ONESTEP"] = "auto"
+    metrics.reset("faults.")
+    small = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.ReLU(),
+                                torch.nn.Linear(64, 10)).to(dev)
+    fstep, _ = build_dp_step(hvd, small, lowering="hier")
+    rec["fault_blocker"] = fstep.blocker()
+    data = (torch.rand(8, 64, device=dev), torch.randint(0, 10, (8,), device=dev))
+    for _ in range(CAPTURE_WARMUP + 1):
+        fstep(data)
+    sync()
+    rec["fault_engaged"] = metrics.get_gauge("sched.onestep.engaged", {"mode": "auto"})
+    y = torch.ones(1 << 16, device=dev)
+    sync()
+    dist.barrier()
+    t = time.perf_counter()
+    collectives.allreduce_(y, hvd.Sum, hierarchical=True)
+    rec["fault_host_ms"] = (time.perf_counter() - t) * 1e3
+    sync()
+    rec["fault_fired"] = metrics.get_counter("faults.injected.topo.dcn_phase.slow")
+    faults.set_plan(None)
+    os.environ["HVD_TPU_ONESTEP"] = "off"
+    every = [None] * n
+    dist.all_gather_object(every, [rec["fault_fired"], rec["fault_host_ms"]])
+    rec["fault_fired_by_rank"] = [v[0] for v in every]
+    rec["fault_host_ms_by_rank"] = [v[1] for v in every]
+    every = rec["fault_fired_by_rank"]
+    if not (rec["fault_blocker"] or "").startswith("fault_plan") and (
+            dist.get_backend() == "nccl" or rec["fault_blocker"] is None):
+        problems.append(f"the fault plan did not block the capture: {rec['fault_blocker']}")
+    if rec["fault_engaged"] != 0.0:
+        problems.append("the step under the fault plan ran captured")
+    if [bool(v) for v in every] != [r == 1 for r in range(n)]:
+        problems.append(f"the fault fired on ranks {every}, want rank 1 only")
+    os.environ.pop("HVD_TPU_TOPO")
+    topo_model.reset()
+
+    # 3. The measured cost model on the flat world (one NVLink domain).
+    metrics.reset(fit.OBS_PREFIX)
+    fit.reset()
+    sizes = TUNE_FIT_SIZES if on_card else [s for s in TUNE_FIT_SIZES if s <= 1 << 20]
+    device_ms = {}
+    for nbytes in sizes:
+        t = torch.ones(nbytes // 4, device=dev)
+        for op in ("all_reduce", "reduce_scatter", "all_gather"):
+            call = {"all_reduce": lambda: hvd.allreduce(t, op=hvd.Sum),
+                    "reduce_scatter": lambda: hvd.reducescatter(t, op=hvd.Sum),
+                    "all_gather": lambda: hvd.allgather(t)}[op]
+            call()  # a first call makes the communicator's buffers
+            sync()
+            ms = []
+            for _ in range(TUNE_FIT_CALLS):
+                if on_card:
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    a.record()
+                    call()
+                    b.record()
+                    ms.append((a, b))
+                else:
+                    call()
+            sync()
+            device_ms[f"{op}|{nbytes}"] = (sorted(a.elapsed_time(b) for a, b in ms)
+                                           [len(ms) // 2] if ms else None)
+    cells = fit.observed_cells()
+    fp = fit.refresh(force=True)
+    rec["fit"] = {
+        "cells": [[c.collective, c.axis_size, c.mean_nbytes, c.p50_s * 1e3, c.count]
+                  for c in cells],
+        "device_ms": device_ms,
+        "fitted": None if fp is None else {**fp.as_dict(), "fields": list(fp.fitted_fields),
+                                           "n_cells": fp.n_cells},
+        "static": [getattr(topo_model.current(), f) for f in (
+            "phase_overhead_s", "ici_latency_s", "dcn_latency_s", "ici_gbps", "dcn_gbps")],
+    }
+    if len(cells) != 3 * len(sizes):
+        problems.append(f"the fit saw {len(cells)} cells, want {3 * len(sizes)}")
+
+    # 5. metric_average over the world and over {0, 1}.
+    os.environ["HVD_TPU_DYNAMIC_PROCESS_SETS"] = "1"
+    pair = hvd.add_process_set(hvd.ProcessSet([0, 1]))
+    value = {"a": rank + 1.0, "b": [2.0 ** -rank]}
+    rec["avg_world"] = metrics.metric_average(value)
+    rec["avg_pair"] = metrics.metric_average(value, pair)
+    want_world = {"a": float(np.mean([r + 1.0 for r in range(n)])),
+                  "b": [float(np.mean([2.0 ** -r for r in range(n)]))]}
+    want_pair = ({"a": 1.5, "b": [0.75]} if rank in (0, 1) else value)
+    if rec["avg_world"] != want_world or rec["avg_pair"] != want_pair:
+        problems.append(f"metric_average: world {rec['avg_world']} (want {want_world}), "
+                        f"pair {rec['avg_pair']} (want {want_pair})")
+    every = [None] * n
+    dist.all_gather_object(every, rec["avg_pair"])
+    rec["avg_pair_by_rank"] = every
+    hvd.remove_process_set(pair)
+    os.environ.pop("HVD_TPU_DYNAMIC_PROCESS_SETS")
+    rec["problems"] = problems
+    return rec
+
+
+def print_tune_world(rec, card) -> None:
+    """The lines of the four-rank slice tune (rank 0's record)."""
+    for r in rec["runs"]:
+        fz = r["frozen"]
+        print(f"phase slice tune world: {rec['layout']}; native core built "
+              f"{rec['native']}; autotuned ResNet-50 with the int8 probe "
+              f"(HVD_TPU_AUTOTUNE_EXPLORE_QUANTIZED=1, BAYES_OPT_MAX_SAMPLES {r['samples']}): "
+              f"windows {fmt_tune_windows(r['windows'])}; frozen threshold {fz[0]} B, "
+              f"lowering {'hier' if fz[1] else 'flat'}, wire {'int8' if fz[2] else 'fp'}; the "
+              f"int8 probe ran {r['int8_calls']} calls, per replay {r['int8_launches']} (= "
+              f"expected: B6/B7 once per ring bucket, B3 twice and B4, B5 once per bucket "
+              f"past the ring's cap); replicas bitwise after convergence, "
+              f"{r['graphs_after']} graph held; on {card}", flush=True)
+    print(f"phase slice tune world: kernels the int8 probes launched: "
+          f"{rec['int8_kernels']}", flush=True)
+    h = rec["hier"]
+    ms = (f"; ms per call (host clock, synchronized): sum hier {h['sum_ms']:.3f} flat "
+          f"{h['sum_flat_ms']:.3f}, avg hier {h['avg_ms']:.3f} flat {h['avg_flat_ms']:.3f} "
+          f"on {card}" if h.get("sum_ms") is not None else "")
+    print(f"phase slice tune world: HVD_TPU_HIERARCHICAL_ALLREDUCE=1 on the grid "
+          f"{h['grid'][0]} (HVD_TPU_TOPO={TOPO_SPEC}): Sum and Average of {h['elems']} "
+          f"dyadic float32 elements bitwise with flat{ms}", flush=True)
+    f = rec["fit"]
+    cells = "; ".join(
+        f"{c[0]} {int(c[2])} B: dispatch p50 {c[3]:.4f} ms, device "
+        + (f"{f['device_ms'][c[0] + '|' + str(int(c[2]))]:.4f} ms"
+           if f["device_ms"].get(c[0] + "|" + str(int(c[2]))) is not None else "not measured")
+        for c in f["cells"])
+    fitted = ("none (not solvable)" if f["fitted"] is None else
+              ", ".join(f"{k} {v:.4g}" for k, v in f["fitted"].items()
+                        if k not in ("fields", "n_cells"))
+              + f" (fitted {f['fitted']['fields']} from {f['fitted']['n_cells']} cells)")
+    print(f"phase slice tune world: measured cost model (HVD_TPU_TOPO_FIT on, flat world "
+          f"of 4): {cells}; fit.refresh(force=True): {fitted}; static "
+          f"{f['static']} on {card}", flush=True)
+    print(f"phase slice tune world: fault plan topo.dcn_phase:slow:rank=1,"
+          f"secs={TUNE_FAULT_SECS} on every rank: capture_blocker: {rec['fault_blocker']}; "
+          f"the step ran eagerly; fired per rank {rec['fault_fired_by_rank']}; one "
+          f"hierarchical call's host ms per rank (no synchronize) "
+          f"{[round(v, 2) for v in rec['fault_host_ms_by_rank']]}", flush=True)
+    print(f"phase slice tune world: metric_average over the world {rec['avg_world']}, "
+          f"over {{0, 1}} per rank {rec['avg_pair_by_rank']}", flush=True)
+    print(f"phase slice tune world: {rec['wall_s']:.0f} s with start-up", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here as JSON")
     ap.add_argument("--only", choices=["ring", "kernel", "sets", "hybrid", "moe", "pipeline",
-                                       "fsdp", "remat", "topo"],
+                                       "fsdp", "remat", "topo", "tune"],
                     help="ring: only the phases that need more than one card; "
                          "kernel: only the kernels against their plain versions; "
-                         "sets, hybrid, moe, pipeline, fsdp, remat, topo: only that phase "
-                         "(remat: phase slice gpt's remat runs)")
+                         "sets, hybrid, moe, pipeline, fsdp, remat, topo, tune: only that "
+                         "phase (remat: phase slice gpt's remat runs; tune: at world one "
+                         "on one card, its four-rank world on four)")
     for name, kind in (("rank", int), ("size", int), ("backend", str), ("store", str),
                        ("out", str)):
         for worker in ("ring", "sets", "hybrid", "mesh"):
@@ -4531,6 +5131,13 @@ def main() -> None:
                 "flash_fwd": flash.flash_forward,
                 "flash_fwd_wgmma": flash.flash_forward_wgmma,
                 "flash_fwd_mma": flash.flash_forward_mma}
+    if args.only == "tune":
+        if count >= MESH_WORLD:
+            mesh_phases(card, count, log, ["tune"])
+        else:
+            tune_phase(hvd, tresnet, counters, card, log)
+        finish(args, log, card, kind, count, [])
+        return
     if args.only in ("ring", "sets", "hybrid", "moe", "pipeline", "fsdp", "remat", "topo"):
         if args.only == "ring":
             ring_slice_phase(card, count, log)
@@ -4622,8 +5229,10 @@ def main() -> None:
     log["reference_gpt"] = reference_gpt_phase(hvd, tt, build_lm_step)
     torch.cuda.empty_cache()
     log["examples"] = examples_phase(root, card)
+    torch.cuda.empty_cache()
+    tune = tune_phase(hvd, tresnet, counters, card, log)
 
-    log["paths"] = path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes)
+    log["paths"] = path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes, tune)
     entries = [("scale_cast", "scale_cast.cu", record, runs["bf16"])]
     entries += [(k, "quant.cu", qrecords[k], runs["int8"])
                 for k in ("quant_pack", "dequant_accum", "dequant_rows")]
@@ -4636,7 +5245,7 @@ def mesh_phases(card, count, log, kinds) -> dict:
     """Phase slice moe's meshes, slice pipeline and slice fsdp (those in
     ``kinds``), each in a world of ``MESH_WORLD`` ranks."""
     printers = {"moe": print_moe_meshes, "pipeline": print_pipeline, "fsdp": print_fsdp,
-                "topo": print_topo}
+                "topo": print_topo, "tune": print_tune_world}
     out = {}
     for k in kinds:
         out[k] = world_phase(k, card, count)
@@ -4645,7 +5254,7 @@ def mesh_phases(card, count, log, kinds) -> dict:
     return out
 
 
-def path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes) -> dict:
+def path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes, tune) -> dict:
     """Each kernel's launches on each path of the main run (rank 0 where
     the path has several ranks), the counts set to 0 before each."""
     paths = {}
@@ -4675,6 +5284,7 @@ def path_launches(runs, ring_run, gpt_runs, remat, hybrid, moe, meshes) -> dict:
     for wire, r in meshes["topo"]["hier"].items():
         put(f"topo hier {wire} (one call)",
             {k: v for k, v in r["launches"].items() if k != "fallback"})
+    put("tune (autotuned bf16, to convergence)", tune["launches"])
     return paths
 
 

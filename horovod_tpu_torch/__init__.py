@@ -52,6 +52,15 @@ ZeRO-1 and FSDP (``optim/zero.py``): ``zero_train_step`` over a
 tensor parallelism, ring and Ulysses attention, the MoE layer over
 ``ep`` and the GPipe pipeline over ``pp``.
 
+Infrastructure and tuning (PR 16): ``metrics`` (counters, gauges,
+histograms, ``render_json``/``render_prometheus``, ``metric_average``),
+``events``, ``faults`` (``HVD_TPU_FAULT_PLAN``), ``utils.retry``,
+``topo.fit`` (the measured cost model), ``native`` (the C++ core, built
+with ``g++`` at first use), and ``HVD_TPU_AUTOTUNE=1``: ``TrainStep``
+tunes the fusion threshold, the hierarchical allreduce and the int8
+wire by itself (``utils.autotune``); ``sched.tune.ScheduleTuner`` with
+the persistent store of ``HVD_TPU_TUNE_DB`` (``sched.store``).
+
 Importing it imports neither JAX nor ``horovod_tpu``.
 """
 
@@ -95,6 +104,7 @@ from .ops.eager import (
     reducescatter_async,
     synchronize,
 )
+from .metrics import metric_average
 from .ops.sparse import sparse_allreduce, sparse_allreduce_eager
 from .optim.adasum_optimizer import DistributedAdasumOptimizer
 from .optim.distributed_optimizer import DistributedOptimizer, TrainStep
@@ -153,7 +163,7 @@ __all__ = [
     "get_process_set_ids", "global_process_set", "gloo_built", "gloo_enabled",
     "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",
     "grouped_allreduce_async_", "init", "is_homogeneous", "is_initialized",
-    "join", "local_rank", "local_size", "mpi_built", "mpi_enabled",
+    "join", "local_rank", "local_size", "metric_average", "mpi_built", "mpi_enabled",
     "mpi_threads_supported", "nccl_built", "poll", "rank", "reducescatter",
     "reducescatter_async", "remove_process_set", "rocm_built", "shutdown",
     "size", "sparse_allreduce", "sparse_allreduce_eager", "synchronize", "tpu_enabled",

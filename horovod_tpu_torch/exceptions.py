@@ -1,7 +1,8 @@
 """Framework exceptions.
 
 Counterpart of ``horovod_tpu/exceptions.py``, trimmed to what the
-data-parallel step and the quantized wire raise.
+data-parallel step, the quantized wire, fault injection
+(``faults.py``) and the retry policy (``utils/retry.py``) raise.
 """
 
 
@@ -17,7 +18,6 @@ class NotInitializedError(HorovodTpuError):
             f"{name} has not been initialized; call "
             "horovod_tpu_torch.init() first."
         )
-
 
 
 class QuantizedWireError(HorovodTpuError, ValueError):
@@ -46,3 +46,19 @@ class ProcessSetTilingError(QuantizedWireError):
             "replica_groups require an equal-size partition — use the "
             "dense/masked path for arbitrary subsets"
         )
+
+
+class FaultInjected(HorovodTpuError):
+    """Raised by ``faults.inject`` when an ``error``/``flake`` fault
+    fires at a call site: the scripted stand-in for a transient
+    infrastructure failure (``horovod_tpu/exceptions.py:72``)."""
+
+    def __init__(self, site: str, message: str = ""):
+        super().__init__(message or f"injected fault at {site!r}")
+        self.site = site
+
+
+class RetryTimeoutError(HorovodTpuError):
+    """A single attempt under ``utils.retry.RetryPolicy`` exceeded its
+    per-attempt timeout (the attempt may still be running in its worker
+    thread; the policy moves on and retries)."""

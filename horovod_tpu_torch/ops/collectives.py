@@ -12,6 +12,13 @@ tensor (NCCL on the card, gloo on the CPU).  Each may be started with
 ``async_op=True``, which returns a :class:`Pending` in place of the
 result; ``ops/eager.py`` builds the eager API's handles on it.
 
+``HVD_TPU_HIERARCHICAL_ALLREDUCE`` (or :func:`set_hierarchical_override`,
+which the autotune driver's second knob sets; ``:328-357``) stages a
+world Sum or Average as an intra-host reduce-scatter, a cross-host sum
+of the shard and an intra-host all-gather (:func:`_hierarchical_sum`,
+``:281``), on the host grid of :func:`host_groups`; anything that is not
+a full-world homogeneous grid stays flat.
+
 Average is SUM followed by a postscale of ``1/size``, as the reference
 rewrites it (``operations.cc:1396-1399``) and the JAX package keeps it:
 ``ReduceOp.AVG`` is never used, since gloo refuses it for a world above
@@ -47,6 +54,7 @@ import torch.distributed as dist
 
 from .. import runtime
 from ..process_sets import member_group, resolve
+from ..utils import env
 from . import kernels
 
 
@@ -67,6 +75,22 @@ Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 
 _DIST_OPS = {Sum: dist.ReduceOp.SUM, Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX}
+
+# The hierarchical allreduce a tuned step runs under (utils/autotune.py,
+# set by TrainStep around each call); None reads the knob.
+_hierarchical_override: Optional[bool] = None
+
+
+def set_hierarchical_override(value: Optional[bool]) -> None:
+    global _hierarchical_override
+    _hierarchical_override = value
+
+
+def hierarchical_enabled() -> bool:
+    """The override when set, else ``HVD_TPU_HIERARCHICAL_ALLREDUCE``."""
+    if _hierarchical_override is not None:
+        return bool(_hierarchical_override)
+    return env.get_bool(env.HIERARCHICAL_ALLREDUCE, False)
 # The newer names of all_gather_into_tensor and reduce_scatter_tensor,
 # where this torch has them (the older ones warn there).
 _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
@@ -130,6 +154,31 @@ def _product(rows: torch.Tensor) -> torch.Tensor:
     return acc.to(rows.dtype)
 
 
+def host_groups():
+    """``(local_groups, cross_groups)`` of the world's host grid, or None
+    (``traced.py:247``): each host's ranks and the i-th rank of every
+    host, when every host holds the same number of ranks; else the
+    domains of a multi-domain topology (``HVD_TPU_TOPO`` forces one on a
+    single host, as the Adasum schedule takes it, ``ops/adasum.py``)."""
+    from .adasum import _host_grid, _topo_slice_grid
+
+    return _host_grid() or _topo_slice_grid()
+
+
+def _hierarchical_sum(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """Two-stage sum over the world (``traced.py:281``; reference
+    ``NCCLHierarchicalAllreduce``, ``nccl_operations.cc:234``): the
+    topology's ``hierarchical_all_reduce`` (a reduce-scatter within each
+    host, a cross-host sum of the shards, an all-gather within each
+    host; ``topo/hierarchical.py``, on the groups its plan-time context
+    made).  None where there is no host grid (the caller sums flat)."""
+    if host_groups() is None:
+        return None
+    from ..topo import hierarchical
+
+    return hierarchical.hierarchical_all_reduce(x, op=Sum)
+
+
 def allreduce_(
     x: torch.Tensor,
     op: int = Average,
@@ -137,22 +186,30 @@ def allreduce_(
     postscale_factor: float = 1.0,
     async_op: bool = False,
     process_set=None,
+    hierarchical: Optional[bool] = None,
 ):
     """Allreduce over the world or ``process_set``; may reduce ``x`` in
     place.  Returns the result, which is ``x`` itself unless a scale or
     the op (Product, Adasum) produced a new tensor; ``x`` unchanged on a
     non-member.  Adasum scales, combines (``ops/adasum.py``
     ``adasum_allreduce``, which runs at once: an ``async_op`` gets a
-    finished :class:`Pending`) and scales again, with no average."""
+    finished :class:`Pending`) and scales again, with no average.
+    ``hierarchical`` (default :func:`hierarchical_enabled`) stages a
+    world Sum or Average on the host grid (:func:`_hierarchical_sum`;
+    it runs at once, so an ``async_op`` gets a finished :class:`Pending`)
+    and Adasum as its two-level schedule."""
     if op not in (Average, Sum, Adasum, Min, Max, Product):
         raise ValueError(f"unknown reduce op {op}")
+    if hierarchical is None:
+        hierarchical = hierarchical_enabled()
     group, ranks, member = member_group(resolve(process_set))
     if not member:
         return _run([], lambda: x, async_op)
     if op == Adasum:
         from .adasum import adasum_allreduce
 
-        y = adasum_allreduce(_scale(x, prescale_factor), process_set=process_set)
+        y = adasum_allreduce(_scale(x, prescale_factor), process_set=process_set,
+                             hierarchical=hierarchical)
         return _run([], lambda: _scale(y, postscale_factor), async_op)
     size = runtime.size() if ranks is None else len(ranks)
     x = _scale(x, prescale_factor)
@@ -164,6 +221,10 @@ def allreduce_(
         work = _all_gather(rows, x.reshape(-1), group=group, async_op=async_op)
         return _run([work], lambda: _scale(_product(rows.view((size,) + tuple(x.shape))),
                                            postscale_factor), async_op)
+    if op == Sum and hierarchical and ranks is None and size > 1:
+        y = _hierarchical_sum(x)
+        if y is not None:
+            return _run([], lambda: _scale(y, postscale_factor), async_op)
     work = dist.all_reduce(x, op=_DIST_OPS[op], group=group, async_op=async_op)
     return _run([work], lambda: _scale(x, postscale_factor), async_op)
 

@@ -20,10 +20,23 @@ module adds what the JAX eager layer adds around them:
   first), ``broadcast``, ``reducescatter``, ``alltoall`` (uneven splits:
   the counts are exchanged first), ``barrier`` and ``join``;
 - the counters ``collective.<op>.dispatches`` and ``collective.<op>.bytes``
-  (``_record`` ``:81-93``; this rank's bytes, where the JAX package's
-  single controller counts the stacked array's);
+  and the ``collective.<op>.bytes_hist`` histogram (``_record``
+  ``:81-93``; this rank's bytes, where the JAX package's single
+  controller counts the stacked array's);
+- ``collective.<op>.dispatch_seconds`` (``_timed`` ``:102-123``): the
+  host time of the call that issues the collective, as in the JAX
+  package.  On NCCL that call returns once the collective is queued on
+  the stream, so on a card it is the enqueue cost, not the transfer; on
+  gloo it includes the transfer.  The world's allreduce, grouped
+  allreduce, allgather and reducescatter also feed it, with this rank's
+  payload bytes, into the measured cost model's flat cells
+  (``topo/fit.py`` ``record_observation``), except while a CUDA graph
+  is being captured (a capture issues nothing);
 - the opt-in consistency check (``HVD_TPU_CONSISTENCY_CHECK``,
-  ``:136-241``) on its pure-Python record;
+  ``:136-241``): each rank's request is encoded with the native core's
+  wire codec (``native.encode_request``, ``cpp/src/wire.cc``) and the
+  coordinator's response with ``native.encode_response``, as in the JAX
+  package; the pure-Python record where the native core is not built;
 - the gradients of ``interop/_grads.py:57-168``: allreduce, allgather,
   broadcast, alltoall and grouped allreduce are differentiable when
   their input requires grad (``interop/torch.py:92-197``).
@@ -165,6 +178,37 @@ def _record(name: Optional[str], op: str, nbytes: int) -> None:
     key = op.lower()
     metrics.inc_counter(f"collective.{key}.dispatches")
     metrics.inc_counter(f"collective.{key}.bytes", int(nbytes))
+    metrics.observe(f"collective.{key}.bytes_hist", float(nbytes),
+                    buckets=metrics.BYTES_BUCKETS)
+
+
+# Eager ops whose dispatch times feed the measured cost model
+# (topo/fit.py), and their ring-model collective class.
+_FIT_OPS = {
+    "ALLREDUCE": "all_reduce",
+    "GROUPED_ALLREDUCE": "all_reduce",
+    "ALLGATHER": "all_gather",
+    "REDUCESCATTER": "reduce_scatter",
+}
+
+
+def _timed(op: str, dispatch, nbytes: int = 0):
+    """Run ``dispatch()`` and observe its host time in
+    ``collective.<op>.dispatch_seconds``; a ring-priced op of ``nbytes``
+    payload bytes (0: none, e.g. on a process set) also lands in its
+    ``topo.obs.*`` cell (module docstring: on NCCL the time is the
+    enqueue's)."""
+    t0 = time.perf_counter()
+    out = dispatch()
+    dt = time.perf_counter() - t0
+    metrics.observe(f"collective.{op.lower()}.dispatch_seconds", dt)
+    collective = _FIT_OPS.get(op)
+    if collective is not None and nbytes > 0 and not runtime.capturing():
+        from ..topo import fit as topo_fit
+
+        topo_fit.record_observation(collective, "flat", nbytes,
+                                    axis_size=runtime.size(), seconds=dt)
+    return out
 
 
 def _consistency_check(op: str, x: torch.Tensor, name: Optional[str],
@@ -183,14 +227,23 @@ def _consistency_check(op: str, x: torch.Tensor, name: Optional[str],
     if rt.size <= 1:
         return
     runtime.refuse_in_capture("the collective consistency check")
+    from .. import native
+
     dt = str(x.dtype).replace("torch.", "")
     ps_tag = "world" if ps is None else ",".join(map(str, ps.ranks))
     wire_name = f"{name or ''}|ps={ps_tag}|{extra}"
-    records = functions.allgather_object({
-        "rank": rt.rank, "type": _REQUEST[op],
-        "dtype": _WIRE_DTYPES.index(dt) if dt in _WIRE_DTYPES else 255,
-        "root": root, "dims": list(x.shape), "name": wire_name,
-    })
+    dtype_id = _WIRE_DTYPES.index(dt) if dt in _WIRE_DTYPES else 255
+    dims = list(x.shape)
+    use_native = native.available()
+    if use_native:
+        blob = native.encode_request(rt.rank, _REQUEST[op], dtype_id, root, dims,
+                                     wire_name)
+        records = [native.decode_request(b) for b in functions.allgather_object(blob)]
+    else:
+        records = functions.allgather_object({
+            "rank": rt.rank, "type": _REQUEST[op], "dtype": dtype_id,
+            "root": root, "dims": dims, "name": wire_name,
+        })
 
     def sig(r):
         return (r["type"], r["dtype"], tuple(r["dims"]), r["name"], r["root"])
@@ -204,10 +257,25 @@ def _consistency_check(op: str, x: torch.Tensor, name: Optional[str],
                          f"{base['rank']} submitted {sig(base)} (reference "
                          "controller.cc mismatched-collective error)")
                 break
-        response = {"type": _RESPONSE_ERROR if error else _REQUEST[op],
-                    "names": [] if error else [wire_name], "error": error,
-                    "sizes": list(x.shape)}
+        try:
+            if use_native:
+                response = (native.encode_response(_RESPONSE_ERROR, [], error) if error
+                            else native.encode_response(_REQUEST[op], [wire_name],
+                                                        sizes=dims))
+            else:
+                response = {"type": _RESPONSE_ERROR if error else _REQUEST[op],
+                            "names": [] if error else [wire_name], "error": error,
+                            "sizes": dims}
+        except Exception as e:
+            # An encoding failure (a name over the codec's cap) reaches
+            # every rank as an ERROR response, never a stranded broadcast.
+            err = f"coordinator failed to encode response: {e}"
+            response = (native.encode_response(_RESPONSE_ERROR, [], err) if use_native
+                        else {"type": _RESPONSE_ERROR, "names": [], "error": err,
+                              "sizes": dims})
     response = runtime.broadcast_object(response, 0)
+    if use_native:
+        response = native.decode_response(response)
     if response["type"] == _RESPONSE_ERROR:
         raise HorovodTpuError(f"collective consistency check failed: {response['error']}")
 
@@ -220,10 +288,12 @@ def _wants_grad(x) -> bool:
 
 
 def _allreduce(x, op, pre, post, name, async_op=False, inplace=False, ps=None):
-    _record(name, "ALLREDUCE", _nbytes([x]))
+    nbytes = _nbytes([x])
+    _record(name, "ALLREDUCE", nbytes)
     _consistency_check("ALLREDUCE", x, name, ps=ps)
-    return collectives.allreduce_(x if inplace else x.clone(), op, pre, post,
-                                  async_op=async_op, process_set=ps)
+    return _timed("ALLREDUCE", lambda: collectives.allreduce_(
+        x if inplace else x.clone(), op, pre, post, async_op=async_op, process_set=ps),
+        nbytes if ps is None else 0)
 
 
 def _grouped(xs, op, pre, post, name, async_op=False, ps=None):
@@ -238,32 +308,38 @@ def _grouped(xs, op, pre, post, name, async_op=False, ps=None):
         pending = Pending([w for p in parts for w in p.works],
                           lambda: [p.finish() for p in parts])
     else:
-        _record(name, "GROUPED_ALLREDUCE", _nbytes(xs))
+        nbytes = _nbytes(xs)
+        _record(name, "GROUPED_ALLREDUCE", nbytes)
         flats, meta = fusion.flatten_group(xs)
-        parts = [collectives.allreduce_(f, op, pre, post, async_op=True, process_set=ps)
-                 for f in flats]
+        parts = _timed("GROUPED_ALLREDUCE", lambda: [
+            collectives.allreduce_(f, op, pre, post, async_op=True, process_set=ps)
+            for f in flats], nbytes if ps is None else 0)
         pending = Pending([w for p in parts for w in p.works],
                           lambda: fusion.unflatten_group([p.finish() for p in parts], meta))
     return pending if async_op else pending.wait()
 
 
 def _allgather(x, name, async_op=False, ps=None):
-    _record(name, "ALLGATHER", _nbytes([x]))
+    nbytes = _nbytes([x])
+    _record(name, "ALLGATHER", nbytes)
     _consistency_check("ALLGATHER", x, name, ps=ps)
-    return collectives.allgather(x, async_op, process_set=ps)
+    return _timed("ALLGATHER", lambda: collectives.allgather(x, async_op, process_set=ps),
+                  nbytes if ps is None else 0)
 
 
 def _broadcast(x, root_rank, name, async_op=False, inplace=False, ps=None):
     _record(name, "BROADCAST", _nbytes([x]))
     _consistency_check("BROADCAST", x, name, root=int(root_rank), ps=ps)
-    return collectives.broadcast_(x if inplace else x.clone(), root_rank, async_op,
-                                  process_set=ps)
+    return _timed("BROADCAST", lambda: collectives.broadcast_(
+        x if inplace else x.clone(), root_rank, async_op, process_set=ps))
 
 
 def _reducescatter(x, op, pre, post, name, async_op=False, ps=None):
-    _record(name, "REDUCESCATTER", _nbytes([x]))
+    nbytes = _nbytes([x])
+    _record(name, "REDUCESCATTER", nbytes)
     _consistency_check("REDUCESCATTER", x, name, ps=ps)
-    return collectives.reducescatter(x, op, pre, post, async_op, process_set=ps)
+    return _timed("REDUCESCATTER", lambda: collectives.reducescatter(
+        x, op, pre, post, async_op, process_set=ps), nbytes if ps is None else 0)
 
 
 def _send_splits(splits, x: torch.Tensor, n: int) -> List[int]:
@@ -286,7 +362,8 @@ def _alltoall(x, splits, name, async_op=False, ps=None):
     _consistency_check("ALLTOALL", x, name, extra="" if splits is None else "splits",
                        ps=ps)
     if splits is None:
-        return collectives.alltoall(x, async_op=async_op, process_set=ps)
+        return _timed("ALLTOALL", lambda: collectives.alltoall(
+            x, async_op=async_op, process_set=ps))
     group, ranks, member = member_group(ps)
     k = runtime.size() if ranks is None else len(ranks)
     send = _send_splits(splits, x, k)
@@ -299,7 +376,8 @@ def _alltoall(x, splits, name, async_op=False, ps=None):
     got = torch.empty_like(counts)
     dist.all_to_all_single(got, counts, group=group)
     recv = got.tolist()
-    out = collectives.alltoall(x, send, recv, async_op, process_set=ps)
+    out = _timed("ALLTOALL", lambda: collectives.alltoall(x, send, recv, async_op,
+                                                          process_set=ps))
     received = torch.tensor(recv, dtype=torch.int64)
     if async_op:
         return Pending(out.works, lambda: (out.finish(), received))

@@ -6,7 +6,11 @@ Counterpart of ``horovod_tpu/ops/fusion.py`` (``flatten_group`` ``:44``,
 per dtype per bucket, one collective on it, then views sliced back out.
 The bucket plan is the JAX package's greedy in-order plan with the
 mixed-precision look-ahead bound, so both packages plan identical
-buckets from the same sizes and dtypes.
+buckets from the same sizes and dtypes: the native core's planner
+(``native.fusion_plan``, ``cpp/src/fusion.cc``) where it is built and
+its plan keeps the look-ahead bound (``:113-126``), else the same plan
+in Python.  ``set_threshold_override`` is the autotune driver's
+candidate threshold (``:32-40``), used where the caller passes none.
 """
 
 from __future__ import annotations
@@ -18,6 +22,20 @@ import torch
 from ..utils import env
 
 Meta = Tuple[Any, ...]
+
+# The fusion threshold a tuned step runs under (utils/autotune.py, set by
+# TrainStep around each call); consulted only where the caller passes no
+# threshold.
+_threshold_override: int | None = None
+
+
+def set_threshold_override(threshold_bytes: int | None) -> None:
+    global _threshold_override
+    _threshold_override = threshold_bytes
+
+
+def threshold_override() -> int | None:
+    return _threshold_override
 
 
 def flatten_group(xs: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], Meta]:
@@ -66,13 +84,26 @@ def bucket_plan(
     3; negative = unbounded).  A threshold of 0 gives one bucket per
     tensor.  Returns buckets as lists of tensor indices."""
     if threshold_bytes is None:
-        threshold_bytes = env.get_int(
-            env.FUSION_THRESHOLD, env.DEFAULT_FUSION_THRESHOLD
-        )
+        if _threshold_override is not None:
+            threshold_bytes = _threshold_override
+        else:
+            threshold_bytes = env.get_int(
+                env.FUSION_THRESHOLD, env.DEFAULT_FUSION_THRESHOLD
+            )
     if look_ahead is None:
         look_ahead = env.get_int(env.SCHED_LOOK_AHEAD, 3)
     if threshold_bytes <= 0:
         return [[i] for i in range(len(sizes_bytes))]
+    # The native planner predates the look-ahead bound, so its plan is
+    # kept only when no bucket join violates the bound.
+    from .. import native
+
+    dtype_ids = {d: i for i, d in enumerate(dict.fromkeys(dtypes))}
+    planned = native.fusion_plan(
+        list(sizes_bytes), [dtype_ids[d] for d in dtypes], threshold_bytes
+    )
+    if planned is not None and not _violates_look_ahead(planned, dtypes, look_ahead):
+        return planned
     # dtype -> [bucket, bytes, first_foreign_open_pos]
     open_buckets: dict = {}
     buckets: List[List[int]] = []
@@ -99,6 +130,26 @@ def bucket_plan(
                     entry[2] = i
             open_buckets[dt] = [b, sz, None]
     return buckets
+
+
+def _violates_look_ahead(
+    plan: Sequence[Sequence[int]], dtypes: Sequence[str], look_ahead: int
+) -> bool:
+    """True when a bucket join in ``plan`` reaches across a
+    different-dtype bucket opened more than ``look_ahead`` positions
+    before the joining tensor (``:163``)."""
+    if look_ahead < 0:
+        return False
+    opens = sorted((b[0], dtypes[b[0]]) for b in plan if b)
+    for b in plan:
+        if len(b) < 2:
+            continue
+        first, dt = b[0], dtypes[b[0]]
+        for i in b[1:]:
+            foreign = [pos for pos, d in opens if first < pos < i and d != dt]
+            if foreign and i - foreign[0] > look_ahead:
+                return True
+    return False
 
 
 def pad_to_atomic_unit(flat: torch.Tensor,

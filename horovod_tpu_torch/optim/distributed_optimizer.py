@@ -77,6 +77,19 @@ lowering is ``flat``, and the flat tree otherwise.  On one host, with no
 ``HVD_TPU_TOPO``, every bucket resolves ``flat``.  The quantized wire
 serves Adasum only where ``hier_adasum`` does (``:162-190``, ``:379-391``).
 
+Autotuning (``HVD_TPU_AUTOTUNE=1``, ``:974-990``, ``:1040-1142``): a
+:class:`TrainStep` over a ``DistributedOptimizer`` built without
+``fusion_threshold_bytes`` tunes the fusion threshold, then the
+hierarchical allreduce, then (``HVD_TPU_AUTOTUNE_EXPLORE_QUANTIZED=1``,
+where :attr:`quant_eligible`) the int8 wire, with
+``utils/autotune.py`` ``AutotuneDriver``.  Each call runs under the
+driver's suggestion, set around it as overrides the plan reads:
+``ops/fusion.py`` ``set_threshold_override``, ``ops/collectives.py``
+``set_hierarchical_override`` and :func:`set_quantized_override` (an
+int8 wire on every eligible bucket, without error feedback, as the JAX
+probe runs).  The overrides are part of the plan's key, so each variant
+plans its own buckets.
+
 Sparse gradients (``nn.Embedding(sparse=True)``; ``:208-270``): unless
 ``sparse_as_dense``, a sparse gradient leaves its bucket (a zero-length
 placeholder there) and is reduced as an allgather of its indices and
@@ -88,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -96,7 +110,7 @@ import torch.distributed as dist
 
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from .. import metrics, runtime
+from .. import faults, metrics, runtime
 from ..compression import Compression, Compressor
 from ..exceptions import HorovodTpuError, ProcessSetTilingError, QuantizedWireError
 from ..ops import LAUNCH_COUNTED, collectives, fusion
@@ -117,6 +131,16 @@ from ..sched.plan import (
 )
 from ..utils import env
 from ..xir.interp import onestep_engaged, onestep_mode
+
+
+# The autotune driver's quantized-wire probe (``:50-55``): True runs every
+# eligible bucket on the int8 wire; set by TrainStep around each call.
+_quantized_override: Optional[bool] = None
+
+
+def set_quantized_override(value: Optional[bool]) -> None:
+    global _quantized_override
+    _quantized_override = value
 
 
 class _DistributedOptimizer:
@@ -265,6 +289,24 @@ class _DistributedOptimizer:
         return self._lowering
 
     @property
+    def fusion_threshold_bytes(self) -> Optional[int]:
+        """The threshold given at construction; None lets
+        ``HVD_TPU_AUTOTUNE`` tune it (JAX ``_hvd_fusion_threshold``)."""
+        return self._fusion_threshold
+
+    @property
+    def quant_eligible(self) -> bool:
+        """Whether the autotune driver may probe the int8 wire (JAX
+        ``_hvd_quant_eligible``, ``:793-797``): no quantized compressor
+        already, op Average or Sum, the world."""
+        return (not self._quantized and self._op in (Average, Sum)
+                and resolve(self._process_set) is None)
+
+    def _quantizing(self) -> bool:
+        """An explicit quantized compressor, or the tuner's int8 probe."""
+        return self._quantized or bool(_quantized_override)
+
+    @property
     def point_to_point(self) -> bool:
         """Whether a bucket of the exchange runs Adasum's flat tree, whose
         halves go point to point (``ops/adasum.py``): ``op=Adasum`` over
@@ -394,15 +436,17 @@ class _DistributedOptimizer:
         byte per element under a quantized compressor, so buckets fill to
         the intended wire-size threshold), their dtypes and the config."""
         return (
-            tuple(w.numel() * (1 if self._quantized else w.element_size())
+            tuple(w.numel() * (1 if self._quantizing() else w.element_size())
                   for w in wire),
             tuple(dtype_name(w.dtype) for w in wire),
             cfg,
             env.get_env(env.TOPO),
+            (fusion.threshold_override(), bool(_quantized_override),
+             collectives.hierarchical_enabled()),
         )
 
     def _plan(self, key: tuple) -> BucketSchedule:
-        sizes, dtypes, cfg, _ = key
+        sizes, dtypes, cfg = key[:3]
         observed = self._order.consume() if self._order is not None else None
         if not cfg.capture_order:
             observed = None
@@ -413,16 +457,19 @@ class _DistributedOptimizer:
             # issue the same collectives in the same order.  An explicit
             # quantized compressor wins over HVD_TPU_SCHED_WIRE.
             order = runtime.broadcast_object(observed, root_rank=0)
-            wire = self._compression.wire_format if self._quantized else None
+            wire = (self._compression.wire_format if self._quantized
+                    else "int8" if _quantized_override else None)
             schedule = build_schedule(
                 sizes, dtypes, cfg, order=order, pinned=self._pinned, wire=wire,
                 lowering=self._lower_request(cfg, self._op, resolve(self._process_set)),
                 axis_size=runtime.size())
-            if any(b.lowering != "flat" for b in schedule.buckets):
+            if (any(b.lowering != "flat" for b in schedule.buckets)
+                    or collectives.hierarchical_enabled()):
                 from ..topo import hierarchical
 
                 # The intra and cross groups, made here on every rank (never
-                # on the exchange worker or in a backward hook).
+                # on the exchange worker or in a backward hook), for the
+                # hierarchical buckets and the hierarchical allreduce.
                 hierarchical.phase_context()
         else:
             # HVD_TPU_SCHED=off: in-order buckets on the dense wire.
@@ -502,7 +549,7 @@ class _DistributedOptimizer:
         replaced by a zero-length placeholder."""
         if self._sparse_as_dense:
             return densify(g)
-        if self._quantized_req:
+        if self._quantized_req or _quantized_override:
             raise QuantizedWireError(
                 "the quantized wire does not take sparse gradients (the "
                 "quantizer lives inside the dense two-phase reduction); "
@@ -756,7 +803,8 @@ def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
 
 def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
                     optimizer_capturable: bool = True,
-                    point_to_point: bool = False) -> Optional[str]:
+                    point_to_point: bool = False,
+                    fault_plan: bool = False) -> Optional[str]:
     """Why a data-parallel step on a card cannot be captured as one CUDA
     graph, from static facts alone (None: it can).  ``backend`` is the
     process group's (None without a runtime: no collective runs);
@@ -765,7 +813,9 @@ def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
     ``optimizer_capturable`` False when a parameter group of the
     optimizer has ``capturable=False`` (Adam, AdamW: their step count is
     read on the host); ``point_to_point`` whether the exchange runs
-    Adasum's flat tree (the optimizer's ``point_to_point``)."""
+    Adasum's flat tree (the optimizer's ``point_to_point``);
+    ``fault_plan`` whether a fault plan arms a site on the step's path
+    (``faults.FaultPlan.arms_step``)."""
     if backend is not None and backend != "nccl":
         return (f"its process group is {backend}, not NCCL: each collective "
                 "waits on the host")
@@ -781,6 +831,10 @@ def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
         return ("op=Adasum's flat tree exchanges its halves point to point "
                 "(batch_isend_irecv), which is not captured; the hier_adasum "
                 "lowering is")
+    if fault_plan:
+        return ("fault_plan: HVD_TPU_FAULT_PLAN arms a site on the step's path "
+                f"({', '.join(faults.STEP_SITES)}); an injected host delay or raise "
+                "cannot be recorded into a CUDA graph")
     return None
 
 
@@ -796,16 +850,18 @@ class _Captured:
     the kernel launches it records, per wrapper of
     ``ops.LAUNCH_COUNTED`` (added to their counters on every replay: the
     replay's counts are inferred from the capture's, not counted at a
-    launch), and the bytes the card's reserved memory grew by across its
-    capture (its memory pool)."""
+    launch), the bytes the card's reserved memory grew by across its
+    capture (its memory pool) and the buckets of the exchange it
+    captured."""
 
     def __init__(self, graph, static: list, loss: torch.Tensor, launches: dict,
-                 reserved: int = 0):
+                 reserved: int = 0, buckets: int = 0):
         self.graph = graph
         self.static = static
         self.loss = loss
         self.launches = launches
         self.reserved = reserved
+        self.buckets = buckets
 
     def replay(self, leaves: list) -> torch.Tensor:
         for s, t in zip(self.static, leaves):
@@ -901,22 +957,103 @@ class TrainStep:
     frozen at the capture: the ``sched.*`` metrics count once per
     capture (``xir.onestep.steps`` too), the kernels' launch counters
     once per replay, and ``p.grad`` stays None after each step, as the
-    eager step leaves it."""
+    eager step leaves it.
+
+    Every call observes its host time in ``train.step_seconds`` and
+    counts ``train.steps`` (``:1130-1136``), the feed of
+    ``sched/tune.py`` ``ScheduleTuner``.
+
+    Under ``HVD_TPU_AUTOTUNE=1``, over a ``DistributedOptimizer`` built
+    without ``fusion_threshold_bytes``, the step tunes itself
+    (``utils/autotune.py`` ``AutotuneDriver``, built here as at
+    ``:974-990``, with the optimizer's ``quant_eligible``).  Each call
+    runs under the driver's variant, (threshold, hierarchical,
+    quantized), set around it as the plan's overrides (module
+    docstring).  The variant is part of each graph's signature beside
+    the batch's, so the variants explored keep their graphs side by side
+    up to ``MAX_GRAPHS`` (least recently replayed dropped past it) and a
+    variant seen before replays at once.  A window times only settled
+    steps: a new variant's ``CAPTURE_WARMUP`` eager steps and its capture
+    are reported unsettled (:attr:`last_settled`), so the window's clock
+    starts after them and its scores compare replays with replays, where
+    the JAX package fences out the first step of each window, which pays
+    its compile.  Once the driver has converged, every graph but the
+    frozen variant's is dropped and its memory pool returned to the card
+    (``:1047-1058``).  A quantized probe whose step raises
+    :class:`QuantizedWireError` (a sparse gradient) makes the driver
+    reject the knob and the call is run again on the variant without it
+    (``:1104-1117``); its gradients are cleared first, but its forward
+    ran twice (BatchNorm's running statistics saw the batch twice)."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Callable[[torch.nn.Module, object], torch.Tensor]):
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
-        # Batch signature -> its graph, least recently replayed first;
-        # and the eager warm-up steps each signature has run.
+        # (variant, batch signature) -> its graph, least recently replayed
+        # first; and the eager warm-up steps each of them has run.
         self._graphs: "OrderedDict[tuple, _Captured]" = OrderedDict()
         self._warm: "OrderedDict[tuple, int]" = OrderedDict()
         self._key = None  # what every graph holds fixed besides the batch
+        # Whether the last call was settled: not a warm-up step or a
+        # capture of a new graph (AutotuneDriver.after_step).
+        self.last_settled = True
+        self.autotune = None
+        marker = getattr(optimizer, "fusion_threshold_bytes", "absent")
+        if env.get_bool(env.AUTOTUNE) and marker is None:
+            from ..utils.autotune import AutotuneDriver
+
+            self.autotune = AutotuneDriver(
+                quant_eligible=getattr(optimizer, "quant_eligible", False))
+        self._seen_variants: set = set()
 
     def __call__(self, batch) -> torch.Tensor:
+        at = self.autotune
+        variant = None
+        if at is not None:
+            variant = (at.threshold_bytes(), at.hierarchical(), at.quantized())
+            if at.converged and any(sig[0] != variant for sig in self._graphs):
+                # Exploration over: drop the losing variants' graphs.
+                self._evict([sig for sig in self._graphs if sig[0] != variant])
+                for sig in [sig for sig in self._warm if sig[0] != variant]:
+                    del self._warm[sig]
+        t0 = time.perf_counter()
+        fusion.set_threshold_override(None if variant is None else variant[0])
+        collectives.set_hierarchical_override(None if variant is None else variant[1])
+        set_quantized_override(None if variant is None else variant[2])
+        try:
+            out = self._call(batch, variant)
+        except QuantizedWireError:
+            if (variant is not None and variant[2] and not at.converged
+                    and variant not in self._seen_variants):
+                # The probe's step cannot take the int8 wire: reject the
+                # knob, clear what the failed step left and run again.
+                at.reject_quantized()
+                self.optimizer.zero_grad(set_to_none=True)
+                self._forget(variant)
+                return self(batch)
+            raise
+        finally:
+            fusion.set_threshold_override(None)
+            collectives.set_hierarchical_override(None)
+            set_quantized_override(None)
+            metrics.observe("train.step_seconds", time.perf_counter() - t0)
+            metrics.inc_counter("train.steps")
+        if at is not None:
+            self._seen_variants.add(variant)
+            at.after_step(out, settled=self.last_settled)
+        return out
+
+    def _forget(self, variant) -> None:
+        """Drop what the step holds of ``variant``."""
+        self._evict([sig for sig in self._graphs if sig[0] == variant])
+        for sig in [sig for sig in self._warm if sig[0] == variant]:
+            del self._warm[sig]
+
+    def _call(self, batch, variant) -> torch.Tensor:
         mode = onestep_mode()
         device = self._device()
+        self.last_settled = True
         if mode == "off" or device.type != "cuda":
             self.drop()
             return self._eager(batch, mode)
@@ -935,7 +1072,7 @@ class TrainStep:
         if key != self._key:
             self.drop()
             self._key = key
-        sig = (spec, _signature(leaves))
+        sig = (variant, spec, _signature(leaves))
         captured = self._graphs.get(sig)
         if captured is None:
             warm = self._warm.pop(sig, 0)
@@ -943,12 +1080,14 @@ class TrainStep:
                 self._warm[sig] = warm + 1
                 if len(self._warm) > MAX_GRAPHS:  # bound those warming up
                     self._warm.popitem(last=False)
+                self.last_settled = False
                 return self._side_stream_step(batch, mode, device)
             if not onestep_engaged(self._units()):
                 self._warm[sig] = warm
                 return self._eager(batch, mode)
             if len(self._graphs) >= MAX_GRAPHS:
                 self._evict([next(iter(self._graphs))])
+            self.last_settled = False
             captured = self._graphs[sig] = self._capture(leaves, spec)
             if runtime.is_initialized():  # shutdown() drops it first
                 runtime.get_runtime().captured_steps.add(self)
@@ -978,11 +1117,13 @@ class TrainStep:
         rt = runtime.get_runtime() if runtime.is_initialized() else None
         sparse = any(isinstance(m, (torch.nn.Embedding, torch.nn.EmbeddingBag))
                      and m.sparse for m in self.model.modules())
+        plan = faults.get_plan()
         return capture_blocker(
             rt.backend if rt is not None else None,
             getattr(self.optimizer, "backward_passes_per_step", 1), sparse,
             all(g.get("capturable", True) for g in self.optimizer.param_groups),
-            getattr(self.optimizer, "point_to_point", False))
+            getattr(self.optimizer, "point_to_point", False),
+            plan is not None and plan.arms_step())
 
     def drop(self) -> None:
         """Drop every captured graph and give their memory pools back to
@@ -1003,6 +1144,11 @@ class TrainStep:
         for sig in sigs:
             self._graphs.pop(sig).graph.reset()
         torch.cuda.empty_cache()
+
+    @property
+    def graphs(self) -> int:
+        """How many captured graphs the step holds."""
+        return len(self._graphs)
 
     def _units(self) -> int:
         schedule = getattr(self.optimizer, "schedule", None)
@@ -1041,7 +1187,8 @@ class TrainStep:
                 fn.launches = before.get(fn, 0)
         metrics.inc_counter("xir.onestep.steps")
         return _Captured(graph, static, loss, launches,
-                         torch.cuda.memory_reserved(device) - reserved)
+                         torch.cuda.memory_reserved(device) - reserved,
+                         self._units() - 1)
 
     def _eager(self, batch, mode: str) -> torch.Tensor:
         metrics.set_gauge("sched.onestep.engaged", 0.0, {"mode": mode})

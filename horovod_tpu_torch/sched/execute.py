@@ -38,12 +38,20 @@ allocator keeps a block used on two streams out of reuse until the
 capture has ended, so no later node of the graph overwrites it.  Such a
 chain keeps its launch ``log`` but records no timing events (a graph's
 events cannot be timed from the host).
+
+Besides the ``sched.*`` counters and gauges, each chain observes the
+histograms ``sched.bytes_per_bucket`` (one observation per bucket,
+``:381``, ``:581``) and ``sched.exchange_seconds`` (host seconds from
+the chain's creation to :meth:`BucketChain.finish`, ``:601``).  Like
+every ``sched.*`` metric they are recorded in Python, so a captured
+step records them once, at its capture.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -154,6 +162,7 @@ class BucketChain:
         self._reduced: Dict[int, torch.Tensor] = {}
         self._events: Dict[int, Tuple] = {}
         self._base = self._backward_end = None
+        self._t0 = time.perf_counter()
 
     def launch(self, k: int, leaves: Callable[[], Sequence[torch.Tensor]],
                from_hook: bool = False) -> None:
@@ -192,6 +201,8 @@ class BucketChain:
         outs = [self._reduce(f, bucket) for f in flats]
         for i, t in zip(bucket.indices, fusion.unflatten_group(outs, meta)):
             self._reduced[i] = t
+        metrics.observe("sched.bytes_per_bucket", bucket.nbytes,
+                        buckets=metrics.BYTES_BUCKETS)
         if start is not None:
             self._events[k] = (start, self._event())
 
@@ -226,6 +237,7 @@ class BucketChain:
             raise error
         reduced, self._reduced = self._reduced, {}
         record_exchange_metrics(self.schedule)
+        metrics.observe("sched.exchange_seconds", time.perf_counter() - self._t0)
         return [reduced[i] for i in range(len(reduced))]
 
     def timeline(self) -> List[Tuple[float, float]]:

@@ -1,0 +1,344 @@
+"""Persistent schedule store: winning tuner configs survive the job.
+
+Counterpart of ``horovod_tpu/sched/store.py``.  The reference
+``ParameterManager`` re-learns the fusion knobs every run; this store
+makes the converged answer durable: a JSON file (``HVD_TPU_TUNE_DB``)
+mapping
+
+    key = sha256(schedule ``signature()``, workload kind, topology spec,
+                 framework version, knob fingerprint)
+
+to the winning ``(bucket_bytes, wire, lowering)`` and its window score.
+:class:`~horovod_tpu_torch.sched.tune.ScheduleTuner` warm-starts from a
+hit (``converged`` at window 0, no exploration window) and writes back
+on convergence.
+
+The key document has the JAX package's fields.  Its version field
+(``"jax"``) holds torch's version here, so an entry tuned under one
+torch build never warm-starts another; the knob fingerprint folds in
+the gpu backend family (:func:`knob_fingerprint`), so an entry tuned on
+a TPU never warm-starts a GPU run.
+
+Staleness: every entry records the cost model's price for its choice at
+write time; on lookup the current (possibly re-fitted, ``topo/fit.py``)
+model re-prices it, and disagreement beyond
+``HVD_TPU_TUNE_STALE_FACTOR`` (default 4x, either direction) makes the
+entry a miss.  A corrupted or unreadable DB file is never fatal: it is
+ignored with one warning and treated as empty.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, Optional, Set
+
+from .. import metrics
+from ..utils import env
+from ..utils.logging import get_logger
+
+SCHEMA_VERSION = 1
+DEFAULT_STALE_FACTOR = 4.0
+
+# Env prefixes whose values change what a tuned schedule means: the
+# scheduler/wire knobs, the topology model, and quantization block
+# size.  Both spellings (HVD_TPU_ / legacy HOROVOD_) participate.
+_KNOB_PREFIXES = ("SCHED", "WIRE", "TOPO", "QUANT")
+
+# log-once guard for corrupted DB files (per path, process-wide)
+_warned_paths: Set[str] = set()
+_warn_lock = threading.Lock()
+
+
+def knob_fingerprint() -> str:
+    """Stable digest of every ``HVD_TPU_SCHED*/WIRE*/TOPO*/QUANT*`` env
+    knob (and its legacy ``HOROVOD_`` spelling): two processes with the
+    same fingerprint plan identical schedules from identical metadata,
+    so stored winners are only shared between them.
+
+    Folded in resolved, as in the JAX package (``:92-103``): the
+    quantized-wire backend (unset and its default spelling agree), the
+    accelerator backend family (always ``gpu`` here: the JAX package
+    folds in a family other than ``tpu``, so a TPU-tuned entry never
+    warm-starts a GPU run) and the whole-step mode (``HVD_TPU_ONESTEP``;
+    unset and ``auto`` agree).  The JAX package's rail-pipeliner
+    (``HVD_TPU_XIR_PIPELINE``) and service-fusion entries have no knob in
+    the port yet, so they are not folded in."""
+    items = []
+    for k in sorted(os.environ):
+        for head in ("HVD_TPU_", "HOROVOD_"):
+            if k.startswith(head):
+                tail = k[len(head):]
+                # QUANT_BACKEND joins below in resolved form only, so
+                # "unset" and an explicit default spelling agree.
+                if (tail.startswith(_KNOB_PREFIXES)
+                        and tail not in ("TUNE_DB", "QUANT_BACKEND")):
+                    items.append((k, os.environ[k]))
+                break
+    try:
+        from ..ops.quantized import quant_backend
+
+        items.append(("HVD_TPU_QUANT_BACKEND(resolved)", quant_backend()))
+    except Exception:
+        pass
+    items.append(("HVD_TPU_BACKEND(resolved)", "gpu"))
+    try:
+        from ..xir import interp as _xinterp
+
+        items.append(("HVD_TPU_ONESTEP(resolved)", _xinterp.onestep_mode()))
+    except Exception:
+        pass
+    return hashlib.sha256(
+        json.dumps(items, sort_keys=True).encode()
+    ).hexdigest()[:16]
+
+
+def topology_spec(topo=None) -> str:
+    """Compact topology identity for the store key."""
+    if topo is None:
+        from ..topo import model as topo_model
+
+        topo = topo_model.current()
+    shape = "x".join(str(d) for d in topo.ici_shape)
+    return f"{topo.num_slices}x{topo.slice_size}({shape})"
+
+
+def framework_version() -> str:
+    """torch's version: the key document's version field."""
+    try:
+        import torch
+
+        return getattr(torch, "__version__", "unknown")
+    except Exception:
+        return "unknown"
+
+
+def key_document(signature: Any,
+                 topo_spec: Optional[str] = None,
+                 version: Optional[str] = None,
+                 knobs: Optional[str] = None,
+                 kind: str = "dense_grad") -> Dict[str, str]:
+    """The five identity components :func:`make_key` hashes, in the JAX
+    package's layout (its ``"jax"`` field holds ``version``, by default
+    torch's)."""
+    return {
+        "sig": repr(signature),
+        "kind": str(kind),
+        "topo": topology_spec() if topo_spec is None else topo_spec,
+        "jax": framework_version() if version is None else version,
+        "knobs": knob_fingerprint() if knobs is None else knobs,
+    }
+
+
+def make_key(signature: Any,
+             topo_spec: Optional[str] = None,
+             version: Optional[str] = None,
+             knobs: Optional[str] = None,
+             kind: str = "dense_grad") -> str:
+    """The store key: sha256 over the JSON of :func:`key_document`.
+    ``signature`` is any deterministic value whose ``repr`` is stable
+    across processes, canonically a
+    :meth:`~horovod_tpu_torch.sched.plan.BucketSchedule.signature` tuple;
+    ``kind`` keeps two workloads of equal signature apart."""
+    payload = json.dumps(key_document(signature, topo_spec, version, knobs, kind),
+                         sort_keys=True)
+    return hashlib.sha256(payload.encode()).hexdigest()
+
+
+class ScheduleStore:
+    """JSON-on-disk (or in-memory when ``path`` is None) map from store
+    keys to winning schedule configs.  All mutating operations re-read
+    the file and merge keep-best before writing, so concurrent workers
+    sharing one DB converge on the best-scored entry instead of
+    clobbering each other."""
+
+    # Minimum entry shape accepted from disk / peer merges; a subclass
+    # storing another record kind overrides it.
+    REQUIRED_KEYS = ("bucket_bytes", "wire", "lowering")
+
+    @classmethod
+    def _valid_entry(cls, e: Any) -> bool:
+        return isinstance(e, dict) and all(k in e for k in cls.REQUIRED_KEYS)
+
+    def __init__(self, path: Optional[str],
+                 stale_factor: Optional[float] = None):
+        self.path = path
+        self.stale_factor = (
+            env.get_float(env.TUNE_STALE_FACTOR, DEFAULT_STALE_FACTOR)
+            if stale_factor is None else float(stale_factor)
+        )
+        self._lock = threading.Lock()
+        self._entries: Dict[str, Dict[str, Any]] = {}
+        if path:
+            self._entries = self._load()
+
+    @classmethod
+    def from_env(cls) -> Optional["ScheduleStore"]:
+        """The store at ``HVD_TPU_TUNE_DB``, or None when unset — the
+        unset behavior must be bit-identical to no store at all."""
+        path = env.get_env(env.TUNE_DB)
+        if not path:
+            return None
+        return cls(path)
+
+    # ------------------------------------------------------------- io
+    def _load(self) -> Dict[str, Dict[str, Any]]:
+        try:
+            with open(self.path) as fh:
+                data = json.load(fh)
+            entries = data.get("entries")
+            if not isinstance(entries, dict):
+                raise ValueError("missing 'entries' object")
+            # shape-check each entry; drop garbage rather than crash
+            good = {}
+            for k, e in entries.items():
+                if self._valid_entry(e):
+                    good[str(k)] = e
+            return good
+        except FileNotFoundError:
+            return {}
+        except Exception as e:
+            with _warn_lock:
+                if self.path not in _warned_paths:
+                    _warned_paths.add(self.path)
+                    get_logger().warning(
+                        "schedule store %s is unreadable (%s: %s); "
+                        "ignoring it and starting empty",
+                        self.path, type(e).__name__, e,
+                    )
+            metrics.inc_counter("sched.tune.db_corrupt")
+            return {}
+
+    def _save(self) -> None:
+        if not self.path:
+            return
+        try:
+            # merge keep-best with whatever landed on disk since load
+            on_disk = self._load()
+            with self._lock:
+                for k, e in on_disk.items():
+                    mine = self._entries.get(k)
+                    if mine is None or (
+                            e.get("score", 0.0) > mine.get("score", 0.0)):
+                        self._entries[k] = e
+                snap = dict(self._entries)
+            tmp = f"{self.path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as fh:
+                json.dump(
+                    {"version": SCHEMA_VERSION, "entries": snap},
+                    fh, sort_keys=True, indent=1,
+                )
+            os.replace(tmp, self.path)
+        except Exception as e:
+            get_logger().warning(
+                "schedule store write to %s failed: %s", self.path, e
+            )
+
+    # ----------------------------------------------------------- api
+    def entries(self) -> Dict[str, Dict[str, Any]]:
+        with self._lock:
+            return dict(self._entries)
+
+    def lookup(self, key: str) -> Optional[Dict[str, Any]]:
+        """The stored entry for ``key`` after stale validation, or
+        None.  A stale entry (cost model now disagrees with the
+        recorded price by more than ``stale_factor``) is dropped so
+        the next convergence overwrites it."""
+        with self._lock:
+            entry = self._entries.get(key)
+        if entry is None:
+            return None
+        if self._stale(entry):
+            metrics.inc_counter("sched.tune.db_stale")
+            get_logger().info(
+                "schedule store: entry %s.. invalidated (cost model "
+                "disagrees with recorded price beyond %.1fx)",
+                key[:12], self.stale_factor,
+            )
+            with self._lock:
+                self._entries.pop(key, None)
+            return None
+        entry = dict(entry)
+        entry["hits"] = int(entry.get("hits", 0)) + 1
+        with self._lock:
+            self._entries[key] = entry
+        return entry
+
+    def _stale(self, entry: Dict[str, Any]) -> bool:
+        recorded = entry.get("pred_cost_s")
+        if not recorded or recorded <= 0 or self.stale_factor <= 0:
+            return False
+        current = self._price(entry)
+        if current is None or current <= 0:
+            return False
+        ratio = max(current, recorded) / min(current, recorded)
+        return ratio > self.stale_factor
+
+    @staticmethod
+    def _price(entry: Dict[str, Any]) -> Optional[float]:
+        """Today's cost-model price of one stored choice (an allreduce
+        of ``bucket_bytes`` under the stored lowering over the world
+        axis) — the fitted model when one exists."""
+        try:
+            from ..topo import model as topo_model
+
+            lowering = entry.get("lowering", "flat")
+            if lowering not in ("flat", "hier", "hier_adasum"):
+                lowering = "flat"
+            return topo_model.current().estimate_cost(
+                "all_reduce", int(entry["bucket_bytes"]), lowering,
+            )
+        except Exception:
+            return None
+
+    def record(self, key: str, *, bucket_bytes: int, wire: str,
+               lowering: str, score: float,
+               meta: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Insert/update the winner for ``key`` (keep-best by score
+        against any concurrent writer) and persist."""
+        entry = {
+            "bucket_bytes": int(bucket_bytes),
+            "wire": str(wire),
+            "lowering": str(lowering),
+            "score": float(score),
+            "pred_cost_s": self._price({
+                "bucket_bytes": bucket_bytes, "lowering": lowering,
+            }),
+            "topo": topology_spec(),
+            "jax": framework_version(),
+            "updated": time.time(),
+            "hits": 0,
+        }
+        if meta:
+            entry["meta"] = meta
+        with self._lock:
+            prev = self._entries.get(key)
+            if prev is not None and (
+                    prev.get("score", 0.0) > entry["score"]):
+                entry = prev
+            self._entries[key] = entry
+        self._save()
+        metrics.inc_counter("sched.tune.db_store")
+        return entry
+
+    def merge(self, entries: Dict[str, Dict[str, Any]]) -> int:
+        """Fold another store's entries in (keep-best by score).  Returns
+        how many keys changed."""
+        if not isinstance(entries, dict):
+            return 0
+        changed = 0
+        with self._lock:
+            for k, e in entries.items():
+                if not self._valid_entry(e):
+                    continue
+                mine = self._entries.get(k)
+                if mine is None or (
+                        e.get("score", 0.0) > mine.get("score", 0.0)):
+                    self._entries[str(k)] = e
+                    changed += 1
+        if changed:
+            self._save()
+        return changed

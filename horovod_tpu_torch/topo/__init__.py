@@ -2,13 +2,14 @@
 
 Counterpart of ``horovod_tpu/topo/``: ``model`` (the topology and its
 cost model; discovered as one NVLink domain per host, or forced with
-``HVD_TPU_TOPO``) and ``hierarchical`` (the two-level collectives on
-``torch.distributed`` subgroups).  The JAX package's ``fit`` (the
-measured cost model) waits for the dispatch histograms of ROADMAP
-Queue A entry A1.
+``HVD_TPU_TOPO``), ``fit`` (the measured cost model: the eager
+collectives' dispatch times fitted into the link parameters the cost
+model prefers, ``HVD_TPU_TOPO_FIT``) and ``hierarchical`` (the two-level
+collectives on ``torch.distributed`` subgroups).
 """
 
-from . import hierarchical, model  # noqa: F401
+from . import fit, hierarchical, model  # noqa: F401
+from .fit import record_observation  # noqa: F401
 from .hierarchical import (  # noqa: F401
     dcn_adasum,
     dcn_all_gather_phase,

@@ -41,9 +41,12 @@ local compute with the full-vector dot products and norms summed by one
 collective (no point-to-point hop), so a hierarchical bucket is
 captured into a CUDA graph on NCCL as the flat one is.
 
-Not ported yet: the JAX package's ``trace.span`` around each phase and
-the ``faults.inject("topo.dcn_phase")`` site wait for ROADMAP Queue A
-entries A13 and A1.
+Every cross-domain hop fires the ``topo.dcn_phase`` fault site
+(``faults.py``; ``phase=``, ``wire=`` and ``rank=`` context) on the host
+before it issues its collective, as the JAX package fires it inside the
+hop's trace span (``:123-136``): an armed ``slow`` fault delays exactly
+the injected rank's hop.  The JAX package's ``trace.span`` around each
+phase has no counterpart here yet (the port has no tracer).
 """
 
 from __future__ import annotations
@@ -220,6 +223,14 @@ def _bf16(wire: str, t: torch.Tensor) -> bool:
             and t.dtype != torch.bfloat16)
 
 
+def _dcn_fault(phase: str, wire: str) -> None:
+    """The ``topo.dcn_phase`` fault site of one cross-domain hop (JAX
+    ``_dcn_trace`` ``:123``)."""
+    from .. import faults
+
+    faults.inject("topo.dcn_phase", phase=phase, wire=wire, rank=runtime.rank())
+
+
 # --------------------------------------------------------- phase API
 #
 # The exact primitives the monolithic entry points below are built
@@ -253,6 +264,7 @@ def dcn_sum_phase(shard: torch.Tensor, ctx: HierContext, wire: str = "off") -> t
 def dcn_reduce_scatter_phase(shard_k: torch.Tensor, ctx: HierContext,
                              wire: str = "off") -> torch.Tensor:
     """Cross-domain reduce_scatter of the domain-summed 1/k shard."""
+    _dcn_fault("dcn_rs", wire)
     if _quantized(wire, shard_k):
         from ..ops.quantized import quantized_reduce_scatter
 
@@ -268,6 +280,7 @@ def dcn_reduce_scatter_phase(shard_k: torch.Tensor, ctx: HierContext,
 def dcn_all_gather_phase(shard: torch.Tensor, ctx: HierContext,
                          wire: str = "off") -> torch.Tensor:
     """Cross-domain all_gather, inverse of :func:`dcn_reduce_scatter_phase`."""
+    _dcn_fault("dcn_ag", wire)
     if _quantized(wire, shard):
         from ..ops.quantized import quantized_all_gather
 
@@ -294,6 +307,7 @@ def dcn_all_reduce(shard: torch.Tensor, axis: Axis = WORLD_AXIS,
 def _dcn_sum(shard: torch.Tensor, ctx: HierContext, wire: str) -> torch.Tensor:
     """``:254``: dense; bf16 through kernel B1 (down, sum, up); int8/fp8
     through the quantized allreduce on the cross groups (B3-B5)."""
+    _dcn_fault("dcn_ar", wire)
     if _quantized(wire, shard):
         from ..ops.quantized import quantized_allreduce
 
@@ -347,6 +361,7 @@ def _dcn_adasum(shard: torch.Tensor, ctx: HierContext, wire: str) -> torch.Tenso
     bulk dcn payload, and the only leg a quantized or bf16 ``wire``
     compresses), then :func:`_adasum_tree` in float32 on local compute."""
     s, dtype, L = ctx.s, shard.dtype, shard.numel()
+    _dcn_fault("dcn_adasum", (wire or "off").lower())
     if _quantized(wire, shard):
         from ..ops.quantized import quantized_all_gather
 

@@ -27,13 +27,12 @@ answer from the world alone:
    compares the flat single-collective lowering against the
    hierarchical three-phase one.
 
-Two things differ from the JAX package.  The link parameters are always
-the static fields: the JAX package prefers a fit from its dispatch
-histograms (``topo/fit.py``), which waits for them (ROADMAP Queue A
-entry A1); with no fit its ``effective_params`` returns these same
-fields.  And the rail labels are the gpu family's (``{"ici": "nvlink",
-"dcn": "ib"}``): the port serves that family only, and the backend
-registry waits for ROADMAP Queue A entry A13.
+The link parameters are ``topo/fit.py`` ``effective_params``: the
+measured fit when one exists for the topology's shape (and
+``HVD_TPU_TOPO_FIT`` allows it), the static fields otherwise, as in the
+JAX package.  One thing differs: the rail labels are the gpu family's
+(``{"ici": "nvlink", "dcn": "ib"}``), since the port serves that family
+only and has no backend registry yet.
 """
 
 from __future__ import annotations
@@ -249,13 +248,12 @@ class Topology:
 
     def _cost_params(self) -> Tuple[float, float, float, float, float]:
         """(phase_overhead_s, ici_lat_s, dcn_lat_s, ici_bytes_per_s,
-        dcn_bytes_per_s): the static fields, which is what the JAX
-        package's ``topo/fit.py`` ``effective_params`` returns when no
-        fit exists."""
-        return (
-            self.phase_overhead_s, self.ici_latency_s, self.dcn_latency_s,
-            self.ici_gbps * 1e9, self.dcn_gbps * 1e9,
-        )
+        dcn_bytes_per_s): fitted when a measured fit for this shape
+        exists and ``HVD_TPU_TOPO_FIT`` allows it, static otherwise
+        (``topo.fit.effective_params`` owns the preference order)."""
+        from . import fit
+
+        return fit.effective_params(self)
 
     def choose_lowering(
         self,
@@ -641,11 +639,15 @@ def set_topology_override(topo: Optional[Topology]) -> None:
 
 
 def reset() -> None:
-    """Drop the discovery cache and the override (tests)."""
+    """Drop the discovery cache, the override and the fitted cost-model
+    state (tests)."""
     global _override
     with _lock:
         _override = None
         _cache.clear()
+    from . import fit
+
+    fit.reset()
 
 
 def lower_mode() -> str:

@@ -1,7 +1,7 @@
 """Environment-variable knobs the port reads.
 
 Counterpart of ``horovod_tpu/utils/env.py``, trimmed to the knobs of the
-data-parallel step and the eager collectives.  Names and defaults are
+data-parallel step, the eager collectives and their tuning.  Names and defaults are
 the JAX package's, so one environment drives both sides of a parity
 test: ``HVD_TPU_<name>``, with ``HOROVOD_<name>`` accepted as a
 fallback.
@@ -41,8 +41,10 @@ DYNAMIC_PROCESS_SETS = "DYNAMIC_PROCESS_SETS"
 PROCESS_SETS = "PROCESS_SETS"
 # Log level of utils/logging.py: trace|debug|info|warning (default)|error|fatal.
 LOG_LEVEL = "LOG_LEVEL"
-# Adasum's two-level schedule (reference HOROVOD_HIERARCHICAL_ALLREDUCE):
-# a sum inside each host, Adasum across hosts (ops/adasum.py; default off).
+# Two-level allreduce (reference HOROVOD_HIERARCHICAL_ALLREDUCE; default
+# off): Sum and Average as an intra-host reduce-scatter, a cross-host sum
+# of the shard and an intra-host all-gather (ops/collectives.py); Adasum
+# as a sum inside each host and Adasum across hosts (ops/adasum.py).
 HIERARCHICAL_ALLREDUCE = "HIERARCHICAL_ALLREDUCE"
 # Topology (topo/model.py): a forced shape, "SxK" / "SxK1xK2" (S domains
 # of K ranks) or a JSON object ({"slices": 2, "ici_shape": [2], ...});
@@ -59,10 +61,24 @@ TOPO_DCN_GBPS = "TOPO_DCN_GBPS"
 TOPO_ICI_LAT_US = "TOPO_ICI_LAT_US"
 TOPO_DCN_LAT_US = "TOPO_DCN_LAT_US"
 TOPO_PHASE_OVERHEAD_US = "TOPO_PHASE_OVERHEAD_US"
-# The measured cost model (on by default in the JAX package): the port
-# has no fit yet (it waits for the dispatch histograms of ROADMAP Queue A
-# entry A1), so it prices with the static fields whatever this says.
+# The measured cost model (topo/fit.py): fit effective link parameters
+# from the eager collectives' dispatch histograms and prefer them over the
+# static TOPO_* fields; on (default) | off.
 TOPO_FIT = "TOPO_FIT"
+TOPO_FIT_MIN_OBS = "TOPO_FIT_MIN_OBS"  # observations before the first fit
+TOPO_FIT_REFIT_EVERY = "TOPO_FIT_REFIT_EVERY"  # new observations between refits
+# TrainStep tunes the fusion threshold, the hierarchical allreduce and the
+# quantized wire by itself (utils/autotune.py; default off); its window
+# records go to AUTOTUNE_LOG as CSV when set.
+AUTOTUNE = "AUTOTUNE"
+AUTOTUNE_LOG = "AUTOTUNE_LOG"
+# The persistent schedule store (sched/store.py): a JSON file of tuned
+# winners, and how far the cost model may disagree with an entry's
+# recorded price before the entry is stale (default 4x).
+TUNE_DB = "TUNE_DB"
+TUNE_STALE_FACTOR = "TUNE_STALE_FACTOR"
+# The structured elastic event log (events.py): a JSONL path.
+ELASTIC_EVENT_LOG = "ELASTIC_EVENT_LOG"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 # Fusion buffers are padded to this many bytes (ops/fusion.py
