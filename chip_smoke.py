@@ -4825,6 +4825,15 @@ def tune_worker(hvd) -> dict:
                     problems.append(f"int8 probe replay: launches {got}, want {want} "
                                     f"({c['buckets']} buckets)")
                 run["int8_launches"] = dict(got, buckets=c["buckets"])
+            # Every rank follows rank 0: the same windows, scores and frozen
+            # variant (utils/autotune.py).
+            every = [None] * n
+            dist.all_gather_object(every, [run["frozen"], [
+                [w["threshold"], w["hierarchical"], w["quantized"], w["score"],
+                 list(w["calls"])] for w in at.windows]])
+            run["ranks_agree"] = all(e == every[0] for e in every)
+            if not run["ranks_agree"]:
+                problems.append(f"the ranks froze or windowed apart: {every}")
             if not run["int8_calls"]:
                 problems.append("the int8 probe never ran")
             elif on_card and not run["int8_launches"]:
@@ -4910,7 +4919,12 @@ def tune_worker(hvd) -> dict:
     os.environ.pop("HVD_TPU_TOPO")
     topo_model.reset()
 
-    # 3. The measured cost model on the flat world (one NVLink domain).
+    # 3. The measured cost model on the flat world (one NVLink domain),
+    # asked for: unset, HVD_TPU_TOPO_FIT prices nothing on NCCL.
+    rec["fit_default"] = fit.enabled()
+    if dist.get_backend() == "nccl" and rec["fit_default"]:
+        problems.append("HVD_TPU_TOPO_FIT unset priced with the fit on NCCL")
+    os.environ["HVD_TPU_TOPO_FIT"] = "1"
     metrics.reset(fit.OBS_PREFIX)
     fit.reset()
     sizes = TUNE_FIT_SIZES if on_card else [s for s in TUNE_FIT_SIZES if s <= 1 << 20]
@@ -4948,6 +4962,7 @@ def tune_worker(hvd) -> dict:
         "static": [getattr(topo_model.current(), f) for f in (
             "phase_overhead_s", "ici_latency_s", "dcn_latency_s", "ici_gbps", "dcn_gbps")],
     }
+    os.environ.pop("HVD_TPU_TOPO_FIT")
     if len(cells) != 3 * len(sizes):
         problems.append(f"the fit saw {len(cells)} cells, want {3 * len(sizes)}")
 
@@ -4983,7 +4998,8 @@ def print_tune_world(rec, card) -> None:
               f"lowering {'hier' if fz[1] else 'flat'}, wire {'int8' if fz[2] else 'fp'}; the "
               f"int8 probe ran {r['int8_calls']} calls, per replay {r['int8_launches']} (= "
               f"expected: B6/B7 once per ring bucket, B3 twice and B4, B5 once per bucket "
-              f"past the ring's cap); replicas bitwise after convergence, "
+              f"past the ring's cap); every rank followed rank 0's windows and froze its "
+              f"variant: {r['ranks_agree']}; replicas bitwise after convergence, "
               f"{r['graphs_after']} graph held; on {card}", flush=True)
     print(f"phase slice tune world: kernels the int8 probes launched: "
           f"{rec['int8_kernels']}", flush=True)
@@ -5004,9 +5020,9 @@ def print_tune_world(rec, card) -> None:
               ", ".join(f"{k} {v:.4g}" for k, v in f["fitted"].items()
                         if k not in ("fields", "n_cells"))
               + f" (fitted {f['fitted']['fields']} from {f['fitted']['n_cells']} cells)")
-    print(f"phase slice tune world: measured cost model (HVD_TPU_TOPO_FIT on, flat world "
-          f"of 4): {cells}; fit.refresh(force=True): {fitted}; static "
-          f"{f['static']} on {card}", flush=True)
+    print(f"phase slice tune world: measured cost model (HVD_TPU_TOPO_FIT=1, flat world "
+          f"of 4; unset, the fit prices: {rec['fit_default']}): {cells}; "
+          f"fit.refresh(force=True): {fitted}; static {f['static']} on {card}", flush=True)
     print(f"phase slice tune world: fault plan topo.dcn_phase:slow:rank=1,"
           f"secs={TUNE_FAULT_SECS} on every rank: capture_blocker: {rec['fault_blocker']}; "
           f"the step ran eagerly; fired per rank {rec['fault_fired_by_rank']}; one "

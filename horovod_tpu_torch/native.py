@@ -7,13 +7,13 @@ this module, exposing:
 
   fusion_plan       bucketing (reference FuseResponses); ``ops/fusion.py``
                     ``bucket_plan`` prefers it
-  ResponseCache     LRU negotiation-cache analog
-  NativeTimeline    chrome-tracing writer thread
-  StallInspector    pending-op watchdog
-  ControllerServer/ControllerClient  authenticated TCP KV + barrier
   Autotune          GP/EI tuner (``utils/autotune.py``)
   encode_request/decode_request/encode_response/decode_response  the wire
                     codec of the eager consistency check (``ops/eager.py``)
+
+The library also holds the JAX package's response cache, timeline
+writer, stall inspector and TCP controller; the port binds them with
+the entries that will call them (``ROADMAP.md`` Queue A).
 
 :func:`load` builds the library with ``g++`` at first use into
 ``horovod_tpu_torch/_build/native/`` (never under ``horovod_tpu/``),
@@ -134,32 +134,6 @@ def _configure(lib: ctypes.CDLL) -> None:
         c.POINTER(c.c_int64), c.POINTER(c.c_int32), c.c_int64, c.c_int64,
         c.POINTER(c.c_int64),
     ]
-    lib.hvd_cache_new.restype = c.c_void_p
-    lib.hvd_cache_new.argtypes = [c.c_int64]
-    lib.hvd_cache_free.argtypes = [c.c_void_p]
-    lib.hvd_cache_lookup.restype = c.c_int32
-    lib.hvd_cache_lookup.argtypes = [c.c_void_p, c.c_char_p, c.c_uint64]
-    lib.hvd_cache_erase.argtypes = [c.c_void_p, c.c_char_p]
-    lib.hvd_cache_size.restype = c.c_int64
-    lib.hvd_cache_size.argtypes = [c.c_void_p]
-    lib.hvd_timeline_open.restype = c.c_void_p
-    lib.hvd_timeline_open.argtypes = [c.c_char_p]
-    lib.hvd_timeline_close.argtypes = [c.c_void_p]
-    lib.hvd_timeline_event.argtypes = [
-        c.c_void_p, c.c_char_p, c.c_char_p, c.c_char, c.c_int64, c.c_int64,
-        c.c_int32, c.c_int32, c.c_int64,
-    ]
-    lib.hvd_timeline_dropped.restype = c.c_int64
-    lib.hvd_timeline_dropped.argtypes = [c.c_void_p]
-    lib.hvd_stall_new.restype = c.c_void_p
-    lib.hvd_stall_new.argtypes = [c.c_double, c.c_double]
-    lib.hvd_stall_free.argtypes = [c.c_void_p]
-    lib.hvd_stall_begin.argtypes = [c.c_void_p, c.c_char_p]
-    lib.hvd_stall_end.argtypes = [c.c_void_p, c.c_char_p]
-    lib.hvd_stall_report.restype = c.c_int64
-    lib.hvd_stall_report.argtypes = [
-        c.c_void_p, c.c_char_p, c.c_int64, c.POINTER(c.c_int32)
-    ]
     lib.hvd_wire_encode_request.restype = c.c_int64
     lib.hvd_wire_encode_request.argtypes = [
         c.c_int32, c.c_int32, c.c_int32, c.c_int32, c.POINTER(c.c_int64),
@@ -183,27 +157,6 @@ def _configure(lib: ctypes.CDLL) -> None:
         c.c_int64, c.c_char_p, c.c_int64, c.POINTER(c.c_int64), c.c_int32,
         c.POINTER(c.c_int32),
     ]
-    lib.hvd_ctrl_server_start.restype = c.c_void_p
-    lib.hvd_ctrl_server_start.argtypes = [c.c_char_p, c.c_int32, c.c_char_p,
-                                          c.c_int32]
-    lib.hvd_ctrl_server_port.restype = c.c_int32
-    lib.hvd_ctrl_server_port.argtypes = [c.c_void_p]
-    lib.hvd_ctrl_server_stop.argtypes = [c.c_void_p]
-    lib.hvd_ctrl_client_connect.restype = c.c_void_p
-    lib.hvd_ctrl_client_connect.argtypes = [c.c_char_p, c.c_int32, c.c_char_p,
-                                            c.c_int32]
-    lib.hvd_ctrl_client_close.argtypes = [c.c_void_p]
-    lib.hvd_ctrl_put.restype = c.c_int32
-    lib.hvd_ctrl_put.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p,
-                                 c.POINTER(c.c_uint8), c.c_int64]
-    lib.hvd_ctrl_get.restype = c.c_int64
-    lib.hvd_ctrl_get.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p,
-                                 c.POINTER(c.c_uint8), c.c_int64, c.c_int64]
-    lib.hvd_ctrl_delete_scope.restype = c.c_int32
-    lib.hvd_ctrl_delete_scope.argtypes = [c.c_void_p, c.c_char_p]
-    lib.hvd_ctrl_barrier.restype = c.c_int32
-    lib.hvd_ctrl_barrier.argtypes = [c.c_void_p, c.c_char_p, c.c_int32,
-                                     c.c_int64]
     lib.hvd_autotune_new.restype = c.c_void_p
     lib.hvd_autotune_new.argtypes = [c.c_double, c.c_double]
     lib.hvd_autotune_free.argtypes = [c.c_void_p]
@@ -234,217 +187,6 @@ def fusion_plan(
     for i in range(n):
         buckets[out[i]].append(i)
     return buckets
-
-
-# ----------------------------------------------------------------- cache
-
-class ResponseCache:
-    def __init__(self, capacity: int = 1024):
-        self._lib = load()
-        if self._lib is None:
-            raise RuntimeError("native core unavailable")
-        self._h = self._lib.hvd_cache_new(capacity)
-
-    def lookup(self, name: str, signature: int) -> bool:
-        return bool(
-            self._lib.hvd_cache_lookup(self._h, name.encode(), signature)
-        )
-
-    def erase(self, name: str) -> None:
-        self._lib.hvd_cache_erase(self._h, name.encode())
-
-    def __len__(self) -> int:
-        return self._lib.hvd_cache_size(self._h)
-
-    def close(self) -> None:
-        if self._h:
-            self._lib.hvd_cache_free(self._h)
-            self._h = None
-
-
-# -------------------------------------------------------------- timeline
-
-class NativeTimeline:
-    """Native chrome-tracing writer (preferred over the Python one)."""
-
-    def __init__(self, path: str, rank: Optional[int] = None):
-        self._lib = load()
-        if self._lib is None:
-            raise RuntimeError("native core unavailable")
-        self._h = self._lib.hvd_timeline_open(path.encode())
-        if not self._h:
-            raise OSError(f"cannot open timeline file {path}")
-        import time
-
-        self._t0 = time.perf_counter()
-        # Merge metadata: the C writer has a fixed event ABI with no args
-        # payload, so rank + wall-clock epoch base go to a JSON sidecar.
-        import json
-        import socket
-
-        from . import runtime
-
-        if rank is None:
-            rank = runtime.rank() if runtime.is_initialized() else 0
-        self.rank = int(rank)
-        try:
-            with open(path + ".hvdmeta.json", "w") as fh:
-                json.dump({
-                    "rank": self.rank,
-                    "hostname": socket.gethostname(),
-                    "pid": os.getpid(),
-                    "epoch_wall_us": time.time() * 1e6,
-                }, fh)
-        except OSError:
-            pass  # merge falls back to positional lanes
-
-    def _now_us(self) -> int:
-        import time
-
-        return int((time.perf_counter() - self._t0) * 1e6)
-
-    def record_op(self, name: str, activity: str, nbytes: int) -> None:
-        self._lib.hvd_timeline_event(
-            self._h, name.encode(), activity.encode(), b"X", self._now_us(),
-            1, os.getpid(), 0, nbytes,
-        )
-
-    def begin(self, name: str, activity: str) -> None:
-        self._lib.hvd_timeline_event(
-            self._h, name.encode(), activity.encode(), b"B", self._now_us(),
-            0, os.getpid(), 0, -1,
-        )
-
-    def end(self, name: str, activity: str) -> None:
-        self._lib.hvd_timeline_event(
-            self._h, name.encode(), activity.encode(), b"E", self._now_us(),
-            0, os.getpid(), 0, -1,
-        )
-
-    def record_span(self, name: str, activity: str, ts_us: float,
-                    dur_us: float, args: Optional[dict] = None) -> None:
-        """Measured duration event (profiler-extracted ts/dur) on the
-        measured lane (tid 1) — see ``Timeline.record_span``."""
-        self._lib.hvd_timeline_event(
-            self._h, name.encode(), activity.encode(), b"X",
-            int(ts_us), max(int(dur_us), 1), os.getpid(), 1, -1,
-        )
-
-    def mark_cycle(self) -> None:
-        self._lib.hvd_timeline_event(
-            self._h, b"CYCLE", b"CYCLE", b"i", self._now_us(), 0,
-            os.getpid(), 0, -1,
-        )
-
-    def dropped(self) -> int:
-        return self._lib.hvd_timeline_dropped(self._h)
-
-    def close(self) -> None:
-        if self._h:
-            self._lib.hvd_timeline_close(self._h)
-            self._h = None
-
-
-# ----------------------------------------------------------------- stall
-
-class StallInspector:
-    """Pending-op watchdog (reference stall_inspector.cc)."""
-
-    def __init__(self, warn_seconds: float = 60.0, shutdown_seconds: float = 0.0):
-        self._lib = load()
-        if self._lib is None:
-            raise RuntimeError("native core unavailable")
-        self._h = self._lib.hvd_stall_new(warn_seconds, shutdown_seconds)
-
-    def begin(self, name: str) -> None:
-        self._lib.hvd_stall_begin(self._h, name.encode())
-
-    def end(self, name: str) -> None:
-        self._lib.hvd_stall_end(self._h, name.encode())
-
-    def report(self) -> Tuple[List[str], bool]:
-        buf = ctypes.create_string_buffer(65536)
-        shutdown = ctypes.c_int32(0)
-        n = self._lib.hvd_stall_report(self._h, buf, len(buf), ctypes.byref(shutdown))
-        names = [s for s in buf.value.decode().split("\n") if s] if n else []
-        return names, bool(shutdown.value)
-
-    def close(self) -> None:
-        if self._h:
-            self._lib.hvd_stall_free(self._h)
-            self._h = None
-
-
-# ------------------------------------------------------------ controller
-
-class ControllerServer:
-    """Launcher-side KV/barrier service (reference RendezvousServer)."""
-
-    def __init__(self, secret: str, world: int, bind_host: str = "0.0.0.0",
-                 port: int = 0):
-        self._lib = load()
-        if self._lib is None:
-            raise RuntimeError("native core unavailable")
-        self._h = self._lib.hvd_ctrl_server_start(
-            bind_host.encode(), port, secret.encode(), world
-        )
-        if not self._h:
-            raise OSError("controller server failed to start")
-
-    @property
-    def port(self) -> int:
-        return self._lib.hvd_ctrl_server_port(self._h)
-
-    def stop(self) -> None:
-        if self._h:
-            self._lib.hvd_ctrl_server_stop(self._h)
-            self._h = None
-
-
-class ControllerClient:
-    """Worker-side client (reference gloo http_store client)."""
-
-    def __init__(self, host: str, port: int, secret: str, rank: int):
-        self._lib = load()
-        if self._lib is None:
-            raise RuntimeError("native core unavailable")
-        self._h = self._lib.hvd_ctrl_client_connect(
-            host.encode(), port, secret.encode(), rank
-        )
-        if not self._h:
-            raise OSError(f"cannot connect controller at {host}:{port}")
-
-    def put(self, scope: str, key: str, value: bytes) -> None:
-        buf = (ctypes.c_uint8 * len(value)).from_buffer_copy(value) if value else None
-        rc = self._lib.hvd_ctrl_put(
-            self._h, scope.encode(), key.encode(), buf, len(value)
-        )
-        if rc != 0:
-            raise OSError("controller put failed")
-
-    def get(self, scope: str, key: str, timeout_ms: int = -1) -> Optional[bytes]:
-        cap = 64 << 20
-        buf = (ctypes.c_uint8 * cap)()
-        n = self._lib.hvd_ctrl_get(
-            self._h, scope.encode(), key.encode(), buf, cap, timeout_ms
-        )
-        if n < 0:
-            return None
-        return bytes(buf[: min(n, cap)])
-
-    def delete_scope(self, scope: str) -> None:
-        self._lib.hvd_ctrl_delete_scope(self._h, scope.encode())
-
-    def barrier(self, name: str, count: int, timeout_ms: int = -1) -> bool:
-        return (
-            self._lib.hvd_ctrl_barrier(self._h, name.encode(), count, timeout_ms)
-            == 0
-        )
-
-    def close(self) -> None:
-        if self._h:
-            self._lib.hvd_ctrl_client_close(self._h)
-            self._h = None
 
 
 # -------------------------------------------------------------- autotune

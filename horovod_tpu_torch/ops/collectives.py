@@ -12,8 +12,9 @@ tensor (NCCL on the card, gloo on the CPU).  Each may be started with
 ``async_op=True``, which returns a :class:`Pending` in place of the
 result; ``ops/eager.py`` builds the eager API's handles on it.
 
-``HVD_TPU_HIERARCHICAL_ALLREDUCE`` (or :func:`set_hierarchical_override`,
-which the autotune driver's second knob sets; ``:328-357``) stages a
+``HVD_TPU_HIERARCHICAL_ALLREDUCE`` (``:328-357``), or ``hierarchical=True``
+(what a tuned optimizer passes; the JAX package's
+``set_hierarchical_override`` has no counterpart), stages a
 world Sum or Average as an intra-host reduce-scatter, a cross-host sum
 of the shard and an intra-host all-gather (:func:`_hierarchical_sum`,
 ``:281``), on the host grid of :func:`host_groups`; anything that is not
@@ -76,21 +77,11 @@ Product = ReduceOp.PRODUCT
 
 _DIST_OPS = {Sum: dist.ReduceOp.SUM, Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX}
 
-# The hierarchical allreduce a tuned step runs under (utils/autotune.py,
-# set by TrainStep around each call); None reads the knob.
-_hierarchical_override: Optional[bool] = None
-
-
-def set_hierarchical_override(value: Optional[bool]) -> None:
-    global _hierarchical_override
-    _hierarchical_override = value
-
-
 def hierarchical_enabled() -> bool:
-    """The override when set, else ``HVD_TPU_HIERARCHICAL_ALLREDUCE``."""
-    if _hierarchical_override is not None:
-        return bool(_hierarchical_override)
+    """``HVD_TPU_HIERARCHICAL_ALLREDUCE``."""
     return env.get_bool(env.HIERARCHICAL_ALLREDUCE, False)
+
+
 # The newer names of all_gather_into_tensor and reduce_scatter_tensor,
 # where this torch has them (the older ones warn there).
 _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)

@@ -9,8 +9,9 @@ mixed-precision look-ahead bound, so both packages plan identical
 buckets from the same sizes and dtypes: the native core's planner
 (``native.fusion_plan``, ``cpp/src/fusion.cc``) where it is built and
 its plan keeps the look-ahead bound (``:113-126``), else the same plan
-in Python.  ``set_threshold_override`` is the autotune driver's
-candidate threshold (``:32-40``), used where the caller passes none.
+in Python.  The autotune driver's candidate threshold reaches the plan
+through the optimizer (``optim/distributed_optimizer.py``), not through
+a module override as in the JAX package (``:32-40``).
 """
 
 from __future__ import annotations
@@ -22,21 +23,6 @@ import torch
 from ..utils import env
 
 Meta = Tuple[Any, ...]
-
-# The fusion threshold a tuned step runs under (utils/autotune.py, set by
-# TrainStep around each call); consulted only where the caller passes no
-# threshold.
-_threshold_override: int | None = None
-
-
-def set_threshold_override(threshold_bytes: int | None) -> None:
-    global _threshold_override
-    _threshold_override = threshold_bytes
-
-
-def threshold_override() -> int | None:
-    return _threshold_override
-
 
 def flatten_group(xs: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], Meta]:
     """Concatenate tensors into one new flat 1-D buffer per dtype.
@@ -84,12 +70,7 @@ def bucket_plan(
     3; negative = unbounded).  A threshold of 0 gives one bucket per
     tensor.  Returns buckets as lists of tensor indices."""
     if threshold_bytes is None:
-        if _threshold_override is not None:
-            threshold_bytes = _threshold_override
-        else:
-            threshold_bytes = env.get_int(
-                env.FUSION_THRESHOLD, env.DEFAULT_FUSION_THRESHOLD
-            )
+        threshold_bytes = env.get_int(env.FUSION_THRESHOLD, env.DEFAULT_FUSION_THRESHOLD)
     if look_ahead is None:
         look_ahead = env.get_int(env.SCHED_LOOK_AHEAD, 3)
     if threshold_bytes <= 0:

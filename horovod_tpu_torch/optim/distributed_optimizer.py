@@ -83,12 +83,13 @@ Autotuning (``HVD_TPU_AUTOTUNE=1``, ``:974-990``, ``:1040-1142``): a
 hierarchical allreduce, then (``HVD_TPU_AUTOTUNE_EXPLORE_QUANTIZED=1``,
 where :attr:`quant_eligible`) the int8 wire, with
 ``utils/autotune.py`` ``AutotuneDriver``.  Each call runs under the
-driver's suggestion, set around it as overrides the plan reads:
-``ops/fusion.py`` ``set_threshold_override``, ``ops/collectives.py``
-``set_hierarchical_override`` and :func:`set_quantized_override` (an
-int8 wire on every eligible bucket, without error feedback, as the JAX
-probe runs).  The overrides are part of the plan's key, so each variant
-plans its own buckets.
+driver's suggestion, which the step hands to the optimizer
+(:attr:`_DistributedOptimizer.variant`): the fusion threshold where the
+optimizer was given none, the hierarchical allreduce of its dense
+buckets (else ``HVD_TPU_HIERARCHICAL_ALLREDUCE``), and an int8 wire on
+every eligible bucket, without error feedback, as the JAX probe runs.
+The variant is part of the plan's key, so each variant plans its own
+buckets; nothing outside the optimizer sees it.
 
 Sparse gradients (``nn.Embedding(sparse=True)``; ``:208-270``): unless
 ``sparse_as_dense``, a sparse gradient leaves its bucket (a zero-length
@@ -131,16 +132,6 @@ from ..sched.plan import (
 )
 from ..utils import env
 from ..xir.interp import onestep_engaged, onestep_mode
-
-
-# The autotune driver's quantized-wire probe (``:50-55``): True runs every
-# eligible bucket on the int8 wire; set by TrainStep around each call.
-_quantized_override: Optional[bool] = None
-
-
-def set_quantized_override(value: Optional[bool]) -> None:
-    global _quantized_override
-    _quantized_override = value
 
 
 class _DistributedOptimizer:
@@ -223,6 +214,9 @@ class _DistributedOptimizer:
         self._prescale = prescale_factor
         self._postscale = postscale_factor
         self._fusion_threshold = fusion_threshold_bytes
+        # The autotune driver's (threshold, hierarchical, quantized), set
+        # by TrainStep before each call (None: not tuned).
+        self.variant: Optional[tuple] = None
         self._sparse_as_dense = sparse_as_dense
         self._params: List[torch.Tensor] = [
             p for group in optimizer.param_groups for p in group["params"]
@@ -302,9 +296,26 @@ class _DistributedOptimizer:
         return (not self._quantized and self._op in (Average, Sum)
                 and resolve(self._process_set) is None)
 
+    def _tuned_int8(self) -> bool:
+        """Whether the tuned variant probes the int8 wire (``:50-55``)."""
+        return self.variant is not None and bool(self.variant[2])
+
     def _quantizing(self) -> bool:
         """An explicit quantized compressor, or the tuner's int8 probe."""
-        return self._quantized or bool(_quantized_override)
+        return self._quantized or self._tuned_int8()
+
+    def _threshold(self) -> Optional[int]:
+        """The fusion threshold given at construction, else the tuned
+        variant's (None: the knob's)."""
+        if self._fusion_threshold is not None or self.variant is None:
+            return self._fusion_threshold
+        return self.variant[0]
+
+    def _hierarchical(self) -> bool:
+        """The tuned variant's hierarchical allreduce where it sets one,
+        else ``HVD_TPU_HIERARCHICAL_ALLREDUCE``."""
+        tuned = None if self.variant is None else self.variant[1]
+        return collectives.hierarchical_enabled() if tuned is None else bool(tuned)
 
     @property
     def point_to_point(self) -> bool:
@@ -441,8 +452,8 @@ class _DistributedOptimizer:
             tuple(dtype_name(w.dtype) for w in wire),
             cfg,
             env.get_env(env.TOPO),
-            (fusion.threshold_override(), bool(_quantized_override),
-             collectives.hierarchical_enabled()),
+            self.variant,
+            self._hierarchical(),
         )
 
     def _plan(self, key: tuple) -> BucketSchedule:
@@ -453,18 +464,25 @@ class _DistributedOptimizer:
         if self._schedule is not None and key == self._schedule_key:
             return self._schedule
         if cfg.enabled:
-            # Every rank plans from rank 0's observation, so all ranks
-            # issue the same collectives in the same order.  An explicit
-            # quantized compressor wins over HVD_TPU_SCHED_WIRE.
-            order = runtime.broadcast_object(observed, root_rank=0)
+            # Every rank plans from rank 0's observation and prices the
+            # lowerings with rank 0's measured fit, so all ranks issue the
+            # same collectives in the same order.  An explicit quantized
+            # compressor wins over HVD_TPU_SCHED_WIRE.
+            from ..topo import fit
+
+            several = runtime.size() > 1
+            mine = fit.local_params() if several and runtime.rank() == 0 else None
+            order, shared = runtime.broadcast_object((observed, mine), root_rank=0)
+            if several:
+                fit.share(shared)
             wire = (self._compression.wire_format if self._quantized
-                    else "int8" if _quantized_override else None)
+                    else "int8" if self._tuned_int8() else None)
             schedule = build_schedule(
                 sizes, dtypes, cfg, order=order, pinned=self._pinned, wire=wire,
                 lowering=self._lower_request(cfg, self._op, resolve(self._process_set)),
                 axis_size=runtime.size())
             if (any(b.lowering != "flat" for b in schedule.buckets)
-                    or collectives.hierarchical_enabled()):
+                    or self._hierarchical()):
                 from ..topo import hierarchical
 
                 # The intra and cross groups, made here on every rank (never
@@ -475,7 +493,7 @@ class _DistributedOptimizer:
             # HVD_TPU_SCHED=off: in-order buckets on the dense wire.
             schedule = build_schedule(
                 sizes, dtypes,
-                dataclasses.replace(cfg, bucket_bytes=self._fusion_threshold),
+                dataclasses.replace(cfg, bucket_bytes=self._threshold()),
                 order=range(len(sizes)), pinned=self._pinned, wire="off",
             )
         self._schedule_key, self._schedule = key, schedule
@@ -483,10 +501,8 @@ class _DistributedOptimizer:
 
     def _config(self) -> SchedConfig:
         cfg = SchedConfig.from_env()
-        if cfg.bucket_bytes is None and self._fusion_threshold is not None:
-            cfg = dataclasses.replace(
-                cfg, bucket_bytes=self._fusion_threshold
-            )
+        if cfg.bucket_bytes is None and self._threshold() is not None:
+            cfg = dataclasses.replace(cfg, bucket_bytes=self._threshold())
         return cfg
 
     def _grad_ready(self, idx: int) -> None:
@@ -549,7 +565,7 @@ class _DistributedOptimizer:
         replaced by a zero-length placeholder."""
         if self._sparse_as_dense:
             return densify(g)
-        if self._quantized_req or _quantized_override:
+        if self._quantized_req or self._tuned_int8():
             raise QuantizedWireError(
                 "the quantized wire does not take sparse gradients (the "
                 "quantizer lives inside the dense two-phase reduction); "
@@ -619,7 +635,7 @@ class _DistributedOptimizer:
             return g if self._postscale == 1.0 else g * self._postscale
         return collectives.allreduce_(
             f, self._op, self._prescale, self._postscale,
-            process_set=self._process_set,
+            process_set=self._process_set, hierarchical=self._hierarchical(),
         )
 
     def synchronize(self) -> None:
@@ -972,7 +988,11 @@ class TrainStep:
     docstring).  The variant is part of each graph's signature beside
     the batch's, so the variants explored keep their graphs side by side
     up to ``MAX_GRAPHS`` (least recently replayed dropped past it) and a
-    variant seen before replays at once.  A window times only settled
+    variant seen before replays at once.  The variant reaches the plan
+    through the optimizer alone (``optimizer.variant``), so the
+    collectives a user's ``loss_fn`` issues keep their own knobs.  In a
+    world of several ranks every rank follows rank 0's scores
+    (``AutotuneDriver.after_step``).  A window times only settled
     steps: a new variant's ``CAPTURE_WARMUP`` eager steps and its capture
     are reported unsettled (:attr:`last_settled`), so the window's clock
     starts after them and its scores compare replays with replays, where
@@ -982,8 +1002,9 @@ class TrainStep:
     (``:1047-1058``).  A quantized probe whose step raises
     :class:`QuantizedWireError` (a sparse gradient) makes the driver
     reject the knob and the call is run again on the variant without it
-    (``:1104-1117``); its gradients are cleared first, but its forward
-    ran twice (BatchNorm's running statistics saw the batch twice)."""
+    (``:1104-1117``), within the same call: ``train.steps`` counts it
+    once.  Its gradients are cleared first, but its forward ran twice
+    (BatchNorm's running statistics saw the batch twice)."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Callable[[torch.nn.Module, object], torch.Tensor]):
@@ -1009,40 +1030,41 @@ class TrainStep:
 
     def __call__(self, batch) -> torch.Tensor:
         at = self.autotune
-        variant = None
-        if at is not None:
-            variant = (at.threshold_bytes(), at.hierarchical(), at.quantized())
-            if at.converged and any(sig[0] != variant for sig in self._graphs):
-                # Exploration over: drop the losing variants' graphs.
-                self._evict([sig for sig in self._graphs if sig[0] != variant])
-                for sig in [sig for sig in self._warm if sig[0] != variant]:
-                    del self._warm[sig]
         t0 = time.perf_counter()
-        fusion.set_threshold_override(None if variant is None else variant[0])
-        collectives.set_hierarchical_override(None if variant is None else variant[1])
-        set_quantized_override(None if variant is None else variant[2])
         try:
-            out = self._call(batch, variant)
-        except QuantizedWireError:
-            if (variant is not None and variant[2] and not at.converged
-                    and variant not in self._seen_variants):
-                # The probe's step cannot take the int8 wire: reject the
-                # knob, clear what the failed step left and run again.
-                at.reject_quantized()
-                self.optimizer.zero_grad(set_to_none=True)
-                self._forget(variant)
-                return self(batch)
-            raise
+            while True:
+                variant = None if at is None else self._variant()
+                try:
+                    out = self._call(batch, variant)
+                    break
+                except QuantizedWireError:
+                    if (variant is None or not variant[2] or at.converged
+                            or variant in self._seen_variants):
+                        raise
+                    # The probe's step cannot take the int8 wire: reject the
+                    # knob, clear what the failed step left and run again.
+                    at.reject_quantized()
+                    self.optimizer.zero_grad(set_to_none=True)
+                    self._forget(variant)
         finally:
-            fusion.set_threshold_override(None)
-            collectives.set_hierarchical_override(None)
-            set_quantized_override(None)
             metrics.observe("train.step_seconds", time.perf_counter() - t0)
             metrics.inc_counter("train.steps")
         if at is not None:
             self._seen_variants.add(variant)
             at.after_step(out, settled=self.last_settled)
         return out
+
+    def _variant(self) -> tuple:
+        """The driver's variant, handed to the optimizer; once the driver
+        has converged, the losing variants' graphs are dropped."""
+        at = self.autotune
+        variant = (at.threshold_bytes(), at.hierarchical(), at.quantized())
+        if at.converged and any(sig[0] != variant for sig in self._graphs):
+            self._evict([sig for sig in self._graphs if sig[0] != variant])
+            for sig in [sig for sig in self._warm if sig[0] != variant]:
+                del self._warm[sig]
+        self.optimizer.variant = variant
+        return variant
 
     def _forget(self, variant) -> None:
         """Drop what the step holds of ``variant``."""

@@ -85,6 +85,9 @@ class Runtime:
         # (topo/hierarchical.py), per factored layout: made on every rank
         # the first time the layout is asked for.
         self.topo_groups: dict = {}
+        # A gloo group over the world for host-side agreement on an NCCL
+        # world (host_group()), made on every rank at first use.
+        self.host_group = None
         self.process_set_table = ProcessSetTable(
             size, rank,
             new_group=(lambda ranks: dist.new_group(
@@ -129,6 +132,9 @@ class Runtime:
                 for kind in ("intra", "cross"):
                     dist.destroy_process_group(made[kind][0])
             self.topo_groups = {}
+            if self.host_group is not None:
+                dist.destroy_process_group(self.host_group)
+                self.host_group = None
             if self._owns_group:
                 dist.destroy_process_group()
 
@@ -310,6 +316,19 @@ def refuse_in_capture(what: str) -> None:
             "warm-up steps make its host collectives before it captures; "
             "HVD_TPU_ONESTEP, ROADMAP Queue A item A12a)"
         )
+
+
+def host_group():
+    """The world's group for a collective of host tensors that must not
+    wait for the card: the process group itself on gloo, else a gloo
+    group made on every rank the first time it is asked for (every rank
+    must ask at the same point of its program)."""
+    rt = get_runtime()
+    if rt.backend == "gloo":
+        return None
+    if rt.host_group is None:
+        rt.host_group = dist.new_group(backend="gloo")
+    return rt.host_group
 
 
 def broadcast_object(obj: Any, root_rank: int = 0) -> Any:

@@ -25,6 +25,11 @@ once the step is dispatched).  A captured step's replay returns once the
 graph is queued, so the score measures host dispatch, not the device's
 step time; ``PERF.md`` compares the two.
 
+In a world of several ranks every rank makes its tuner alike and closes
+its windows together, and every rank follows rank 0: each window's
+score is rank 0's (``utils/autotune.py`` ``world_score``), and so is the
+store's entry at a warm start, so no two ranks apply different knobs.
+
 The JAX package's rail-pipeliner dimension (``explore_pipeline``,
 ``HVD_TPU_XIR_PIPELINE``) has no knob in the port yet and is left out.
 """
@@ -36,7 +41,7 @@ from typing import Dict, Optional
 
 from .. import metrics
 from ..utils import env
-from ..utils.autotune import FusionAutotuner
+from ..utils.autotune import FusionAutotuner, world_score
 
 
 def registry_view() -> Dict[str, float]:
@@ -206,6 +211,10 @@ class ScheduleTuner:
                 else make_key(store_key, kind=store_kind)
             )
             entry = store.lookup(self._store_key)
+            from .. import runtime
+
+            if runtime.is_initialized() and runtime.size() > 1:
+                entry = runtime.broadcast_object(entry, root_rank=0)
             if entry is not None:
                 self._warm_start(entry)
             else:
@@ -362,7 +371,7 @@ class ScheduleTuner:
         search)."""
         if self._baseline is None:
             return 0.0
-        score = window_score(self._baseline, registry_view())
+        score = world_score(window_score(self._baseline, registry_view()))
         self._baseline = None
         if score <= 0.0:
             return score

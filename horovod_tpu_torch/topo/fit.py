@@ -26,13 +26,24 @@ real cluster matches; this module fits them from what was measured:
    Fitted values surface as ``topo.fitted_*`` gauges;
    ``HVD_TPU_TOPO_FIT=off`` restores static pricing.
 
+Two things differ from the JAX package.  ``HVD_TPU_TOPO_FIT`` unset is
+off on an NCCL process group and on elsewhere (see below); ``on`` or
+``1`` turns the fit on there too.  And in a world of several ranks the
+pricing reads rank 0's fit, which the data-parallel plan broadcasts
+(:func:`share`, from ``optim/distributed_optimizer.py`` ``_plan``):
+each rank refits on its own clock, and two fits could resolve one
+bucket ``flat`` on one rank and ``hier`` on another, whose collectives
+would then not match.  Until a plan has shared one, every rank prices
+statically.
+
 What an observation is on the card: the eager layer times the *host*
 dispatch of a collective, as the JAX package does.  An NCCL call returns
 once its kernel is queued on the stream, so on an H100 a cell holds the
 enqueue cost (microseconds, almost flat in the payload), not the
 transfer; gloo on the CPU blocks until the collective is done.  A fit
 over NCCL cells therefore prices the host overhead and reads a huge
-bandwidth (``PERF.md`` records what it fitted on the card).
+bandwidth (``PERF.md`` records what it fitted on the card), which is
+why it prices nothing there unless asked to.
 """
 
 from __future__ import annotations
@@ -111,6 +122,9 @@ _fit_failed_logged = False
 # svc/ ResponseCache — fold this into their keys so a refit invalidates
 # them instead of pinning pre-fit flat/hier choices forever.
 _fit_epoch = 0
+# Rank 0's fit as the last plan broadcast it: what every rank prices
+# with in a world of several ranks (module docstring).
+_shared: Optional[FittedParams] = None
 
 
 def fit_epoch() -> int:
@@ -120,10 +134,25 @@ def fit_epoch() -> int:
 
 
 def enabled() -> bool:
-    """``HVD_TPU_TOPO_FIT`` policy: fitted pricing on by default,
-    ``off``/``0`` restores the static env-parameter model."""
-    raw = (env.get_env(env.TOPO_FIT, "on") or "on").strip().lower()
+    """``HVD_TPU_TOPO_FIT`` policy: ``off``/``0`` keeps the static
+    env-parameter model; unset, fitted pricing is on except on an NCCL
+    process group, whose cells hold enqueue times (module docstring)."""
+    raw = (env.get_env(env.TOPO_FIT) or "").strip().lower()
+    if not raw:
+        return _backend() != "nccl"
     return raw not in ("off", "0", "false", "no")
+
+
+def _backend() -> Optional[str]:
+    from .. import runtime
+
+    return runtime.get_runtime().backend if runtime.is_initialized() else None
+
+
+def _several_ranks() -> bool:
+    from .. import runtime
+
+    return runtime.is_initialized() and runtime.size() > 1
 
 
 def min_observations() -> int:
@@ -330,6 +359,22 @@ def refresh(topo=None, force: bool = False) -> Optional[FittedParams]:
     return _fitted
 
 
+def local_params() -> Optional[FittedParams]:
+    """This process's own fit (refreshed when due), or None when fitting
+    is disabled or nothing solvable was observed."""
+    return refresh() if enabled() else None
+
+
+def share(fp: Optional[FittedParams]) -> None:
+    """Adopt ``fp``, rank 0's :func:`local_params`, as the fit every
+    rank of a world of several prices with (module docstring)."""
+    global _shared, _fit_epoch
+    with _lock:
+        if fp != _shared:
+            _shared = fp
+            _fit_epoch += 1
+
+
 def fitted_params(topo=None) -> Optional[FittedParams]:
     """The current fitted parameters for ``topo``'s shape, or None when
     fitting is disabled, nothing solvable was observed, or the fit
@@ -337,10 +382,9 @@ def fitted_params(topo=None) -> Optional[FittedParams]:
     against the process-wide topology (``model.current()``) — the pod
     the observations came from — never against a caller's ad-hoc
     instance; an instance merely *reads* the fit when its shape
-    matches."""
-    if not enabled():
-        return None
-    fp = refresh()
+    matches.  In a world of several ranks this is the fit rank 0 last
+    shared (:func:`share`)."""
+    fp = _shared if _several_ranks() else local_params()
     if fp is None:
         return None
     if topo is not None and fp.topo_key != (topo.num_slices,
@@ -375,15 +419,16 @@ def reset() -> None:
     """Drop the fitted state and the observation cells (test isolation;
     called from ``topo.model.reset`` so one reset covers the package)."""
     global _fitted, _obs_count, _last_fit_at, _fit_failed_logged
-    global _fit_epoch
+    global _fit_epoch, _shared
     with _lock:
         # A reset changes effective pricing back to the static fields:
         # that is a parameter change too, so the epoch advances (the
         # memo-invalidation contract) — it never rewinds to 0, which
         # would collide with keys cached before the reset.
-        if _fitted is not None:
+        if _fitted is not None or _shared is not None:
             _fit_epoch += 1
         _fitted = None
+        _shared = None
         _obs_count = 0
         _last_fit_at = 0
         _fit_failed_logged = False

@@ -26,6 +26,20 @@ eager steps and the capture, so ``TrainStep`` reports each of them
 unsettled and the window restarts its clock after each, and times only
 replays.  A settled step (a replay, or any eager step) keeps the JAX
 rule, so on the CPU both packages time the same steps.
+
+In a world of several ranks each rank runs its own driver (the JAX
+package has one controller for the whole world), and the ranks must
+not decide apart: two ranks that froze different thresholds, lowerings
+or wires would issue collectives of different sizes and formats, which
+hangs or corrupts the sum.  So rank 0 decides.  Every call while the
+driver explores agrees on whether the step was settled (a MIN
+all-reduce of one flag: a fault plan can block the capture on one rank
+only), so every rank opens and closes the same windows, and each closed
+window's score is rank 0's (a broadcast) before it reaches the knob
+schedule, which is deterministic, the native GP/EI search included.
+Both go over host tensors (``runtime.host_group``: gloo beside NCCL),
+so the flag does not wait for the card's step; a converged driver
+issues nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +49,41 @@ from typing import Optional
 
 from . import env
 from .logging import get_logger
+
+
+def _world() -> bool:
+    """Whether the runtime is a world of several ranks."""
+    from .. import runtime
+
+    return runtime.is_initialized() and runtime.size() > 1
+
+
+def world_settled(settled: bool) -> bool:
+    """Whether the call was settled on every rank (module docstring)."""
+    if not _world():
+        return settled
+    import torch
+    import torch.distributed as dist
+
+    from .. import runtime
+
+    flag = torch.tensor([int(settled)], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=runtime.host_group())
+    return bool(flag.item())
+
+
+def world_score(score: float) -> float:
+    """Rank 0's ``score`` on every rank (module docstring)."""
+    if not _world():
+        return score
+    import torch
+    import torch.distributed as dist
+
+    from .. import runtime
+
+    value = torch.tensor([score], dtype=torch.float64)
+    dist.broadcast(value, src=0, group=runtime.host_group())
+    return float(value.item())
 
 
 class FusionAutotuner:
@@ -414,9 +463,11 @@ class AutotuneDriver:
         ``settled`` is False for a step that is not what the variant's
         later steps will be (a warm-up step or the capture of a new
         variant's graph): the window's clock restarts after it, so a
-        window times only settled steps (module docstring)."""
+        window times only settled steps.  In a world of several ranks
+        every rank follows rank 0 (module docstring)."""
         if self.converged:
             return
+        settled = world_settled(settled)
         self._calls += 1
         self._steps_in_window += 1
         if self._steps_in_window == 1 or not settled:
@@ -431,7 +482,7 @@ class AutotuneDriver:
             self._sync(out)
             dt = self._time.perf_counter() - self._t0
             timed_steps = self._steps_in_window - 1
-            score = timed_steps / max(dt, 1e-9)
+            score = world_score(timed_steps / max(dt, 1e-9))
             self.windows.append({
                 "threshold": self.tuner.threshold_bytes(),
                 "hierarchical": self.hierarchical(),

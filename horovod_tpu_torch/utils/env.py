@@ -63,7 +63,8 @@ TOPO_DCN_LAT_US = "TOPO_DCN_LAT_US"
 TOPO_PHASE_OVERHEAD_US = "TOPO_PHASE_OVERHEAD_US"
 # The measured cost model (topo/fit.py): fit effective link parameters
 # from the eager collectives' dispatch histograms and prefer them over the
-# static TOPO_* fields; on (default) | off.
+# static TOPO_* fields; on | off (unset: off on an NCCL process group,
+# whose cells hold enqueue times, on elsewhere).
 TOPO_FIT = "TOPO_FIT"
 TOPO_FIT_MIN_OBS = "TOPO_FIT_MIN_OBS"  # observations before the first fit
 TOPO_FIT_REFIT_EVERY = "TOPO_FIT_REFIT_EVERY"  # new observations between refits

@@ -159,12 +159,9 @@ def test_bucket_plan_prefers_native_and_matches_jax(seed, look_ahead, monkeypatc
         assert kept == (not jfusion._violates_look_ahead(native, dtypes, look_ahead))
         if kept:
             assert native == want
-    tfusion.set_threshold_override(1 << 16)
-    try:
-        assert tfusion.bucket_plan(sizes, dtypes) == \
-            jfusion.bucket_plan(sizes, dtypes, 1 << 16)
-    finally:
-        tfusion.set_threshold_override(None)
+    monkeypatch.setenv("HVD_TPU_FUSION_THRESHOLD", str(1 << 16))
+    assert tfusion.bucket_plan(sizes, dtypes) == \
+        jfusion.bucket_plan(sizes, dtypes, 1 << 16)
 
 
 # ------------------------------------------------------------ the tuners
@@ -606,7 +603,11 @@ def test_a_sparse_model_rejects_the_quantized_probe(monkeypatch):
                                     explore=False)
     at = step.autotune
     assert at.converged and at.quantized() is None and not at._quant_eligible
-    # The probe's call ran again without the int8 wire.
+    # The probe's call ran again without the int8 wire, within one call:
+    # the driver's four windowed calls, then the probe's, counted once.
+    assert at._calls == 4
+    assert tmetrics.get_counter("train.steps") == 5
+    assert tmetrics.get_histogram("train.step_seconds")["count"] == 5
     assert any(v[2] for v in plans)
     assert all(w != "int8" for p in plans.values() for _, w in p)
 

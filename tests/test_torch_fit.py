@@ -184,3 +184,26 @@ def test_refresh_gauges_and_pricing_match_jax(monkeypatch):
     got, want = advanced()
     assert got == want
     assert not tmetrics.histograms_by_prefix(tfit.OBS_PREFIX)
+
+
+def test_nccl_prices_statically_and_a_world_prices_with_rank_0s_fit(monkeypatch):
+    monkeypatch.setenv("HVD_TPU_TOPO_FIT_MIN_OBS", "1")
+    _, tt = _topos((2, 4))
+    _feed(_observations(tt, TRUTHS["mixed"], 3, ("flat", "hier")))
+    static = (tt.phase_overhead_s, tt.ici_latency_s, tt.dcn_latency_s,
+              tt.ici_gbps * 1e9, tt.dcn_gbps * 1e9)
+    fp = tfit.refresh(force=True)
+    assert fp is not None and tfit.effective_params(tt) != static
+    # Unset, the fit prices nothing on NCCL (its cells hold enqueue times).
+    monkeypatch.setattr(tfit, "_backend", lambda: "nccl")
+    assert not tfit.enabled() and tfit.effective_params(tt) == static
+    monkeypatch.setenv("HVD_TPU_TOPO_FIT", "1")
+    assert tfit.enabled() and tfit.fitted_params(tt) == fp
+    # Several ranks price with the fit rank 0 shared, none before it.
+    monkeypatch.setattr(tfit, "_several_ranks", lambda: True)
+    assert tfit.local_params() == fp and tfit.effective_params(tt) == static
+    epoch = tfit.fit_epoch()
+    tfit.share(fp)
+    assert tfit.fitted_params(tt) == fp and tfit.fit_epoch() == epoch + 1
+    tmodel.reset()
+    assert tfit.effective_params(tt) == static

@@ -26,7 +26,12 @@ the hierarchical Sum and Average allreduce and ``metric_average``.
   against the JAX ``metric_average`` fed the same rows (its runtime and
   process allgather stood in for four processes); and the eager
   histograms (``collective.<op>.bytes_hist``, ``.dispatch_seconds``) and
-  the fit's flat ``topo.obs.*`` cells the calls leave.
+  the fit's flat ``topo.obs.*`` cells the calls leave.  In the same
+  world, an ``AutotuneDriver`` and a ``ScheduleTuner`` on every rank, each
+  timing its windows on a clock of its own whose best variant differs by
+  rank, freeze rank 0's variant on every rank, over the same windows
+  (each alone freezes its own), and an unsettled call on one rank
+  restarts every rank's window.
 """
 
 import copy
@@ -300,6 +305,45 @@ _WORKER = textwrap.dedent("""
     from horovod_tpu_torch import faults, metrics
     from horovod_tpu_torch.ops import collectives
 
+    from horovod_tpu_torch.sched.tune import ScheduleTuner
+    from horovod_tpu_torch.utils import autotune
+
+
+    def tune_world(rank):
+        # An AutotuneDriver and a ScheduleTuner, each rank timing its
+        # windows on its own clock: rank r's best threshold is near
+        # 2^(18+2r), the hierarchical lowering wins on the even ranks, the
+        # int8 wire on rank 0 alone; rank 1 alone reports its third call
+        # unsettled.
+        os.environ.update(HVD_TPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES="3",
+                          HVD_TPU_AUTOTUNE_HIER_WINDOWS="1",
+                          HVD_TPU_AUTOTUNE_EXPLORE_QUANTIZED="1")
+        cost = lambda thr, hier, quant: 1e-3 * (1 + abs(np.log2(thr) - 18 - 2 * rank)) * (
+            0.5 if hier == (rank % 2 == 0) else 1.0) * (0.8 if quant == (rank == 0) else 1.0)
+        drv = autotune.AutotuneDriver(window_steps=3, quant_eligible=True)
+        clock = [0.0]
+        drv._time = types.SimpleNamespace(perf_counter=lambda: clock[0])
+        calls = 0
+        while not drv.converged and calls < 300:
+            clock[0] += cost(drv.threshold_bytes(), drv.hierarchical(), drv.quantized())
+            calls += 1
+            drv.after_step(torch.zeros(()), settled=not (rank == 1 and calls == 3))
+        frozen = [drv.threshold_bytes(), drv.hierarchical(), drv.quantized()]
+        windows = [[w["threshold"], w["hierarchical"], w["quantized"], w["score"],
+                    list(w["calls"])] for w in drv.windows]
+        tuner = ScheduleTuner(warmup_windows=3)
+        while not tuner.converged:
+            tuner.begin_window()
+            metrics.inc_counter("train.steps", 4)
+            metrics.observe("train.step_seconds", 4 * cost(tuner.bucket_bytes(), 0, 0))
+            tuner.end_window()
+        for k in ("HVD_TPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", "HVD_TPU_AUTOTUNE_HIER_WINDOWS",
+                  "HVD_TPU_AUTOTUNE_EXPLORE_QUANTIZED"):
+            os.environ.pop(k)
+        return (np.array(json.dumps(frozen)), np.array(json.dumps(windows)),
+                np.array(tuner.bucket_bytes()))
+
+
     rank, n, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     torch.set_num_threads(1)
     pair = hvd.ProcessSet([0, 1])
@@ -314,9 +358,9 @@ _WORKER = textwrap.dedent("""
             os.environ["HVD_TPU_HIERARCHICAL_ALLREDUCE"] = "1"
             res[f"hier|{name}"] = hvd.allreduce(x, op=op).numpy()
             os.environ.pop("HVD_TPU_HIERARCHICAL_ALLREDUCE")
-            collectives.set_hierarchical_override(True)
-            res[f"override|{name}"] = collectives.allreduce_(x.clone(), op).numpy()
-            collectives.set_hierarchical_override(None)
+            # "override": the explicit argument a tuned optimizer passes.
+            res[f"override|{name}"] = collectives.allreduce_(
+                x.clone(), op, hierarchical=True).numpy()
         faults.set_plan("topo.dcn_phase:slow:rank=1,secs=0.05,times=0")
         collectives.allreduce_(x.clone(), hvd.Sum, hierarchical=True)
         collectives.allreduce_(x.clone(), hvd.Sum, hierarchical=True)
@@ -333,10 +377,15 @@ _WORKER = textwrap.dedent("""
             hvd.reducescatter(y, op=hvd.Sum)
         hvd.allreduce(y, process_set=pair)
         res["snapshot"] = np.array(json.dumps(metrics.snapshot()))
+        tuned = tune_world(rank)
+        autotune._world, world = (lambda: None), autotune._world
+        res["tune|alone"] = tune_world(rank)[0]
+        autotune._world = world
+        res["tune|frozen"], res["tune|windows"], res["tune|sched"] = tuned
         np.savez(out + f"/rank{rank}.npz", **res)
     finally:
         hvd.shutdown()
-""").replace("import os, sys", "import json, os, sys")
+""").replace("import os, sys", "import json, os, sys, types")
 
 
 def _data():
@@ -490,3 +539,19 @@ def test_eager_histograms_and_fit_cells(world):
         cell = f"topo.obs.{c}.flat.n4.b11"
         assert hists[cell]["count"] == 4 and counters[cell + ".bytes"] == 4 * 2048
     assert not [k for k in hists if k.startswith("topo.obs.") and ".b11" not in k]
+
+
+def test_the_tuners_follow_rank_0(world):
+    _, ranks, _ = world
+    alone = [json.loads(str(ranks[r]["tune|alone"])) for r in range(N)]
+    frozen = [json.loads(str(ranks[r]["tune|frozen"])) for r in range(N)]
+    windows = [json.loads(str(ranks[r]["tune|windows"])) for r in range(N)]
+    # Alone, the ranks' clocks freeze different variants; together, every
+    # rank freezes rank 0's, over the same windows and scores.
+    assert len({json.dumps(a) for a in alone}) > 1
+    assert frozen == [alone[0]] * N
+    assert windows == [windows[0]] * N
+    # Rank 1's unsettled third call restarted every rank's first window.
+    assert windows[0][0][4] == [4, 5]
+    assert [int(ranks[r]["tune|sched"]) for r in range(N)] == [int(ranks[0]["tune|sched"])] * N
+
