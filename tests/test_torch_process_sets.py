@@ -244,7 +244,7 @@ _WORKER = textwrap.dedent("""
     torch.set_num_threads(1)
     SETS = SETS_LITERAL
     registered = [hvd.ProcessSet(r) for r in SETS.values()]
-    hvd.init("cpu", init_method="file://" + store, rank=rank, size=n, timeout_s=60,
+    hvd.init("cpu", init_method="file://" + store, rank=rank, size=n, timeout_s=300,
              process_sets=registered)
     sets = dict(zip(SETS, registered))
     sets["g"] = hvd.global_process_set()
@@ -538,33 +538,82 @@ def _data():
     return d
 
 
+# Every process of the world (the four ranks, and the JAX side in its own
+# interpreter) ends in about 30 s unloaded; the bounds below hold under
+# the test suite's six loaded workers, and name the process that broke one.
+WORLD_TIMEOUT = 600
+
+_JAX_SIDE = textwrap.dedent("""
+    import pickle, sys
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+    import pytest
+    sys.path.insert(0, sys.argv[1])
+    import test_torch_process_sets as t
+    data = dict(np.load(sys.argv[2] + "/data.npz"))
+    mp = pytest.MonkeyPatch()
+    try:
+        want = t._jax_world(data, mp)
+    finally:
+        mp.undo()
+        t.hvd.shutdown()
+    with open(sys.argv[2] + "/jax.pkl", "wb") as f:
+        pickle.dump(want, f)
+""")
+
+
+def _clean_env(**extra):
+    """The environment of a child of the world: this process's, less every
+    knob of either package and the launcher's rank variables, which a test
+    that ran before in this worker may have left set."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HVD_TPU_", "HOROVOD_"))
+           and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "XLA_FLAGS")}
+    env.update(extra, PYTHONPATH=ROOT)
+    return env
+
+
 def _run_world(tmp):
+    """The port's four ranks and the JAX package's results, each process
+    fresh: the JAX side runs :func:`_jax_world` in its own interpreter (as
+    the suite's ``conftest.py`` sets it up: eight CPU devices), so nothing
+    an earlier test left in this worker's JAX runtime, registry or
+    environment reaches it."""
     data = _data()
     np.savez(tmp / "data.npz", **data)
     script = tmp / "worker.py"
     script.write_text(_WORKER)
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HVD_TPU_CONSISTENCY_CHECK",
-              "HVD_TPU_DISABLE_GROUP_FUSION", "HVD_TPU_DYNAMIC_PROCESS_SETS",
-              "HVD_TPU_PROCESS_SETS", "HVD_TPU_SCHED_WIRE", "HVD_TPU_ONESTEP",
-              "HVD_TPU_QUANT_BACKEND", "HVD_TPU_QUANT_BLOCK"):
-        env.pop(k, None)
-    procs = []
+    (tmp / "jax_side.py").write_text(_JAX_SIDE)
+    cmds = [[sys.executable, str(script), str(r), str(N), str(tmp / "store"), str(tmp)]
+            for r in range(N)]
+    cmds.append([sys.executable, str(tmp / "jax_side.py"), os.path.dirname(__file__),
+                 str(tmp)])
+    names = [f"rank {r}" for r in range(N)] + ["the JAX side"]
+    envs = [_clean_env()] * N + [_clean_env(
+        JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_force_host_platform_device_count=8")]
+    procs, outs = [], []
     try:
-        for r in range(N):
-            procs.append(subprocess.Popen(
-                [sys.executable, str(script), str(r), str(N), str(tmp / "store"),
-                 str(tmp)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=150)[0] for p in procs]
+        for cmd, env in zip(cmds, envs):
+            procs.append(subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        for name, p in zip(names, procs):
+            try:
+                outs.append(p.communicate(timeout=WORLD_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                raise AssertionError(f"{name} did not finish within {WORLD_TIMEOUT} s:\n"
+                                     f"{p.communicate()[0]}")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out
-    return data, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(N)]
+    for name, p, out in zip(names, procs, outs):
+        assert p.returncode == 0, f"{name} exited with {p.returncode}:\n{out}"
+    with open(tmp / "jax.pkl", "rb") as f:
+        want = pickle.load(f)
+    return data, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(N)], want
 
 
 def _np(a):
@@ -769,9 +818,10 @@ def _jax_world(data, monkeypatch):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The port's gloo world of four, run once, beside the JAX package's
-    results on ``jax.devices()[:4]`` with the same sets.  Under xdist the
-    first worker to need them computes them and the others load them
-    (one file under the session's shared temporary root, behind a lock)."""
+    results on ``jax.devices()[:4]`` with the same sets, computed while
+    the ranks run (:func:`_run_world`).  Under xdist the first worker to
+    need them computes them and the others load them (one file under the
+    session's shared temporary root, behind a lock)."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
@@ -780,14 +830,7 @@ def world(tmp_path_factory):
         if path.exists():
             with open(path, "rb") as f:
                 return pickle.load(f)
-        data, ranks = _run_world(tmp_path_factory.mktemp("sets"))
-        hvd.shutdown()
-        mp = pytest.MonkeyPatch()
-        try:
-            want = _jax_world(data, mp)
-        finally:
-            mp.undo()
-            hvd.shutdown()
+        data, ranks, want = _run_world(tmp_path_factory.mktemp("sets"))
         with open(path, "wb") as f:
             pickle.dump((data, ranks, want), f)
     return data, ranks, want
