@@ -211,7 +211,19 @@ exits non-zero):
    reduce-scatter bitwise with its plain version and the shard within
    the int8 grid of the dense mean, B3 2, B4 1 and B5 1 per step (or B6
    and B7 once where the ring serves; the dispatch printed); persistent
-   bytes per rank and step ms.
+   bytes per rank and step ms.  On four cards (NCCL) also the dense
+   ``zero_train_step``, ``sched/zero1.py`` ``bucketed_zero_step`` on the
+   dense wire, on int8 with error feedback at the default fusion
+   threshold and at ``FSDP_RING_THRESHOLD`` (every bucket but the token
+   embedding's under the ring's cap: B6 and B7 once per such bucket per
+   step, B3 2, B4 1 and B5 1 per other bucket, two fallbacks each, the
+   first call of every kernel of the first step bitwise with its plain
+   version over every rank's inputs) and ``HVD_TPU_SCHED_MODE=
+   reduce_scatter`` under ``TrainStep`` (dense and bf16), each against
+   its reference (``FSDP_COMPARED``); and every sharded step and the
+   reduce-scatter mode captured (``HVD_TPU_ONESTEP=on``): losses and
+   weights bitwise with the eager run, one capture, the launches counted
+   on the replays, the graph's memory pool printed.
    Then slice topo: a world of four ranks (the same layouts) with
    ``HVD_TPU_TOPO=2x2`` (domains {0,1} and {2,3}).  The hierarchical
    allreduce (``topo/hierarchical.py``) of 16,489,448 dyadic float32
@@ -235,7 +247,10 @@ exits non-zero):
    ``TOPO_SYNC_BN_RTOL`` of one forward over the four batches
    concatenated), step ms; on NCCL each run captured
    (``HVD_TPU_ONESTEP=on``) bitwise with eager, one capture; on gloo
-   ``on`` refuses, its reason printed.
+   ``on`` refuses, its reason printed.  Before the ResNet runs, one
+   ``bucketed_zero_step`` on ``hier`` and one on ``hier_adasum``
+   (``TOPO_ZERO_ELEMS``): the weights bitwise with the plain chain on the
+   CPU (``plain_bucketed_zero``) and on every rank, no kernel launched.
 9. reference gpt: a small bf16 GPT (2 layers, width 128, 2 heads x 64,
    seq 256) for three steps on the card against the CPU path, to stated
    tolerances.
@@ -291,6 +306,7 @@ phases 1, 2 and 11 (its four-rank world with four cards or more),
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -3764,13 +3780,13 @@ def print_pipeline(rec, card) -> None:
 
 class KernelRecorder:
     """Records every call of B3, B4 and B5 made through ``quant_kernels``
-    (inputs and outputs on the host) while active, to hold each against
-    its plain version afterwards."""
+    (inputs and outputs on the host) while active, or the ``first`` calls
+    of each, to hold each against its plain version afterwards."""
 
-    def __init__(self):
+    def __init__(self, first=None):
         from horovod_tpu_torch.ops import quant_kernels as qk
 
-        self.qk, self.calls, self.saved = qk, [], {}
+        self.qk, self.calls, self.saved, self.first = qk, [], {}, first
 
     def __enter__(self):
         for name in ("quant_packed", "dequant_accum", "dequant_rows"):
@@ -3779,6 +3795,8 @@ class KernelRecorder:
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
                 out = _fn(*a, **kw)
+                if self.first is not None and sum(c[0] == _name for c in self.calls) >= self.first:
+                    return out
                 host = lambda v: v.detach().cpu() if hasattr(v, "detach") else v  # noqa: E731
                 res = tuple(host(o) for o in out) if isinstance(out, tuple) else host(out)
                 self.calls.append((_name, [host(v) for v in a], dict(kw), res))
@@ -3813,14 +3831,104 @@ def torch_bits_equal(a, b) -> bool:
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
+def ring_fits(n, padded, block=BLOCK) -> bool:
+    """Whether a quantized exchange of ``padded`` elements over ``n`` ranks
+    takes the ring (B6/B7): every rank's packed chunk within the peer
+    window's cap (``ops/quantized.py`` ``dispatch_mode``)."""
+    from horovod_tpu_torch.ops import peer
+
+    c = -(-padded // (n * block)) * block
+    return n > 1 and n * (c + 4 * (c // block)) <= peer.CAP
+
+
+class RingRecorder:
+    """Records the first call of B6 (``rs_ring``) and of B7 (``ag_ring``)
+    made through ``ring_kernels`` while active, its inputs and outputs on
+    the host, to hold each against its plain version over every rank's
+    inputs afterwards (:meth:`mismatches`, a collective)."""
+
+    def __init__(self):
+        from horovod_tpu_torch.ops import ring_kernels as rk
+
+        self.rk, self.calls, self.saved = rk, {}, {}
+
+    def __enter__(self):
+        for name in ("rs_ring", "ag_ring"):
+            fn = getattr(self.rk, name)
+            self.saved[name] = fn
+
+            def wrapped(x, window, wire, block, *a, _fn=fn, _name=name, **kw):
+                out = _fn(x, window, wire, block, *a, **kw)
+                if _name not in self.calls:
+                    res = out if isinstance(out, tuple) else (out,)
+                    self.calls[_name] = (x.detach().cpu(), wire, block, a, kw,
+                                         [None if o is None else o.detach().cpu() for o in res])
+                return out
+            wrapped.launches = 0  # the kernel counts its launch on the module's name
+            setattr(self.rk, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            fn.launches += getattr(self.rk, name).launches
+            setattr(self.rk, name, fn)
+
+    def mismatches(self, n, rank) -> list:
+        """Every rank gathers every rank's recorded inputs and computes the
+        plain versions' row for itself (every rank must call this)."""
+        import torch
+        import torch.distributed as dist
+
+        bad = []
+        for name in ("rs_ring", "ag_ring"):
+            x, wire, block, a, kw, got = self.calls[name]
+            rows = [None] * n
+            dist.all_gather_object(rows, x)
+            allx = torch.cat(rows)
+            if name == "rs_ring":
+                want = self.rk.rs_ring_reference(allx, wire, block, *a, **kw)
+                want = [w[rank:rank + 1] if w is not None else None for w in want]
+            else:
+                want = [self.rk.ag_ring_reference(allx, wire, block)[rank:rank + 1]]
+            for g, w in zip(got, want):
+                if (g is None) != (w is None) or (g is not None and not torch_bits_equal(g, w)):
+                    bad.append(name)
+        return bad
+
+
+# Phase slice fsdp's runs: the five of PR 14 in every layout, and on four
+# cards (or off the card, a rehearsal) the sharded steps of PR 18.  A name
+# ending in "@on" is the run before it captured (HVD_TPU_ONESTEP=on):
+# weights and losses bitwise with it.
+FSDP_KINDS = ["dp", "dp_bf16", "fsdp", "fsdp_bf16", "zero_int8"]
+FSDP_NEW_KINDS = ["fsdp@on", "fsdp_bf16@on", "zero_int8@on", "zero", "bucketed", "bucketed@on",
+                  "bucketed_int8", "bucketed_int8@on", "bucketed_ring", "bucketed_ring@on",
+                  "dp_rs", "dp_rs@on", "dp_rs_bf16", "dp_rs_bf16@on"]
+# Each run against its reference after FSDP_STEPS steps (ADAM_APART and
+# the FSDP_RATIO of its wire).
+FSDP_COMPARED = {"fsdp": "dp", "fsdp_bf16": "dp_bf16", "zero_int8": "dp", "zero": "dp",
+                 "bucketed": "zero", "bucketed_int8": "zero_int8",
+                 "bucketed_ring": "zero_int8", "dp_rs": "dp", "dp_rs_bf16": "dp_bf16"}
+# bucketed_ring's HVD_TPU_FUSION_THRESHOLD: every bucket but the token
+# embedding's (one 38.6M-element leaf) under the ring's 8 MiB payload cap.
+FSDP_RING_THRESHOLD = 16 * 1024 * 1024
+
+
 def fsdp_worker(hvd) -> dict:
     """Phase slice fsdp on every rank: GPT-2 small (flash, seq 1024, batch
-    ``FSDP_BATCH`` per rank, AdamW lr 3e-4, the same weights and tokens)
-    through the replicated data-parallel step (``DistributedOptimizer``,
-    dense and ``Compression.bf16``), ``fsdp_train_step`` (dense and
+    ``FSDP_BATCH`` per rank, AdamW lr 3e-4, ``capturable=True`` on the
+    card, the same weights and tokens) through the replicated
+    data-parallel step (``DistributedOptimizer``, dense and
+    ``Compression.bf16``), ``fsdp_train_step`` (dense and
     ``Compression.bf16``) and ``zero_train_step`` on the int8 wire with
-    error feedback, ``FSDP_STEPS`` steps each."""
+    error feedback, ``FSDP_STEPS`` steps each; on NCCL (or off the card)
+    also ``FSDP_NEW_KINDS``: the dense ZeRO-1 step, ``sched/zero1.py``
+    ``bucketed_zero_step`` on the dense wire and on int8 with error
+    feedback at the default fusion threshold and at
+    ``FSDP_RING_THRESHOLD``, ``HVD_TPU_SCHED_MODE=reduce_scatter`` under
+    ``TrainStep`` (dense and bf16), and every sharded step captured."""
     import copy
+    import dataclasses
 
     import torch
     import torch.distributed as dist
@@ -3828,9 +3936,12 @@ def fsdp_worker(hvd) -> dict:
 
     from horovod_tpu_torch import metrics
     from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.sched import bucketed_zero_step
+    from horovod_tpu_torch.sched.plan import SchedConfig
 
     dev = hvd.device()
     on_card = dev.type == "cuda"
+    nccl = dist.get_backend() == "nccl"
     n, rank = hvd.size(), hvd.rank()
     build, seq, vocab = ((tt.gpt_small, GPT_SEQ, GPT_VOCAB) if on_card
                          else (tt.gpt_tiny, 64, 256))
@@ -3843,7 +3954,7 @@ def fsdp_worker(hvd) -> dict:
 
     def adamw(params):
         return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=1e-4)
+                                 weight_decay=1e-4, capturable=on_card)
 
     def lm_loss(m, toks):
         logits, aux = m(toks[:, :-1])
@@ -3862,13 +3973,24 @@ def fsdp_worker(hvd) -> dict:
         if on_card:
             torch.cuda.synchronize()
 
+    def bucket_cfg(kind):
+        cfg = SchedConfig.from_env()
+        if kind == "bucketed":
+            return dataclasses.replace(cfg, wire="off")
+        if kind == "bucketed_ring":
+            return dataclasses.replace(cfg, wire="int8", bucket_bytes=FSDP_RING_THRESHOLD)
+        return dataclasses.replace(cfg, wire="int8")
+
+    kinds = FSDP_KINDS + (FSDP_NEW_KINDS if nccl or not on_card else [])
     runs, problems = {}, []
-    for kind in ("dp", "dp_bf16", "fsdp", "fsdp_bf16", "zero_int8"):
-        model = copy.deepcopy(base)  # no optimizer's hooks on it yet
+    for name in kinds:
+        kind, _, captured = name.partition("@")
+        os.environ["HVD_TPU_ONESTEP"] = captured or "off"
         os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+        model = copy.deepcopy(base)  # no optimizer's hooks on it yet
         comp = hvd.Compression.bf16 if kind.endswith("bf16") else hvd.Compression.none
-        check = {}
-        if kind.startswith("dp"):
+        check, layouts, stepper = {}, None, None
+        if kind in ("dp", "dp_bf16"):
             opt = hvd.DistributedOptimizer(adamw(model.parameters()),
                                            named_parameters=model.named_parameters(),
                                            compression=comp)
@@ -3880,55 +4002,92 @@ def fsdp_worker(hvd) -> dict:
                 opt.zero_grad(set_to_none=True)
                 return mean_loss(loss)
             persistent = 3 * n_params * 4  # the weights and AdamW's two moments
-        elif kind.startswith("fsdp"):
-            step = hvd.fsdp_train_step(fsdp_loss, adamw,
-                                       compression=comp if kind == "fsdp_bf16" else None)
-            state = list(step.init(dict(model.named_parameters())))
+        elif kind.startswith("dp_rs"):
+            os.environ["HVD_TPU_SCHED_MODE"] = "reduce_scatter"
+            opt = hvd.DistributedOptimizer(adamw(model.parameters()),
+                                           named_parameters=model.named_parameters(),
+                                           compression=comp)
+            stepper = hvd.TrainStep(model, opt, lm_loss)
 
             def one(toks):
-                state[0], state[1], loss = step(state[0], state[1], toks)
+                return float(stepper(toks))
+            persistent = 3 * n_params * 4
+        elif kind.startswith("fsdp"):
+            stepper = hvd.fsdp_train_step(fsdp_loss, adamw,
+                                          compression=comp if kind == "fsdp_bf16" else None)
+            state = list(stepper.init(dict(model.named_parameters())))
+
+            def one(toks):
+                state[0], state[1], loss = stepper(state[0], state[1], toks)
                 return float(loss)
             persistent = 3 * state[0].numel() * 4
-        else:
-            zstep = hvd.zero_train_step(lm_loss, adamw, wire="int8")
-            zstate = zstep.init(model)
-            persistent = (n_params + 3 * zstate.shard_len + zstate.padded) * 4
+        elif kind.startswith("zero"):
+            stepper = hvd.zero_train_step(lm_loss, adamw,
+                                          wire="int8" if kind == "zero_int8" else "off")
+            zstate = stepper.init(model)
+            persistent = (n_params + 3 * zstate.shard_len
+                          + (zstate.padded if zstate.ef is not None else 0)) * 4
 
             def one(toks):
-                return float(zstep(model, zstate, toks)[2])
-            # The first step's quantized exchange: every B3/B4/B5 call
-            # bitwise with its plain version, and the averaged gradient
-            # shard within the int8 grid of the dense mean.
-            lm_loss(model, mine[0]).backward()
-            gflat = zstate._flat([p.grad for p in model.parameters()])
-            model.zero_grad(set_to_none=True)
-            dense = torch.empty(zstate.shard_len, device=dev)
-            dist.reduce_scatter_tensor(dense, gflat)
-            with KernelRecorder() as recorder:
-                ef = zstate.ef.clone()
-                gshard = zstate._reduce_scatter(gflat)
-                zstate.ef = ef
-            bad = recorder.mismatches()
-            # Each rank's contribution is within half an int8 step of its
-            # block's largest element, G / 254 at most; the mean of n
-            # such errors too.  The bound is twice that.
-            g_max = gflat.abs().max().reshape(1)
-            dist.all_reduce(g_max, op=dist.ReduceOp.MAX)
-            grid = float(g_max[0]) / 127
-            err = float((gshard - dense / n).abs().max())
-            check = {"calls": len(recorder.calls), "plain_mismatches": bad,
-                     "rs_err": err, "rs_bound": grid}
-            if bad or not err <= grid:
-                problems.append(f"zero int8: kernels differing from their plain versions "
-                                f"{bad}; shard error {err} (bound {grid})")
+                return float(stepper(model, zstate, toks)[2])
+            if name == "zero_int8":
+                # The first step's quantized exchange: every B3/B4/B5 call
+                # bitwise with its plain version, and the averaged gradient
+                # shard within the int8 grid of the dense mean.
+                lm_loss(model, mine[0]).backward()
+                gflat = zstate._flat([p.grad for p in model.parameters()])
+                model.zero_grad(set_to_none=True)
+                dense = torch.empty(zstate.shard_len, device=dev)
+                dist.reduce_scatter_tensor(dense, gflat)
+                with KernelRecorder() as recorder:
+                    ef = zstate.ef.clone()
+                    gshard = zstate._reduce_scatter(gflat)
+                    zstate.ef.copy_(ef)
+                bad = recorder.mismatches()
+                # Each rank's contribution is within half an int8 step of its
+                # block's largest element, G / 254 at most; the mean of n
+                # such errors too.  The bound is twice that.
+                g_max = gflat.abs().max().reshape(1)
+                dist.all_reduce(g_max, op=dist.ReduceOp.MAX)
+                grid = float(g_max[0]) / 127
+                err = float((gshard - dense / n).abs().max())
+                check = {"calls": len(recorder.calls), "plain_mismatches": bad,
+                         "rs_err": err, "rs_bound": grid}
+                if bad or not err <= grid:
+                    problems.append(f"zero int8: kernels differing from their plain versions "
+                                    f"{bad}; shard error {err} (bound {grid})")
+        else:
+            stepper = bucketed_zero_step(lm_loss, adamw, cfg=bucket_cfg(kind))
+            bstate = stepper.init(model)
+            layouts = bstate.layouts
+            persistent = (n_params + sum(3 * lay.shard_len for lay in layouts)
+                          + sum(e.numel() for e in bstate.ef if e is not None)) * 4
+
+            def one(toks):
+                return float(stepper(model, bstate, toks)[2])
         for c in counters.values():
             c.launches = 0
         metrics.reset("quant.")
-        losses = [one(mine[s]) for s in range(FSDP_STEPS)]
+        metrics.reset("xir.")
+        first_step = kind.startswith("bucketed_") and not captured
+        ring_rec = RingRecorder() if first_step and on_card and nccl else None
+        q_rec = KernelRecorder(first=1) if first_step else None
+        with ring_rec or contextlib.nullcontext(), q_rec or contextlib.nullcontext():
+            losses = [one(mine[0])]
+        losses += [one(mine[s]) for s in range(1, FSDP_STEPS)]
         launches = {k: c.launches for k, c in counters.items()}
         modes = {"fallback": metrics.get_counter("quant.fused_fallback"),
-                 "fused": metrics.get_counter("quant.fused_collectives")}
-        params = (step.gather(state[0]) if kind.startswith("fsdp")
+                 "fused": metrics.get_counter("quant.fused_collectives"),
+                 "captures": metrics.get_counter("xir.onestep.steps")}
+        if first_step:  # the first step's first bucket, each kernel call
+            check = {"calls": len(q_rec.calls), "plain_mismatches": q_rec.mismatches()}
+            if ring_rec is not None and ring_rec.calls:
+                check["ring_calls"] = sorted(ring_rec.calls)
+                check["plain_mismatches"] += ring_rec.mismatches(n, rank)
+            if check["plain_mismatches"]:
+                problems.append(f"{kind}: kernels differing from their plain versions "
+                                f"{check['plain_mismatches']}")
+        params = (stepper.gather(state[0]) if kind.startswith("fsdp")
                   else dict(model.named_parameters()))
         weights = {k: v.detach().float().cpu().clone() for k, v in params.items()}
         times = []
@@ -3937,26 +4096,46 @@ def fsdp_worker(hvd) -> dict:
             t0 = time.perf_counter()
             one(mine[s])
             times.append((time.perf_counter() - t0) * 1e3)
+        graphs = getattr(stepper, "_graphs", {})
+        pool = sum(g.reserved for g in graphs.values())
         want = {k: 0 for k in counters}
         if on_card:
             want.update(flash_fwd=GPT_LAYERS * FSDP_STEPS,
                         flash_fwd_wgmma=GPT_LAYERS * FSDP_STEPS)
-            if kind == "zero_int8":  # one RS and one AG per step, not on the ring
-                ring = modes["fused"] > 0
-                per = ({"rs_ring": 1, "ag_ring": 1} if ring else
+            if kind == "zero_int8":  # one RS and one AG per step (past the ring's cap)
+                per = ({"rs_ring": 1, "ag_ring": 1} if ring_fits(n, zstate.padded) else
                        {"quant_pack": 2, "dequant_accum": 1, "dequant_rows": 1})
                 want.update({k: v * FSDP_STEPS for k, v in per.items()})
+            if layouts is not None and kind != "bucketed":  # per bucket, ring or not
+                on_ring = sum(ring_fits(n, lay.padded) for lay in layouts)
+                off_ring = len(layouts) - on_ring
+                want.update(rs_ring=on_ring * FSDP_STEPS, ag_ring=on_ring * FSDP_STEPS,
+                            quant_pack=2 * off_ring * FSDP_STEPS,
+                            dequant_accum=off_ring * FSDP_STEPS,
+                            dequant_rows=off_ring * FSDP_STEPS)
+                if not captured and modes["fallback"] != 2 * off_ring * FSDP_STEPS:
+                    problems.append(f"{name}: {modes['fallback']} fallbacks, expected "
+                                    f"{2 * off_ring * FSDP_STEPS}")
             if kind.startswith("dp"):  # the reference step's own scale and casts
                 want["scale_cast"] = launches["scale_cast"]
         if launches != want:
-            problems.append(f"{kind}: launches {launches}, expected {want}")
+            problems.append(f"{name}: launches {launches}, expected {want}")
+        if captured and on_card and modes["captures"] != 1:
+            problems.append(f"{name}: {modes['captures']} captures")
         ms = sorted(times)
-        runs[kind] = {"losses": losses, "launches": launches, "modes": modes,
+        runs[name] = {"losses": losses, "launches": launches, "modes": modes,
                       "step_ms": ms[len(ms) // 2], "persistent_bytes": persistent,
-                      "check": check, "weights": weights}
-        del one, model
+                      "graph_pool_bytes": pool, "check": check, "weights": weights,
+                      "buckets": None if layouts is None else len(layouts),
+                      "ring_buckets": None if layouts is None else sum(
+                          ring_fits(n, lay.padded) for lay in layouts)}
+        if stepper is not None:
+            stepper.drop()
+        os.environ.pop("HVD_TPU_SCHED_MODE", None)
+        del one, model, stepper
         if on_card:
             torch.cuda.empty_cache()
+    os.environ["HVD_TPU_ONESTEP"] = "off"
 
     def compare(kind, ref):
         a, b = runs[kind], runs[ref]
@@ -3971,19 +4150,27 @@ def fsdp_worker(hvd) -> dict:
         return {"first_loss": (a["losses"][0], b["losses"][0]), "worst_abs": worst_abs,
                 "worst_mean_ratio": worst_ratio}
 
-    compared = {k: compare(k, ref) for k, ref in (("fsdp", "dp"), ("fsdp_bf16", "dp_bf16"),
-                                                  ("zero_int8", "dp"))}
+    compared = {k: compare(k, ref) for k, ref in FSDP_COMPARED.items() if k in runs}
     for kind, c in compared.items():
         first, want = c["first_loss"]
-        limit = FSDP_RATIO["int8" if kind == "zero_int8" else "dense"]
+        limit = FSDP_RATIO["int8" if "int8" in kind or "ring" in kind else "dense"]
         if abs(first - want) > FSDP_LOSS_RTOL * abs(want) or c["worst_abs"] > ADAM_APART or (
                 not c["worst_mean_ratio"] <= limit):
             problems.append(f"{kind}: {c} (loss rtol {FSDP_LOSS_RTOL}, weights "
                             f"{ADAM_APART:.2e}, mean ratio {limit})")
+    for name, r in runs.items():
+        eager = name.partition("@")[0]
+        if name != eager:  # captured: bitwise with its eager run
+            r["bitwise_with_eager"] = r["losses"] == runs[eager]["losses"] and all(
+                torch_bits_equal(w, runs[eager]["weights"][k]) for k, w in r["weights"].items())
+            if not r["bitwise_with_eager"]:
+                problems.append(f"{name}: not bitwise with {eager} (losses {r['losses']} "
+                                f"against {runs[eager]['losses']})")
     for r in runs.values():
-        del r["weights"]
         if not all(math.isfinite(v) for v in r["losses"]):
             problems.append(f"losses {r['losses']}")
+    for r in runs.values():
+        del r["weights"]
     return {"runs": runs, "compared": compared, "params": n_params, "problems": problems}
 
 
@@ -3991,23 +4178,35 @@ def print_fsdp(rec, card) -> None:
     runs = rec["runs"]
     for kind, r in runs.items():
         c = rec["compared"].get(kind)
-        vs = (f"; against {'dp_bf16' if kind == 'fsdp_bf16' else 'dp'}: first loss "
-              f"{c['first_loss'][0]:.6f} vs {c['first_loss'][1]:.6f}, weights after "
-              f"{FSDP_STEPS} steps at most {c['worst_abs']:.3g} apart (bound "
-              f"{ADAM_APART:.2e}), mean difference {c['worst_mean_ratio']:.3f} of the mean move"
-              if c else "")
+        vs = (f"; against {FSDP_COMPARED[kind]}: first loss {c['first_loss'][0]:.6f} vs "
+              f"{c['first_loss'][1]:.6f}, weights after {FSDP_STEPS} steps at most "
+              f"{c['worst_abs']:.3g} apart (bound {ADAM_APART:.2e}), mean difference "
+              f"{c['worst_mean_ratio']:.3f} of the mean move" if c else "")
+        if "bitwise_with_eager" in r:
+            vs += (f"; captured ({r['modes']['captures']} capture, graph pool "
+                   f"{r['graph_pool_bytes'] / 2 ** 20:.0f} MiB): losses and weights bitwise "
+                   f"with the eager run")
         chk = r["check"]
-        wire = (f"; first step's exchange: {chk['calls']} B3/B4/B5 calls bitwise with their "
-                f"plain versions, the averaged gradient shard within {chk['rs_err']:.3g} of "
-                f"the dense mean (bound {chk['rs_bound']:.3g}); dispatch: {r['modes']}"
-                if chk else "")
+        wire = ""
+        if "rs_err" in chk:
+            wire = (f"; first step's exchange: {chk['calls']} B3/B4/B5 calls bitwise with "
+                    f"their plain versions, the averaged gradient shard within "
+                    f"{chk['rs_err']:.3g} of the dense mean (bound {chk['rs_bound']:.3g}); "
+                    f"dispatch: {r['modes']}")
+        elif chk:
+            wire = (f"; first step: the first call of each of {chk['calls']} B3/B4/B5 kernels"
+                    f"{' and ' + str(chk['ring_calls']) if chk.get('ring_calls') else ''} "
+                    f"bitwise with its plain version; dispatch: {r['modes']}")
+        if r["buckets"] is not None:
+            wire += f"; {r['buckets']} buckets, {r['ring_buckets']} under the ring's cap"
         print(f"phase slice fsdp {kind}: {rec['layout']}; GPT-2 small ({rec['params']} "
               f"parameters), flash, batch {FSDP_BATCH} x {GPT_SEQ} per rank, AdamW: losses "
               f"{[round(v, 5) for v in r['losses']]}{vs}{wire}; persistent "
-              f"{r['persistent_bytes'] / 2 ** 20:.0f} MiB per rank (weights and moments; "
-              f"replicated {runs['dp']['persistent_bytes'] / 2 ** 20:.0f} MiB); launches "
-              f"{r['launches']} over {FSDP_STEPS} steps; median step {r['step_ms']:.1f} ms "
-              f"(host clock, {FSDP_TIMED} more steps) on {card}", flush=True)
+              f"{r['persistent_bytes'] / 2 ** 20:.0f} MiB per rank (weights, moments and "
+              f"residuals; replicated {runs['dp']['persistent_bytes'] / 2 ** 20:.0f} MiB); "
+              f"launches {r['launches']} over {FSDP_STEPS} steps; median step "
+              f"{r['step_ms']:.1f} ms (host clock, {FSDP_TIMED} more steps) on {card}",
+              flush=True)
     print(f"phase slice fsdp: {rec['wall_s']:.0f} s with start-up", flush=True)
 
 
@@ -4033,6 +4232,12 @@ def print_fsdp(rec, card) -> None:
 # rounds once, at each of the 53 norms (float32 off the card: 1e-5).
 TOPO_SPEC = "2x2"
 TOPO_ELEMS = 16_489_448
+# The bucketed ZeRO-1 steps of slice topo: one parameter of this many
+# elements (ragged: the bucket pads to the domain's two shards), the loss
+# sum(p * x) on rank r's dyadic x in {-1, 0, 1} / 8, SGD at lr 1: every
+# gradient, sum, dot product and norm is exact, so each step's weights
+# must be the plain chain's bits (``plain_bucketed_zero``).
+TOPO_ZERO_ELEMS = 2_097_153
 TOPO_ADASUM_ELEMS = 4_194_305
 TOPO_ADASUM_RTOL = 2e-5
 TOPO_LOSS_RTOL = 1e-6
@@ -4118,6 +4323,85 @@ def plain_hier(xs, wire, s=2, k=2):
         else:
             out.append(sum(parts))
     return torch.cat(out)[:V]
+
+
+def plain_bucketed_zero(lowering, p, xs, s=2, k=2):
+    """The weights after one ``bucketed_zero_step`` of SGD at lr 1 on the
+    loss ``sum(p * x)`` (rank r's gradient is ``xs[r]``), over ``s``
+    domains of ``k`` ranks, on the CPU: each domain's sum of its ranks'
+    gradients, then for ``hier`` the sum across the domains times
+    float32(1/(s·k)), for ``hier_adasum`` Adasum of the domains' means
+    (``ops/adasum.py`` ``coefficients`` of the whole vectors' dot product
+    and norms); then the update as the step makes it: the shard ``p − g``,
+    its difference from ``p``, added to ``p``."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops.adasum import coefficients
+    from horovod_tpu_torch.ops.collectives import f32_reciprocal
+
+    V = p.numel()
+    pad = (-V) % k
+    doms = [F.pad(sum(xs[j * k:(j + 1) * k]), (0, pad)) for j in range(s)]
+    if lowering == "hier":
+        g = sum(doms) * f32_reciprocal(s * k)
+    else:
+        a, b = (d * f32_reciprocal(k) for d in doms)
+        ca, cb = coefficients(torch.stack([torch.sum(a * b), torch.sum(a * a),
+                                           torch.sum(b * b)]))
+        g = ca * a + cb * b
+    pp = F.pad(p, (0, pad))
+    return (pp + ((pp - g) - pp))[:V]
+
+
+def topo_bucketed_zero(hvd, dev, n, rank, elems, zero_counts, counts, problems) -> dict:
+    """One step of ``bucketed_zero_step`` on ``hier`` and on
+    ``hier_adasum`` (``TOPO_ZERO_ELEMS``), each rank's weights bitwise
+    with :func:`plain_bucketed_zero` and with every other rank's; no
+    kernel launched (a dense wire, float32 scales)."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.sched import bucketed_zero_step
+    from horovod_tpu_torch.sched.plan import SchedConfig
+
+    class Vector(torch.nn.Module):
+        def __init__(self, p):
+            super().__init__()
+            self.p = torch.nn.Parameter(p)
+
+    xs = [(torch.randint(-1, 2, (elems,), generator=torch.Generator().manual_seed(
+        700 + r)) / 8).float() for r in range(n)]
+    p0 = (torch.randint(-8, 9, (elems,), generator=torch.Generator().manual_seed(699))
+          / 8).float()
+    out = {}
+    for lowering in ("hier", "hier_adasum"):
+        step = bucketed_zero_step(lambda m, x: torch.sum(m.p * x),
+                                  lambda ps: torch.optim.SGD(ps, lr=1.0),
+                                  cfg=SchedConfig(wire="off", lowering=lowering))
+        model = Vector(p0.clone().to(dev))
+        state = step.init(model)
+        zero_counts()
+        step(model, state, xs[rank].to(dev))
+        got = model.p.detach().cpu()
+        launches = counts()
+        want = plain_bucketed_zero(lowering, p0, xs)
+        bitwise = torch_bits_equal(got, want)
+        if not bitwise:
+            problems.append(f"bucketed zero {lowering}: the weights differ from the plain "
+                            f"chain's by up to {float((got - want).abs().max())}")
+        if any(launches.values()):
+            problems.append(f"bucketed zero {lowering}: launches {launches}, expected none")
+        every = [None] * n
+        dist.all_gather_object(every, hashlib_digest(got))
+        if len(set(every)) != 1:
+            problems.append(f"bucketed zero {lowering}: the ranks' weights differ")
+        lay = state.layouts[0]
+        out[lowering] = {"buckets": len(state.layouts), "shards": lay.shards,
+                         "shard_len": lay.shard_len, "padded": lay.padded,
+                         "bitwise": bitwise, "launches": launches}
+        del step, model, state
+    return out
 
 
 def topo_expected(label, buckets, steps) -> dict:
@@ -4248,6 +4532,10 @@ def topo_worker(hvd) -> dict:
                 lambda w=wire: th.hierarchical_all_reduce(x, op=hvd.Sum, wire=w))
         rec["hier_ms"] = ms
     del x, flat, y
+
+    rec["bucketed_zero"] = topo_bucketed_zero(
+        hvd, dev, n, rank, TOPO_ZERO_ELEMS if on_card else 8199, zero_counts, counts,
+        problems)
 
     # Adasum: flat over the world, over {0,1,2}, and hier_adasum.
     xa_cpu = [torch.randn(aelems, generator=torch.Generator().manual_seed(600 + r))
@@ -4413,6 +4701,11 @@ def print_topo(rec, card) -> None:
         print("phase slice topo: ms per call (host clock, synchronized) "
               + ", ".join(f"{k} {v:.3f}" for k, v in rec["hier_ms"].items())
               + f" on {card}", flush=True)
+    for lowering, z in rec["bucketed_zero"].items():
+        print(f"phase slice topo: bucketed_zero_step on {lowering}, one parameter of "
+              f"{z['padded']} padded elements in {z['buckets']} bucket, {z['shards']} shards "
+              f"of {z['shard_len']} a domain: one SGD step's weights bitwise with the plain "
+              f"chain on the CPU and on every rank; launches {z['launches']}", flush=True)
     for name, a in rec["adasum"].items():
         print(f"phase slice topo: Adasum {name} over {a['members']}, {rec['adasum_elems']} "
               f"elements: {a['rel_err']:.3g} of the largest element from float64 NumPy (limit "

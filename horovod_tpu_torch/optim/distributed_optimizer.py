@@ -64,6 +64,15 @@ wires every rank reduces within its tile of a set that tiles the world
 :class:`QuantizedWireError` (``:192-205``).  The plan, the loss and the
 BatchNorm statistics of :class:`TrainStep` stay world-wide.
 
+Exchange mode (``HVD_TPU_SCHED_MODE``, ``:442-461``): under
+``reduce_scatter`` every dense floating bucket of a plain Sum or Average
+on the world is reduce-scattered, scaled and all-gathered
+(``sched/execute.py`` ``reduce_scatter_flat``, on the bf16 wire inside
+its casts; ``hier_reduce_scatter_flat`` on a ``hier`` bucket);
+``op=Adasum``, a process set and an integer bucket keep the allreduce,
+and a quantized bucket is a reduce-scatter and an all-gather in either
+mode.  The mode is part of the plan's key and of a captured step's.
+
 Lowering (``lowering=``, else ``HVD_TPU_TOPO_LOWER``; ``:97``,
 ``:411-479``): each bucket is planned ``flat``, ``hier`` or
 ``hier_adasum`` (``sched/plan.py`` ``resolve_lowering``).  ``hier``
@@ -237,6 +246,9 @@ class _DistributedOptimizer:
         )
         self._schedule_key = None
         self._schedule: Optional[BucketSchedule] = None
+        # Whether the plan's dense floating buckets take the
+        # reduce-scatter exchange (HVD_TPU_SCHED_MODE, set with the plan).
+        self._rs = False
         self._calls = 0
         self._synchronized = False
         self._should_synchronize = True
@@ -497,6 +509,10 @@ class _DistributedOptimizer:
                 order=range(len(sizes)), pinned=self._pinned, wire="off",
             )
         self._schedule_key, self._schedule = key, schedule
+        # JAX rs_ok (:442-461): a plain Sum or Average on the world; Adasum
+        # and process sets keep the allreduce lowering.
+        self._rs = (cfg.enabled and cfg.mode == "reduce_scatter"
+                    and self._op in (Average, Sum) and resolve(self._process_set) is None)
         return schedule
 
     def _config(self) -> SchedConfig:
@@ -613,7 +629,9 @@ class _DistributedOptimizer:
                 f, average=self._op != Sum, wire=bucket.wire,
                 prescale_factor=self._prescale, postscale_factor=self._postscale)
         if bucket.lowering == "hier":
-            return execute.hier_allreduce_flat(
+            lower = (execute.hier_reduce_scatter_flat
+                     if self._rs and f.is_floating_point() else execute.hier_allreduce_flat)
+            return lower(
                 f, average=self._op == Average, wire=bucket.wire,
                 prescale_factor=self._prescale, postscale_factor=self._postscale)
         if bucket.wire in QUANTIZED_WIRES:
@@ -625,6 +643,10 @@ class _DistributedOptimizer:
         return self._dense(f)
 
     def _dense(self, f: torch.Tensor) -> torch.Tensor:
+        if self._rs and f.is_floating_point():
+            return execute.reduce_scatter_flat(
+                f, average=self._op == Average, prescale_factor=self._prescale,
+                postscale_factor=self._postscale)
         if self._quantized and f.is_floating_point():
             # Compression.int8/fp8 on a bucket the plan left "off" (or
             # HVD_TPU_SCHED=off): quantized, without residuals.
@@ -854,6 +876,22 @@ def capture_blocker(backend: Optional[str], backward_passes: int, sparse: bool,
     return None
 
 
+def step_blocker(model: Optional[torch.nn.Module], optimizer) -> Optional[str]:
+    """:func:`capture_blocker` of a step that trains ``model`` (None: no
+    module, only flat tensors) with ``optimizer``."""
+    rt = runtime.get_runtime() if runtime.is_initialized() else None
+    sparse = model is not None and any(
+        isinstance(m, (torch.nn.Embedding, torch.nn.EmbeddingBag)) and m.sparse
+        for m in model.modules())
+    plan = faults.get_plan()
+    return capture_blocker(
+        rt.backend if rt is not None else None,
+        getattr(optimizer, "backward_passes_per_step", 1), sparse,
+        all(g.get("capturable", True) for g in optimizer.param_groups),
+        getattr(optimizer, "point_to_point", False),
+        plan is not None and plan.arms_step())
+
+
 # Captured steps a TrainStep keeps, one per batch signature (shapes,
 # dtypes, devices and structure): an epoch's short last batch keeps its
 # own graph beside the full batch's, as ``jax.jit`` keeps one executable
@@ -928,7 +966,175 @@ def host_state(optimizer) -> tuple:
     return groups, env.get_env(env.QUANT_BACKEND), env.get_env(env.QUANT_BLOCK)
 
 
-class TrainStep:
+class CapturedStep:
+    """A training step that a card runs as CUDA graphs under
+    ``HVD_TPU_ONESTEP`` (``xir/interp.py``): the warm-up, capture and
+    replay of :class:`TrainStep`, shared by the sharded steps of
+    ``optim/zero.py`` and ``sched/zero1.py``.
+
+    After ``CAPTURE_WARMUP`` eager steps on a side stream, one step is
+    captured into a CUDA graph with a copy of the batch as its static
+    input, and every later call with a batch of that signature copies it
+    in, replays the graph and returns a copy of its loss.  One graph is
+    kept per (variant, batch signature), up to ``MAX_GRAPHS``, each in
+    its own memory pool; a change of :meth:`_host_key` (or of the mode)
+    drops every graph.  ``auto`` captures a step of two or more
+    :meth:`_units` that :meth:`blocker` lets through and runs any other
+    eagerly; ``on`` raises for a step it blocks; ``off``, and any step
+    off a card, runs eagerly.  The kernels' launch counters count every
+    replay (a replay adds its capture's counts); metrics recorded in
+    Python count once per capture.  A subclass gives :meth:`_device`,
+    :meth:`blocker`, :meth:`_host_key`, :meth:`_units` and :meth:`_step`
+    (one eager step: its tensors must be updated in place, so that a
+    replay carries them on)."""
+
+    def __init__(self):
+        # (variant, batch signature) -> its graph, least recently replayed
+        # first; and the eager warm-up steps each of them has run.
+        self._graphs: "OrderedDict[tuple, _Captured]" = OrderedDict()
+        self._warm: "OrderedDict[tuple, int]" = OrderedDict()
+        self._key = None  # what every graph holds fixed besides the batch
+        # Whether the last call was settled: not a warm-up step or a
+        # capture of a new graph (AutotuneDriver.after_step).
+        self.last_settled = True
+
+    def _device(self) -> torch.device:
+        raise NotImplementedError
+
+    def blocker(self) -> Optional[str]:
+        """Why the step cannot be captured (None: it can)."""
+        raise NotImplementedError
+
+    def _host_key(self) -> tuple:
+        """What the graphs hold fixed besides the mode and the batch."""
+        raise NotImplementedError
+
+    def _units(self) -> int:
+        """The step's exchange units plus its update (``onestep_engaged``)."""
+        raise NotImplementedError
+
+    def _step(self, batch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def holds_set(self, process_set_id: int) -> bool:
+        """Whether the captured graphs were made on the set
+        ``process_set_id`` (``remove_process_set`` drops them first)."""
+        return False
+
+    def _call(self, batch, variant=None) -> torch.Tensor:
+        """The step on ``batch``: eager, a warm-up step, a capture or a
+        replay (class docstring); ``variant`` joins the batch's signature."""
+        mode = onestep_mode()
+        device = self._device()
+        self.last_settled = True
+        if mode == "off" or device.type != "cuda":
+            self.drop()
+            return self._eager(batch, mode)
+        reason = self.blocker()
+        if reason is not None:
+            if mode == "on":
+                raise HorovodTpuError(
+                    f"HVD_TPU_ONESTEP=on: this step cannot be captured as one "
+                    f"CUDA graph: {reason} (ROADMAP Queue A item A12a)"
+                )
+            self.drop()
+            return self._eager(batch, mode)
+        leaves, spec = tree_flatten(batch)
+        key = (mode,) + self._host_key()
+        if key != self._key:
+            self.drop()
+            self._key = key
+        sig = (variant, spec, _signature(leaves))
+        captured = self._graphs.get(sig)
+        if captured is None:
+            warm = self._warm.pop(sig, 0)
+            if warm < CAPTURE_WARMUP:
+                self._warm[sig] = warm + 1
+                if len(self._warm) > MAX_GRAPHS:  # bound those warming up
+                    self._warm.popitem(last=False)
+                self.last_settled = False
+                return self._side_stream_step(batch, mode, device)
+            if not onestep_engaged(self._units()):
+                self._warm[sig] = warm
+                return self._eager(batch, mode)
+            if len(self._graphs) >= MAX_GRAPHS:
+                self._evict([next(iter(self._graphs))])
+            self.last_settled = False
+            captured = self._graphs[sig] = self._capture(leaves, spec)
+            if runtime.is_initialized():  # shutdown() drops it first
+                runtime.get_runtime().captured_steps.add(self)
+        else:
+            self._graphs.move_to_end(sig)
+        metrics.set_gauge("sched.onestep.engaged", 1.0, {"mode": mode})
+        return captured.replay(leaves)
+
+    def drop(self) -> None:
+        """Drop every captured graph and give their memory pools back to
+        the card; the next call on a card warms up and captures anew.
+        ``shutdown()`` drops every captured step before it leaves the
+        process group."""
+        self._evict(list(self._graphs))
+        self._warm.clear()
+        self._key = None
+
+    def _evict(self, sigs: list) -> None:
+        """Drop the graphs of ``sigs`` and return their pools to the card
+        (an in-flight replay finishes first: ``empty_cache`` frees
+        through ``cudaFree``, which waits for the device).  Nothing else
+        holds a graph's static inputs and loss, which live in its pool."""
+        if not sigs:
+            return
+        for sig in sigs:
+            self._graphs.pop(sig).graph.reset()
+        torch.cuda.empty_cache()
+
+    @property
+    def graphs(self) -> int:
+        """How many captured graphs the step holds."""
+        return len(self._graphs)
+
+    def _side_stream_step(self, batch, mode: str, device) -> torch.Tensor:
+        main = torch.cuda.current_stream(device)
+        side = _warmup_stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss = self._eager(batch, mode)
+        main.wait_stream(side)
+        loss.record_stream(main)
+        return loss
+
+    def _capture(self, leaves: list, spec) -> _Captured:
+        """Capture one step on a copy of ``leaves`` into a new graph, in its
+        own memory pool (``torch.cuda.graph``'s default: replays of
+        alternating signatures do not follow capture order, which a
+        shared pool needs)."""
+        static = [t.clone() if torch.is_tensor(t) else t for t in leaves]
+        before = {fn: fn.launches for fn in LAUNCH_COUNTED}
+        device = self._device()
+        # torch.cuda.graph empties the cache as it starts: do so first,
+        # so that the growth across the capture is the graph's pool.
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                loss = self._step(tree_unflatten(static, spec))
+            launches = {fn: fn.launches - before.get(fn, 0) for fn in LAUNCH_COUNTED}
+        finally:  # the capture launched nothing on the device
+            for fn in LAUNCH_COUNTED:
+                fn.launches = before.get(fn, 0)
+        metrics.inc_counter("xir.onestep.steps")
+        return _Captured(graph, static, loss, launches,
+                         torch.cuda.memory_reserved(device) - reserved,
+                         self._units() - 1)
+
+    def _eager(self, batch, mode: str) -> torch.Tensor:
+        metrics.set_gauge("sched.onestep.engaged", 0.0, {"mode": mode})
+        return self._step(batch)
+
+
+class TrainStep(CapturedStep):
     """One data-parallel training step on this rank's batch:
     forward + backward, gradient exchange and optimizer update
     (``optimizer.step()``), then the loss and the model's floating
@@ -1008,17 +1214,10 @@ class TrainStep:
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Callable[[torch.nn.Module, object], torch.Tensor]):
+        super().__init__()
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
-        # (variant, batch signature) -> its graph, least recently replayed
-        # first; and the eager warm-up steps each of them has run.
-        self._graphs: "OrderedDict[tuple, _Captured]" = OrderedDict()
-        self._warm: "OrderedDict[tuple, int]" = OrderedDict()
-        self._key = None  # what every graph holds fixed besides the batch
-        # Whether the last call was settled: not a warm-up step or a
-        # capture of a new graph (AutotuneDriver.after_step).
-        self.last_settled = True
         self.autotune = None
         marker = getattr(optimizer, "fusion_threshold_bytes", "absent")
         if env.get_bool(env.AUTOTUNE) and marker is None:
@@ -1072,54 +1271,12 @@ class TrainStep:
         for sig in [sig for sig in self._warm if sig[0] == variant]:
             del self._warm[sig]
 
-    def _call(self, batch, variant) -> torch.Tensor:
-        mode = onestep_mode()
-        device = self._device()
-        self.last_settled = True
-        if mode == "off" or device.type != "cuda":
-            self.drop()
-            return self._eager(batch, mode)
-        reason = self.blocker()
-        if reason is not None:
-            if mode == "on":
-                raise HorovodTpuError(
-                    f"HVD_TPU_ONESTEP=on: this step cannot be captured as one "
-                    f"CUDA graph: {reason} (ROADMAP Queue A item A12a)"
-                )
-            self.drop()
-            return self._eager(batch, mode)
-        leaves, spec = tree_flatten(batch)
-        key = (mode, SchedConfig.from_env(), host_state(self.optimizer),
-               self._set_key(), env.get_env(env.TOPO))
-        if key != self._key:
-            self.drop()
-            self._key = key
-        sig = (variant, spec, _signature(leaves))
-        captured = self._graphs.get(sig)
-        if captured is None:
-            warm = self._warm.pop(sig, 0)
-            if warm < CAPTURE_WARMUP:
-                self._warm[sig] = warm + 1
-                if len(self._warm) > MAX_GRAPHS:  # bound those warming up
-                    self._warm.popitem(last=False)
-                self.last_settled = False
-                return self._side_stream_step(batch, mode, device)
-            if not onestep_engaged(self._units()):
-                self._warm[sig] = warm
-                return self._eager(batch, mode)
-            if len(self._graphs) >= MAX_GRAPHS:
-                self._evict([next(iter(self._graphs))])
-            self.last_settled = False
-            captured = self._graphs[sig] = self._capture(leaves, spec)
-            if runtime.is_initialized():  # shutdown() drops it first
-                runtime.get_runtime().captured_steps.add(self)
-        else:
-            self._graphs.move_to_end(sig)
-        metrics.set_gauge("sched.onestep.engaged", 1.0, {"mode": mode})
-        return captured.replay(leaves)
-
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def _host_key(self) -> tuple:
+        return (SchedConfig.from_env(), host_state(self.optimizer), self._set_key(),
+                env.get_env(env.TOPO))
 
     def _set_key(self) -> Optional[tuple]:
         """The optimizer's process set as the graphs hold it fixed: its id
@@ -1136,85 +1293,11 @@ class TrainStep:
 
     def blocker(self) -> Optional[str]:
         """:func:`capture_blocker` of this step's model and optimizer."""
-        rt = runtime.get_runtime() if runtime.is_initialized() else None
-        sparse = any(isinstance(m, (torch.nn.Embedding, torch.nn.EmbeddingBag))
-                     and m.sparse for m in self.model.modules())
-        plan = faults.get_plan()
-        return capture_blocker(
-            rt.backend if rt is not None else None,
-            getattr(self.optimizer, "backward_passes_per_step", 1), sparse,
-            all(g.get("capturable", True) for g in self.optimizer.param_groups),
-            getattr(self.optimizer, "point_to_point", False),
-            plan is not None and plan.arms_step())
-
-    def drop(self) -> None:
-        """Drop every captured graph and give their memory pools back to
-        the card; the next call on a card warms up and captures anew.
-        ``shutdown()`` drops every captured step before it leaves the
-        process group."""
-        self._evict(list(self._graphs))
-        self._warm.clear()
-        self._key = None
-
-    def _evict(self, sigs: list) -> None:
-        """Drop the graphs of ``sigs`` and return their pools to the card
-        (an in-flight replay finishes first: ``empty_cache`` frees
-        through ``cudaFree``, which waits for the device).  Nothing else
-        holds a graph's static inputs and loss, which live in its pool."""
-        if not sigs:
-            return
-        for sig in sigs:
-            self._graphs.pop(sig).graph.reset()
-        torch.cuda.empty_cache()
-
-    @property
-    def graphs(self) -> int:
-        """How many captured graphs the step holds."""
-        return len(self._graphs)
+        return step_blocker(self.model, self.optimizer)
 
     def _units(self) -> int:
         schedule = getattr(self.optimizer, "schedule", None)
         return (len(schedule) if schedule is not None else 0) + 1
-
-    def _side_stream_step(self, batch, mode: str, device) -> torch.Tensor:
-        main = torch.cuda.current_stream(device)
-        side = _warmup_stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            loss = self._eager(batch, mode)
-        main.wait_stream(side)
-        loss.record_stream(main)
-        return loss
-
-    def _capture(self, leaves: list, spec) -> _Captured:
-        """Capture one step on a copy of ``leaves`` into a new graph, in its
-        own memory pool (``torch.cuda.graph``'s default: replays of
-        alternating signatures do not follow capture order, which a
-        shared pool needs)."""
-        static = [t.clone() if torch.is_tensor(t) else t for t in leaves]
-        before = {fn: fn.launches for fn in LAUNCH_COUNTED}
-        device = self._device()
-        # torch.cuda.graph empties the cache as it starts: do so first,
-        # so that the growth across the capture is the graph's pool.
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                loss = self._step(tree_unflatten(static, spec))
-            launches = {fn: fn.launches - before.get(fn, 0) for fn in LAUNCH_COUNTED}
-        finally:  # the capture launched nothing on the device
-            for fn in LAUNCH_COUNTED:
-                fn.launches = before.get(fn, 0)
-        metrics.inc_counter("xir.onestep.steps")
-        return _Captured(graph, static, loss, launches,
-                         torch.cuda.memory_reserved(device) - reserved,
-                         self._units() - 1)
-
-    def _eager(self, batch, mode: str) -> torch.Tensor:
-        metrics.set_gauge("sched.onestep.engaged", 0.0, {"mode": mode})
-        return self._step(batch)
 
     def _step(self, batch) -> torch.Tensor:
         self.model.train()

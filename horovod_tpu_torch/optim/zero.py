@@ -25,8 +25,23 @@ two collectives are ``ops/quantized.py`` ``quantized_reduce_scatter``
 (kernels B3 and B4, or B6 on the ring) and ``quantized_all_gather`` (B3
 and B5, or B7), the shards padded to the world times the quantization
 block, and the error-feedback residual of the reduce-scatter is held
-with the optimizer (``HVD_TPU_SCHED_WIRE_EF``, default on).  The steps run
-eagerly: capturing them as CUDA graphs is ROADMAP Queue A entry A11.
+with the optimizer (``HVD_TPU_SCHED_WIRE_EF``, default on).
+
+On a card both steps are captured as CUDA graphs under
+``HVD_TPU_ONESTEP`` (default ``auto``), as ``TrainStep`` captures the
+data-parallel step (``optim/distributed_optimizer.py`` ``CapturedStep``,
+the counterpart of the JAX package compiling each step whole): two eager
+warm-up steps, then one graph per batch signature, replayed for every
+later call, bitwise with the eager step.  The graphs hold the model, the
+optimizer state and their tensors fixed: a call with another model,
+state or shard, or a changed hyperparameter (``host_state``), captures
+anew.  Every tensor the step carries from one call to the next is
+updated in place (the parameters, the shards, the optimizer's state, the
+error-feedback residual), so a replay carries it on.  An optimizer whose
+update reads its step count on the host (``torch.optim.AdamW`` without
+``capturable=True``), a gloo group or an armed fault plan blocks the
+capture (``capture_blocker``): ``auto`` then runs eagerly and ``on``
+raises.
 
 The port flattens parameters in module order (``named_parameters()``);
 the JAX package in the sorted order of the pytree's keys.
@@ -43,6 +58,7 @@ import torch.nn.functional as F
 from .. import runtime
 from ..ops.collectives import _all_gather as all_gather_into
 from ..ops.collectives import _reduce_scatter as reduce_scatter_into
+from .distributed_optimizer import CapturedStep, host_state, step_blocker
 
 OptimizerFactory = Callable[[list], torch.optim.Optimizer]
 
@@ -147,8 +163,9 @@ class ShardedOptimizer:
             from ..ops.quantized import quantized_reduce_scatter
 
             if self.ef is not None:
-                gshard, self.ef = quantized_reduce_scatter(
+                gshard, ef = quantized_reduce_scatter(
                     gflat + self.ef, Sum, wire=self.wire, ef=True)
+                self.ef.copy_(ef)  # in place: a replayed graph carries it on
             else:
                 gshard = quantized_reduce_scatter(gflat, Sum, wire=self.wire)
         elif self.world > 1:
@@ -211,19 +228,36 @@ def zero_train_step(loss_fn: Callable, make_optimizer: OptimizerFactory, *,
     parameters replicated: the same on every rank); ``model, state, loss
     = step(model, state, batch)`` runs the forward and backward, the
     sharded update (``pre_update`` and ``wire`` as there) and returns the
-    loss averaged over the world.  The model is updated in place."""
+    loss averaged over the world.  The model is updated in place.  On a
+    card the step is captured (module docstring)."""
 
-    class _Step:
+    class _Step(CapturedStep):
         def init(self, model: torch.nn.Module) -> ShardedOptimizer:
             return ShardedOptimizer(model.parameters(), make_optimizer,
                                     pre_update=pre_update, wire=wire)
 
         def __call__(self, model, opt_state: ShardedOptimizer, batch):
-            loss = loss_fn(model, batch)
+            self._model, self._state = model, opt_state
+            return model, opt_state, self._call(batch)
+
+        def _device(self) -> torch.device:
+            return self._state.shard.device
+
+        def blocker(self):
+            return step_blocker(self._model, self._state.optimizer)
+
+        def _host_key(self) -> tuple:
+            return self._model, self._state, host_state(self._state.optimizer)
+
+        def _units(self) -> int:
+            return 2  # the exchange and the update
+
+        def _step(self, batch) -> torch.Tensor:
+            loss = loss_fn(self._model, batch)
             loss.backward()
-            opt_state.step()
-            opt_state.zero_grad()
-            return model, opt_state, _world_mean(loss)
+            self._state.step()
+            self._state.zero_grad()
+            return _world_mean(loss)
 
     return _Step()
 
@@ -286,7 +320,8 @@ def fsdp_train_step(loss_fn: Callable, make_optimizer: OptimizerFactory, *,
     ``example_params`` is a mapping of names to tensors of the right
     shapes and dtypes (a module on the ``meta`` device, or its
     ``named_parameters()``).  ``compression`` (``Compression.bf16``, ...)
-    wraps the reduce-scatter."""
+    wraps the reduce-scatter.  On a card the step is captured (module
+    docstring)."""
     world, rank = _world()
     meta: dict = {}
 
@@ -321,7 +356,7 @@ def fsdp_train_step(loss_fn: Callable, make_optimizer: OptimizerFactory, *,
         reduce_scatter_into(out, x.contiguous(), op=dist.ReduceOp.SUM)
         return out
 
-    class _Step:
+    class _Step(CapturedStep):
         def init(self, params: ParamsLike) -> Tuple[torch.nn.Parameter, torch.optim.Optimizer]:
             _set_layout(params)
             m = _layout()
@@ -332,7 +367,23 @@ def fsdp_train_step(loss_fn: Callable, make_optimizer: OptimizerFactory, *,
             return pshard, make_optimizer([pshard])
 
         def __call__(self, pshard: torch.nn.Parameter, opt: torch.optim.Optimizer, batch):
-            m = _layout()
+            self._pshard, self._opt = pshard, opt
+            return pshard, opt, self._call(batch)
+
+        def _device(self) -> torch.device:
+            return self._pshard.device
+
+        def blocker(self):
+            return step_blocker(None, self._opt)
+
+        def _host_key(self) -> tuple:
+            return self._opt, self._pshard.data_ptr(), host_state(self._opt)
+
+        def _units(self) -> int:
+            return 3  # the all-gather, the reduce-scatter and the update
+
+        def _step(self, batch) -> torch.Tensor:
+            pshard, opt, m = self._pshard, self._opt, _layout()
             pfull = _gather_flat(pshard.detach()).detach().requires_grad_()
             loss = loss_fn(m["unravel"](pfull), batch)
             (gflat,) = torch.autograd.grad(loss, pfull)
@@ -345,7 +396,7 @@ def fsdp_train_step(loss_fn: Callable, make_optimizer: OptimizerFactory, *,
             pshard.grad = gshard.to(pshard.dtype)
             opt.step()
             opt.zero_grad(set_to_none=True)
-            return pshard, opt, _world_mean(loss)
+            return _world_mean(loss)
 
         def gather(self, pshard: torch.Tensor) -> Dict[str, torch.Tensor]:
             with torch.no_grad():

@@ -2,8 +2,13 @@
 
 Counterpart of the flat path of ``horovod_tpu/sched/execute.py``:
 ``exchange`` (``:392``) with the bucket chain of ``_chain`` (``:40-46``),
-``quantized_exchange_flat`` (``:607``), ``bf16_wire`` (``:665``) and
-``record_wire_metrics`` (``:197``).
+``quantized_exchange_flat`` (``:607``), ``bf16_wire`` (``:665``),
+``record_wire_metrics`` (``:197``) and the reduce-scatter exchanges of
+``HVD_TPU_SCHED_MODE=reduce_scatter``, ``reduce_scatter_flat`` (``:686``)
+and ``hier_reduce_scatter_flat`` (``:772``).  The reduce-scatter
+exchanges and ``quantized_exchange_flat`` take ``shard_update``, the
+ZeRO-1 hook: a function of this rank's float32 shard of the reduced
+buffer, run between the reduce-scatter and the all-gather.
 
 The JAX package ties each bucket to the previous one with an
 optimization barrier, so XLA issues the collectives in schedule order
@@ -56,10 +61,12 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from .. import metrics, runtime
 from ..ops import fusion
-from ..ops.collectives import Sum, _scale
+from ..ops.collectives import Sum, _all_gather, _reduce_scatter, _scale
 from ..ops.kernels import cast_buffer, scale_cast
 from ..ops.quantized import _axis_groups, quantized_all_gather, quantized_reduce_scatter
 from .plan import Bucket, BucketSchedule, wire_bytes
@@ -285,6 +292,7 @@ def quantized_exchange_flat(
     wire: str,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
+    shard_update: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     residual: Optional[torch.Tensor] = None,
     process_set=None,
     groups=None,
@@ -294,9 +302,9 @@ def quantized_exchange_flat(
     reduce-scatter, the shard scaled by ``postscale`` (and ``1/n`` for
     an average, n the size of the rank's group: the world, its tile of
     ``process_set`` or its group of the explicit ``groups``: lists of
-    ranks or an ``ops/quantized.py`` ``Groups``), quantized
-    all-gather, the first ``f.numel()`` elements cast back to
-    ``f.dtype``.
+    ranks or an ``ops/quantized.py`` ``Groups``), ``shard_update`` on
+    that float32 shard (``:657-658``), quantized all-gather, the first
+    ``f.numel()`` elements cast back to ``f.dtype``.
 
     ``residual`` engages error feedback: the wire carries
     ``quantize(g)`` and the new residual ``g − dequant(quantize(g))`` is
@@ -312,8 +320,48 @@ def quantized_exchange_flat(
     if average:
         postscale_factor = postscale_factor / _axis_groups(process_set, groups).n
     shard = _scale_f32(shard, postscale_factor)
+    if shard_update is not None:
+        shard = shard_update(shard)
     out = quantized_all_gather(shard, process_set, wire=wire, groups=groups)[:f.numel()]
     return out.to(f.dtype), r_new
+
+
+def reduce_scatter_flat(
+    f: torch.Tensor,
+    *,
+    average: bool,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    shard_update: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One bucket's dense reduce-scatter + all-gather exchange over the
+    world (``:686-719``, arXiv:2004.13336's decomposition): ``f`` scaled
+    by ``prescale``, padded to a multiple of the world, reduce-scattered
+    (this rank's 1/N shard of the sum), scaled by ``postscale`` (over
+    the world for an average), ``shard_update`` run on the shard, then
+    all-gathered and cut back to ``f.numel()``.  The wire carries one
+    allreduce's bytes; the scales are the dense path's
+    (``collectives._scale``: kernel B1 on a 16-bit buffer)."""
+    world = runtime.size()
+    n = f.numel()
+    g = _scale(f, prescale_factor)
+    pad = (-n) % world
+    if pad:
+        g = F.pad(g, (0, pad))
+    shard = g
+    if world > 1:
+        shard = g.new_empty((g.numel() // world,))
+        _reduce_scatter(shard, g.contiguous(), op=dist.ReduceOp.SUM)
+    if average:
+        postscale_factor = postscale_factor / world
+    shard = _scale(shard, postscale_factor)
+    if shard_update is not None:
+        shard = shard_update(shard)
+    out = shard
+    if world > 1:
+        out = shard.new_empty((shard.numel() * world,))
+        _all_gather(out, shard.contiguous())
+    return out[:n] if pad else out
 
 
 
@@ -361,3 +409,33 @@ def hier_adasum_flat(
     out = hierarchical.hierarchical_adasum_all_reduce(
         _scale(f, prescale_factor), op=Average if average else Sum, wire=wire)
     return _scale(out, postscale_factor)
+
+
+def hier_reduce_scatter_flat(
+    f: torch.Tensor,
+    *,
+    average: bool,
+    wire: str = "off",
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    shard_update: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One bucket's hierarchical reduce-scatter + all-gather exchange
+    (``HVD_TPU_SCHED_MODE=reduce_scatter`` on a ``hier`` bucket,
+    ``:772-807``): both phases staged through the domains
+    (``topo/hierarchical.py`` ``hierarchical_reduce_scatter`` and
+    ``hierarchical_all_gather``), ``shard_update`` on the 1/(s·k) shard
+    between them, a compressed ``wire`` on the cross-domain hops only.
+    The all-gather inverts the reduce-scatter's shard layout exactly, so
+    the result equals the flat exchange's elementwise."""
+    from ..topo import hierarchical
+
+    n = f.numel()
+    g = _scale(f, prescale_factor)
+    shard = hierarchical.hierarchical_reduce_scatter(g, op=Sum, wire=wire)
+    if average:
+        postscale_factor = postscale_factor / runtime.size()
+    shard = _scale(shard, postscale_factor)
+    if shard_update is not None:
+        shard = shard_update(shard)
+    return hierarchical.hierarchical_all_gather(shard, wire=wire)[:n]

@@ -84,9 +84,13 @@ class SchedConfig:
     in schedule order (``sched/hooks.py``); off, after the backward.
     Off by default here (on in the JAX package): on the H100 the
     host-bound ResNet-50 step measured slower overlapped than after the
-    backward (``PERF.md`` §6)."""
+    backward (``PERF.md`` §6).  ``mode`` (``HVD_TPU_SCHED_MODE``) is how
+    ``DistributedOptimizer`` exchanges a plain world Sum or Average
+    bucket: ``allreduce`` or ``reduce_scatter`` (a reduce-scatter and an
+    all-gather, ``sched/execute.py`` ``reduce_scatter_flat``)."""
 
     enabled: bool = True
+    mode: str = "allreduce"  # "allreduce" | "reduce_scatter"
     bucket_bytes: Optional[int] = None  # None -> fusion threshold knob
     look_ahead: int = 3
     barriers: bool = False
@@ -97,6 +101,11 @@ class SchedConfig:
     lowering: str = "auto"
 
     def __post_init__(self):
+        if self.mode not in ("allreduce", "reduce_scatter"):
+            raise ValueError(
+                f"HVD_TPU_SCHED_MODE must be 'allreduce' or "
+                f"'reduce_scatter', got {self.mode!r}"
+            )
         object.__setattr__(self, "wire", _canon_wire_choice(self.wire))
         object.__setattr__(self, "lowering", _canon_lowering(self.lowering))
 
@@ -106,6 +115,8 @@ class SchedConfig:
         bucket_bytes = env.get_int(env.SCHED_BUCKET_BYTES, -1)
         return cls(
             enabled=raw not in ("off", "0", "false", "no"),
+            mode=(env.get_env(env.SCHED_MODE, "allreduce") or "allreduce")
+            .strip().lower(),
             bucket_bytes=None if bucket_bytes < 0 else bucket_bytes,
             look_ahead=env.get_int(env.SCHED_LOOK_AHEAD, 3),
             barriers=env.get_bool(env.SCHED_BARRIERS, False),

@@ -14,6 +14,9 @@ from typing import Optional
 
 FUSION_THRESHOLD = "FUSION_THRESHOLD"  # bytes; reference default 64MB
 SCHED = "SCHED"  # on (default) | off
+# Exchange of a plain world Sum/Average bucket: allreduce (default) |
+# reduce_scatter (a reduce-scatter, then an all-gather: sched/execute.py).
+SCHED_MODE = "SCHED_MODE"
 SCHED_BUCKET_BYTES = "SCHED_BUCKET_BYTES"  # default: fusion threshold
 SCHED_LOOK_AHEAD = "SCHED_LOOK_AHEAD"  # bucket-close look-ahead, default 3
 SCHED_BARRIERS = "SCHED_BARRIERS"  # exchange launched from the backward, default off

@@ -117,17 +117,33 @@ def test_config_from_env_matches_jax(monkeypatch):
     monkeypatch.setenv("HVD_TPU_SCHED_LOOK_AHEAD", "5")
     monkeypatch.setenv("HVD_TPU_SCHED_CAPTURE_ORDER", "0")
     monkeypatch.setenv("HVD_TPU_SCHED_WIRE_EF", "off")
-    for barriers in ("1", "0"):
+    for barriers, mode in (("1", " Reduce_Scatter"), ("0", None)):
         monkeypatch.setenv("HVD_TPU_SCHED_BARRIERS", barriers)
+        if mode is None:
+            monkeypatch.delenv("HVD_TPU_SCHED_MODE", raising=False)
+        else:
+            monkeypatch.setenv("HVD_TPU_SCHED_MODE", mode)
         j, t = jplan.SchedConfig.from_env(), tplan.SchedConfig.from_env()
-        for f in ("enabled", "bucket_bytes", "look_ahead", "barriers",
+        for f in ("enabled", "mode", "bucket_bytes", "look_ahead", "barriers",
                   "capture_order", "wire", "wire_ef"):
             assert getattr(j, f) == getattr(t, f), f
+        assert t.mode == ("reduce_scatter" if mode else "allreduce")
     # Unset, the port exchanges after the backward (the JAX package
     # sequences its buckets): the overlapped step measured slower.
     monkeypatch.delenv("HVD_TPU_SCHED_BARRIERS")
     assert jplan.SchedConfig.from_env().barriers
     assert not tplan.SchedConfig.from_env().barriers
+
+
+@pytest.mark.parametrize("mode", ["scatter", "all_reduce"])
+def test_a_bad_mode_raises_as_jax(monkeypatch, mode):
+    monkeypatch.setenv("HVD_TPU_SCHED_MODE", mode)
+    with pytest.raises(ValueError) as want:
+        jplan.SchedConfig.from_env()
+    with pytest.raises(ValueError) as got:
+        tplan.SchedConfig.from_env()
+    assert str(got.value) == str(want.value)
+    assert "HVD_TPU_SCHED_MODE" in str(got.value)
 
 
 def test_quantized_wire_is_not_ported():
