@@ -5,9 +5,10 @@ One gloo world of four processes joined through a ``FileStore`` under
 ``HVD_TPU_TOPO=2x2`` (domains {0,1} and {2,3}), with the set {0,1}
 registered and ``HVD_TPU_FUSION_THRESHOLD=32`` (every leaf its own
 bucket), run once and shared across xdist workers behind a ``filelock``
-(``tests/test_torch_process_sets.py``).  The JAX side runs in its own
-fresh interpreter on ``jax.devices()[:4]`` with the same topology and
-knobs, while the ranks run.  The problem is ``tests/test_zero.py``'s
+(``tests/test_torch_process_sets.py``).  The JAX side runs in two fresh
+interpreters (the steps, and the exchanges with the optimizer) on
+``jax.devices()[:4]`` with the same topology and knobs, while the ranks
+run.  The problem is ``tests/test_zero.py``'s
 linear regression (``w [5, 3]``, ``b [3]``, 32 rows, rank r taking rows
 ``8r:8r+8``); the module registers ``b`` before ``w``, so its flat
 order (module order) is the JAX package's (sorted keys).
@@ -242,7 +243,7 @@ _WORKER = textwrap.dedent("""
 """)
 
 _JAX = textwrap.dedent("""
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
@@ -279,23 +280,36 @@ _JAX = textwrap.dedent("""
 
     OPTS = {"sgd": lambda: optax.sgd(0.125, momentum=0.5), "sgd1": lambda: optax.sgd(0.1),
             "adamw": lambda: optax.adamw(1e-2, weight_decay=1e-4)}
-    for name, (lower, wire, opt, kind, steps, clip) in RUNS.items():
-        os.environ["HVD_TPU_TOPO_LOWER"] = lower
-        os.environ["HVD_TPU_SCHED_WIRE"] = wire
-        step = sched.bucketed_zero_step(loss_fn(kind), OPTS[opt](),
-                                        pre_update=clip_by_global_norm(0.05) if clip else None)
-        params = {"w": jnp.asarray(data[kind + "w"]), "b": jnp.asarray(data[kind + "b"])}
-        st = step.init(params)
-        batch = (jnp.asarray(data[kind + "x"]), jnp.asarray(data[kind + "y"]))
-        for _ in range(steps):
-            params, st, loss = step(params, st, batch)
-        res[f"{name}|w"], res[f"{name}|b"] = np.asarray(params["w"]), np.asarray(params["b"])
-        lays = bucket_layouts(params, N)
-        res[f"{name}|layout"] = np.array([[l.n, l.padded, l.shard_len, l.shards]
-                                          for l in lays])
-        res[f"{name}|lowering"] = np.array([l.lowering for l in lays])
-    os.environ["HVD_TPU_TOPO_LOWER"] = "flat"
-    os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+
+
+    def steps():
+        for name, (lower, wire, opt, kind, steps, clip) in RUNS.items():
+            os.environ["HVD_TPU_TOPO_LOWER"] = lower
+            os.environ["HVD_TPU_SCHED_WIRE"] = wire
+            step = sched.bucketed_zero_step(
+                loss_fn(kind), OPTS[opt](),
+                pre_update=clip_by_global_norm(0.05) if clip else None)
+            params = {"w": jnp.asarray(data[kind + "w"]), "b": jnp.asarray(data[kind + "b"])}
+            st = step.init(params)
+            batch = (jnp.asarray(data[kind + "x"]), jnp.asarray(data[kind + "y"]))
+            for _ in range(steps):
+                params, st, loss = step(params, st, batch)
+            res[f"{name}|w"], res[f"{name}|b"] = np.asarray(params["w"]), np.asarray(params["b"])
+            lays = bucket_layouts(params, N)
+            res[f"{name}|layout"] = np.array([[l.n, l.padded, l.shard_len, l.shards]
+                                              for l in lays])
+            res[f"{name}|lowering"] = np.array([l.lowering for l in lays])
+
+
+    def exchanges():
+        os.environ["HVD_TPU_TOPO_LOWER"] = "flat"
+        os.environ["HVD_TPU_SCHED_WIRE"] = "off"
+        res.update(traced(body, jnp.asarray(data["xd"]), jnp.asarray(data["xg"]),
+                          jnp.asarray(data["rq"])))
+        for wire in ("off", "bf16"):
+            res[f"do|{wire}"] = do_step("reduce_scatter", wire)
+        res["do|hier"] = do_step("reduce_scatter", lowering="hier")
+
 
     def body(x, xg, rq):
         out = {}
@@ -313,9 +327,6 @@ _JAX = textwrap.dedent("""
         out["qx|ef"], out["qx|ef_res"] = jx.quantized_exchange_flat(
             xg, average=True, wire="int8", shard_update=upd, residual=rq, **kw)
         return out
-
-    res.update(traced(body, jnp.asarray(data["xd"]), jnp.asarray(data["xg"]),
-                      jnp.asarray(data["rq"])))
 
     def do_step(mode, wire="off", **kw):
         os.environ["HVD_TPU_SCHED_MODE"] = mode
@@ -337,10 +348,10 @@ _JAX = textwrap.dedent("""
         ys = jnp.asarray(data["sy"].reshape(2, N, 4, 1).transpose(1, 0, 2, 3))
         return traced(body, stack(data["sw"]), stack(data["sb"]), xs, ys)
 
-    for wire in ("off", "bf16"):
-        res[f"do|{wire}"] = do_step("reduce_scatter", wire)
-    res["do|hier"] = do_step("reduce_scatter", lowering="hier")
-    np.savez(OUT + "/jax.npz", **res)
+    # Two processes, run side by side: the steps, and the exchanges with
+    # the optimizer.
+    {"steps": steps, "exchanges": exchanges}[sys.argv[1]]()
+    np.savez(f"{OUT}/jax_{sys.argv[1]}.npz", **res)
     hvd.shutdown()
 """)
 
@@ -393,9 +404,11 @@ def _run_world(tmp):
     (tmp / "worker.py").write_text(common + _WORKER)
     (tmp / "jax_side.py").write_text(common + _JAX)
     env = _clean_env()
+    parts = ("steps", "exchanges")
     cmds = [[sys.executable, str(tmp / "worker.py"), str(r), str(N), str(tmp / "store"),
-             str(tmp)] for r in range(N)] + [[sys.executable, str(tmp / "jax_side.py"), str(tmp)]]
-    names = [f"rank {r}" for r in range(N)] + ["the JAX side"]
+             str(tmp)] for r in range(N)]
+    cmds += [[sys.executable, str(tmp / "jax_side.py"), part, str(tmp)] for part in parts]
+    names = [f"rank {r}" for r in range(N)] + [f"the JAX side's {part}" for part in parts]
     procs = []
     try:
         for cmd in cmds:
@@ -416,8 +429,10 @@ def _run_world(tmp):
                 p.wait()
     for name, p, out in zip(names, procs, outs):
         assert p.returncode == 0, f"{name} exited with {p.returncode}:\n{out}"
-    return (data, [dict(np.load(tmp / f"rank{r}.npz", allow_pickle=True)) for r in range(N)],
-            dict(np.load(tmp / "jax.npz")))
+    want = {}
+    for part in parts:
+        want.update(np.load(tmp / f"jax_{part}.npz"))
+    return data, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(N)], want
 
 
 @pytest.fixture(scope="module")
@@ -607,6 +622,25 @@ def test_bucket_layouts_match_jax(world, wire):
         assert (g.indices, g.shapes, g.sizes, g.n, g.padded, g.shard_len, g.wire,
                 g.lowering, g.shards) == (tuple(w.indices), w.shapes, w.sizes, w.n, w.padded,
                                           w.shard_len, w.wire, w.lowering, w.shards)
+
+
+def test_init_records_the_schedule_metrics():
+    """``init`` publishes the JAX package's ``_record`` (``:384-391``):
+    the buckets and bytes per step, one more ZeRO step built, the wire
+    bytes per wire."""
+    thvd.init("cpu")
+    try:
+        metrics.reset("sched.")
+        step = bucketed_zero_step(_mse, lambda p: torch.optim.SGD(p, lr=0.1),
+                                  cfg=SchedConfig(bucket_bytes=32, wire="int8"))
+        step.init(_model())
+        assert metrics.get_counter("sched.zero_steps_built") == 1
+        assert metrics.get_gauge("sched.buckets_per_step") == len(step.schedule) > 1
+        assert metrics.get_gauge("sched.bytes_per_step") == 4 * (3 * 4 + 4 + 4 * 2 + 2)
+        wire = sum(b.nbytes // 4 + 4 for b in step.schedule.buckets)  # a block each
+        assert metrics.get_gauge("sched.wire_bytes", {"wire": "int8"}) == wire
+    finally:
+        thvd.shutdown()
 
 
 # -------------------------------------------- the capture, card faked
