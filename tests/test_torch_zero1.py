@@ -5,8 +5,9 @@ One gloo world of four processes joined through a ``FileStore`` under
 ``HVD_TPU_TOPO=2x2`` (domains {0,1} and {2,3}), with the set {0,1}
 registered and ``HVD_TPU_FUSION_THRESHOLD=32`` (every leaf its own
 bucket), run once and shared across xdist workers behind a ``filelock``
-(``tests/test_torch_process_sets.py``).  The JAX side runs in two fresh
-interpreters (the steps, and the exchanges with the optimizer) on
+(``tests/test_torch_process_sets.py``).  The JAX side runs in three fresh
+interpreters (the flat steps, the hierarchical steps, the exchanges
+with the optimizer) on
 ``jax.devices()[:4]`` with the same topology and knobs, while the ranks
 run.  The problem is ``tests/test_zero.py``'s
 linear regression (``w [5, 3]``, ``b [3]``, 32 rows, rank r taking rows
@@ -282,8 +283,10 @@ _JAX = textwrap.dedent("""
             "adamw": lambda: optax.adamw(1e-2, weight_decay=1e-4)}
 
 
-    def steps():
+    def steps(lowerings):
         for name, (lower, wire, opt, kind, steps, clip) in RUNS.items():
+            if lower not in lowerings:
+                continue
             os.environ["HVD_TPU_TOPO_LOWER"] = lower
             os.environ["HVD_TPU_SCHED_WIRE"] = wire
             step = sched.bucketed_zero_step(
@@ -348,9 +351,10 @@ _JAX = textwrap.dedent("""
         ys = jnp.asarray(data["sy"].reshape(2, N, 4, 1).transpose(1, 0, 2, 3))
         return traced(body, stack(data["sw"]), stack(data["sb"]), xs, ys)
 
-    # Two processes, run side by side: the steps, and the exchanges with
-    # the optimizer.
-    {"steps": steps, "exchanges": exchanges}[sys.argv[1]]()
+    # Three processes, run side by side: the flat steps, the hierarchical
+    # steps, and the exchanges with the optimizer.
+    {"flat": lambda: steps(("flat",)), "hier": lambda: steps(("hier", "hier_adasum")),
+     "exchanges": exchanges}[sys.argv[1]]()
     np.savez(f"{OUT}/jax_{sys.argv[1]}.npz", **res)
     hvd.shutdown()
 """)
@@ -404,7 +408,7 @@ def _run_world(tmp):
     (tmp / "worker.py").write_text(common + _WORKER)
     (tmp / "jax_side.py").write_text(common + _JAX)
     env = _clean_env()
-    parts = ("steps", "exchanges")
+    parts = ("flat", "hier", "exchanges")
     cmds = [[sys.executable, str(tmp / "worker.py"), str(r), str(N), str(tmp / "store"),
              str(tmp)] for r in range(N)]
     cmds += [[sys.executable, str(tmp / "jax_side.py"), part, str(tmp)] for part in parts]
