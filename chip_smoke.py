@@ -3896,8 +3896,8 @@ class RingRecorder:
         return bad
 
 
-# Phase slice fsdp's runs: the five of PR 14 in every layout, and on four
-# cards (or off the card, a rehearsal) the sharded steps of PR 18.  A name
+# Phase slice fsdp's runs: FSDP_KINDS in every layout, and on four cards
+# (or off the card, a rehearsal) FSDP_NEW_KINDS besides.  A name
 # ending in "@on" is the run before it captured (HVD_TPU_ONESTEP=on):
 # weights and losses bitwise with it.
 FSDP_KINDS = ["dp", "dp_bf16", "fsdp", "fsdp_bf16", "zero_int8"]
